@@ -1,0 +1,204 @@
+"""Deformable transformer encoder/decoder over the temporal pyramid.
+
+Port of gvl_tpu/models/transformer.py (query mode; the two-stage proposal
+embedding and remat are not ported). As in the JAX package, the decoder loop
+and box refinement live in the top-level model (gvl.py); here the decoder is
+only the container of its layers, so that parameter names follow the
+reference pdvc/deformable_transformer.py state_dict
+(`transformer.encoder.layers.{i}.*`, `transformer.decoder.layers.{i}.*`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gvl_tpu_torch.models.layers import MSDeformAttn1D, lecun_normal_
+
+
+def pyramid_shapes(T: int, num_levels: int):
+    """Static per-level lengths of the stride-2 pyramid for frame count T."""
+    shapes = [int(T)]
+    for _ in range(1, num_levels):
+        shapes.append((shapes[-1] + 1) // 2)
+    return tuple(shapes)
+
+
+def flatten_levels(srcs, masks, poses, level_embed):
+    """Concatenate pyramid levels into one (B, S, C) sequence. Returns
+    (src_flat, mask_flat, pos_flat, temporal_shapes, valid_ratios)."""
+    temporal_shapes = tuple(int(s.shape[1]) for s in srcs)
+    src_flat = torch.cat(srcs, dim=1)
+    mask_flat = torch.cat(masks, dim=1)
+    pos_flat = torch.cat(
+        [p + level_embed[l][None, None, :] for l, p in enumerate(poses)], dim=1)
+    valid_ratios = torch.stack(
+        [m.float().sum(1) / m.shape[1] for m in masks], dim=1)
+    return src_flat, mask_flat, pos_flat, temporal_shapes, valid_ratios
+
+
+def encoder_reference_points(temporal_shapes: Sequence[int],
+                             valid_ratios: torch.Tensor) -> torch.Tensor:
+    """Per-position normalized reference coordinate, per level: (B, S, L, 1)."""
+    refs = []
+    for lvl, T in enumerate(temporal_shapes):
+        r = (torch.arange(T, dtype=torch.float32,
+                          device=valid_ratios.device) + 0.5)[None, :]
+        refs.append(r / (valid_ratios[:, None, lvl] * T))          # (B, T)
+    ref = torch.cat(refs, dim=1)                                   # (B, S)
+    ref = ref[:, :, None] * valid_ratios[:, None, :]               # (B, S, L)
+    return ref[:, :, :, None]
+
+
+def expand_reference_for_levels(reference_points: torch.Tensor,
+                                valid_ratios: torch.Tensor) -> torch.Tensor:
+    """(B, Nq, 1|2) -> (B, Nq, L, 1|2) scaled by per-level valid ratios."""
+    if reference_points.shape[-1] == 2:
+        vr = torch.stack([valid_ratios, valid_ratios], -1)         # (B, L, 2)
+        return reference_points[:, :, None, :] * vr[:, None, :, :]
+    return reference_points[:, :, None, :] * valid_ratios[:, None, :, None]
+
+
+class FFN(nn.Module):
+    """linear1 -> ReLU -> linear2, residual, LayerNorm (`forward_ffn`).
+
+    A base class, not a submodule, so that its parameters sit directly on the
+    layer as in the reference state_dict; the norm is `norm2` in encoder
+    layers and `norm3` in decoder layers."""
+
+    def __init__(self, d_model: int, d_ffn: int, norm_name: str, device=None):
+        super().__init__()
+        self.linear1 = nn.Linear(d_model, d_ffn, device=device)
+        self.linear2 = nn.Linear(d_ffn, d_model, device=device)
+        self._ffn_norm = norm_name
+        setattr(self, norm_name, nn.LayerNorm(d_model, eps=1e-5, device=device))
+
+    def forward_ffn(self, x):
+        h = self.linear2(F.relu(self.linear1(x)))
+        return getattr(self, self._ffn_norm)(x + h)
+
+
+class DeformableEncoderLayer(FFN):
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
+                 n_points: int, band_margin: int = 32, device=None):
+        super().__init__(d_model, d_ffn, "norm2", device=device)
+        self.self_attn = MSDeformAttn1D(d_model, n_levels, n_heads, n_points,
+                                        band_margin=band_margin, device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+
+    def forward(self, src, pos, reference_points, mask_flat, temporal_shapes):
+        h = self.self_attn(src + pos, reference_points, src, mask_flat,
+                           temporal_shapes)
+        return self.forward_ffn(self.norm1(src + h))
+
+
+class DeformableEncoder(nn.Module):
+    def __init__(self, d_model: int, d_ffn: int, num_layers: int,
+                 n_levels: int, n_heads: int, n_points: int,
+                 band_margin: int = 32, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DeformableEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
+                                   band_margin, device=device)
+            for _ in range(num_layers))
+
+    def forward(self, src, pos, mask_flat, temporal_shapes, valid_ratios):
+        ref = encoder_reference_points(temporal_shapes, valid_ratios)
+        out = src
+        for layer in self.layers:
+            out = layer(out, pos, ref, mask_flat, temporal_shapes)
+        return out
+
+
+class MultiheadSelfAttention(nn.Module):
+    """Multi-head dot-product attention with nn.MultiheadAttention's
+    parameter names (in_proj_weight (3C, C), in_proj_bias, out_proj) and
+    flax MultiHeadDotProductAttention's math: q scaled by 1/sqrt(Dh), masked
+    keys set to the dtype's minimum before the softmax."""
+
+    def __init__(self, d_model: int, n_heads: int, device=None):
+        super().__init__()
+        self.n_heads = n_heads
+        self.in_proj_weight = nn.Parameter(
+            torch.empty(3 * d_model, d_model, device=device))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model, device=device))
+        self.out_proj = nn.Linear(d_model, d_model, device=device)
+
+    def flax_init_(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.in_proj_weight, generator)
+        self.in_proj_bias.zero_()
+
+    def forward(self, q_in, k_in, v_in, key_mask: Optional[torch.Tensor] = None):
+        B, Nq, C = q_in.shape
+        H = self.n_heads
+        Dh = C // H
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        q = F.linear(q_in, wq, bq).reshape(B, Nq, H, Dh) / math.sqrt(Dh)
+        k = F.linear(k_in, wk, bk).reshape(B, -1, H, Dh)
+        v = F.linear(v_in, wv, bv).reshape(B, -1, H, Dh)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if key_mask is not None:
+            logits = logits.masked_fill(~key_mask[:, None, None, :],
+                                        torch.finfo(logits.dtype).min)
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Nq, C)
+        return self.out_proj(out)
+
+
+class DeformableDecoderLayer(FFN):
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
+                 n_points: int, device=None):
+        super().__init__(d_model, d_ffn, "norm3", device=device)
+        self.self_attn = MultiheadSelfAttention(d_model, n_heads, device=device)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.cross_attn = MSDeformAttn1D(d_model, n_levels, n_heads, n_points,
+                                         device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+
+    def forward(self, tgt, query_pos, reference_points_input, memory,
+                mask_flat, temporal_shapes, query_mask):
+        q = tgt + query_pos
+        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, query_mask))
+        h = self.cross_attn(tgt + query_pos, reference_points_input, memory,
+                            mask_flat, temporal_shapes)
+        return self.forward_ffn(self.norm1(tgt + h))
+
+
+class DeformableDecoder(nn.Module):
+    """The decoder layers; GVLModel runs the loop with box refinement."""
+
+    def __init__(self, layers: Sequence[DeformableDecoderLayer]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class DeformableTransformer(nn.Module):
+    """Parameter container with the reference's `transformer.*` names:
+    level_embed, encoder, decoder and the query-mode reference-point head."""
+
+    def __init__(self, d_model: int, d_ffn: int, enc_layers: int,
+                 dec_layers: int, n_levels: int, n_heads: int,
+                 enc_n_points: int, dec_n_points: int,
+                 band_margin: int = 32, device=None):
+        super().__init__()
+        self.level_embed = nn.Parameter(
+            torch.empty(n_levels, d_model, device=device))
+        self.encoder = DeformableEncoder(d_model, d_ffn, enc_layers, n_levels,
+                                         n_heads, enc_n_points, band_margin,
+                                         device=device)
+        self.decoder = DeformableDecoder(
+            [DeformableDecoderLayer(d_model, d_ffn, n_levels, n_heads,
+                                    dec_n_points, device=device)
+             for _ in range(dec_layers)])
+        self.reference_points = nn.Linear(d_model, 1, device=device)
+
+    def flax_init_(self, generator: torch.Generator) -> None:
+        nn.init.normal_(self.level_embed, 0.0, 1.0, generator=generator)
+        nn.init.xavier_uniform_(self.reference_points.weight,
+                                generator=generator)
+        self.reference_points.bias.zero_()
