@@ -124,3 +124,18 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
         raise KeyError(f"flax parameters with no place in the port: {unmapped}")
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def jax_grads_to_named(grads_np: Mapping, arch: GVLArch
+                       ) -> Dict[str, torch.Tensor]:
+    """Map a gradient tree of the flax parameters onto the names of
+    GVLModel(arch).named_parameters(), by the mapping of the parameters
+    themselves. A shared caption head is one module in both packages, so its
+    gradient appears once, under `caption_head.0.*`, as named_parameters()
+    lists it."""
+    named = jax_params_to_state_dict(grads_np, arch)
+    if arch.share_caption_head:
+        named = {k: v for k, v in named.items()
+                 if not (k.startswith("caption_head.")
+                         and not k.startswith("caption_head.0."))}
+    return named

@@ -1,9 +1,10 @@
 """The 'standard' caption head, LSTM-DSA: an LSTM whose per-step visual context
 is deformable soft attention around the event's reference point.
 
-Port of gvl_tpu/models/captioner.py, greedy fixed-length decode only
-(teacher forcing, scheduled sampling, sampling with temperature, early exit
-and beam search are not ported). Parameter names follow the reference
+Port of gvl_tpu/models/captioner.py: greedy fixed-length decode, and teacher
+forcing for training (logprobs, and the fused per-event NLL). Scheduled
+sampling, sampling with temperature, early exit and beam search are not
+ported. Parameter names follow the reference
 pdvc/CaptioningHead/LSTM_DSA.py state_dict: `embed`, `logit`, `core.rnn`,
 `core.deformable_att.{sampling_offsets,value_proj}`, `core.{ctx2att,h2att,
 alpha_net}`.
@@ -40,12 +41,29 @@ class LSTMCellNoBias(nn.Module):
         lecun_normal_(self.weight_hh_l0, generator)
 
     def forward(self, carry, x):
+        return self.gates(carry, F.linear(x, self.weight_ih_l0))
+
+    def gates(self, carry, z_ih):
+        """The recurrent half and the nonlinearity, given the input-side
+        pre-activation z_ih = x @ W_ih^T computed by the caller."""
         h, c = carry
-        z = F.linear(x, self.weight_ih_l0) + F.linear(h, self.weight_hh_l0)
+        z = z_ih + F.linear(h, self.weight_hh_l0)
         i, f, g, o = z.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         return (h, c), h
+
+
+def caption_nll(logprobs: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Per-sequence masked NLL: mean over valid steps of -logprob[target].
+    logprobs (N, Tsteps, V); targets, mask (N, Tcap), read up to Tsteps.
+    Port of captioner.py:79-91."""
+    Tsteps = logprobs.shape[1]
+    tgt = targets[:, :Tsteps].long()
+    m = mask[:, :Tsteps].to(logprobs.dtype)
+    picked = torch.gather(logprobs, 2, tgt[..., None])[..., 0]
+    return -(picked * m).sum(-1) / (m.sum(-1) + 1e-6)
 
 
 def prepare_dsa_reference(reference, valid_ratios, temporal_shapes,
@@ -145,15 +163,21 @@ class LSTMDSACore(DeformableSoftAttention):
 
 
 class LSTMDSACaptioner(nn.Module):
-    """'standard' caption head, greedy decode."""
+    """'standard' caption head: greedy decode (`sample`) and teacher forcing
+    (`forward`, `teacher_forced_nll`). The cell output's dropout is live
+    under `.train()` only."""
 
     def __init__(self, vocab_size: int, input_encoding_size: int,
                  rnn_size: int, d_model: int, n_levels: int, n_heads: int,
                  n_points: int, att_hid_size: int, max_caption_len: int,
-                 with_query_pos: bool = False, device=None):
+                 with_query_pos: bool = False, drop_prob: float = 0.5,
+                 device=None):
         super().__init__()
         self.vocab_size = vocab_size
+        self.input_encoding_size = input_encoding_size
         self.rnn_size = rnn_size
+        self.d_model = d_model
+        self.dropout = nn.Dropout(drop_prob)
         self.n_levels, self.n_points = n_levels, n_points
         self.max_caption_len = max_caption_len
         query_dim = d_model * (2 if with_query_pos else 1)
@@ -171,30 +195,95 @@ class LSTMDSACaptioner(nn.Module):
         self.logit.bias.zero_()
 
     def _prepare(self, reference, valid_ratios, temporal_shapes, memory,
-                 memory_mask):
+                 memory_mask, ref_prepared: bool = False):
         """Expand references to the captioner's levels and pre-project the
-        memory values. Port of captioner.py:252-270."""
+        memory values. With ref_prepared, `reference` already is the
+        (B, Ne, L, 2) result of prepare_dsa_reference. Port of
+        captioner.py:252-270."""
         shapes = tuple(int(t) for t in temporal_shapes[:self.n_levels])
         total = sum(shapes)
         memory = memory[:, :total]
         memory_mask = memory_mask[:, :total] if memory_mask is not None else None
-        ref = prepare_dsa_reference(reference, valid_ratios, temporal_shapes,
-                                    self.n_levels, self.n_points)
+        ref = reference if ref_prepared else prepare_dsa_reference(
+            reference, valid_ratios, temporal_shapes, self.n_levels,
+            self.n_points)
         return ref, self.core.project_value(memory, memory_mask), shapes
 
     def _step_core(self, it, carry, query, ref, value, shapes):
-        """One recurrence step without the vocab projection."""
+        """One recurrence step without the vocab projection; the cell output
+        goes through the dropout, the carry does not."""
         h, c = carry
         xt = self.embed(it)                                       # (B,Ne,E)
         att_res = self.core(torch.cat([h, query], dim=-1), h, ref, value,
                             shapes)
         inp = torch.cat([xt, att_res, query], dim=-1)
-        return self.core.rnn((h, c), inp)
+        carry, out = self.core.rnn((h, c), inp)
+        return carry, self.dropout(out)
 
     def _step(self, it, carry, query, ref, value, shapes):
         """One token step; returns raw logits (B, Ne, V+1)."""
         carry, out = self._step_core(it, carry, query, ref, value, shapes)
         return carry, self.logit(out)
+
+    def _tf_hidden_states(self, seq, query, ref, value, shapes):
+        """Teacher-forced recurrence over all Lc-1 steps -> the dropped-out
+        cell outputs (B, Ne, T, R). The LSTM input z = [xt; att_res; query]
+        @ W_ih splits by linearity into xt @ W_x (all steps in one matmul:
+        the tokens are known ahead), query @ W_q (once), and only
+        att_res @ W_a stays on the serial chain: equal to `_step_core` per
+        step up to f32 summation order. Port of captioner.py:301-370."""
+        B, Ne, Lc = seq.shape
+        T = Lc - 1
+        seq = seq.long()
+        zeros = query.new_zeros((B, Ne, self.rnn_size))
+        carry = (zeros, zeros)
+        hs = []
+        E, C = self.input_encoding_size, self.d_model
+        w_ih = self.core.rnn.weight_ih_l0                         # (4R, E+C+Q)
+        z_x = F.linear(self.embed(seq[:, :, :T]), w_ih[:, :E])    # (B,Ne,T,4R)
+        z_q = F.linear(query, w_ih[:, E + C:])
+        w_att = w_ih[:, E:E + C]
+        for t in range(T):
+            h = carry[0]
+            att_res = self.core(torch.cat([h, query], dim=-1), h, ref, value,
+                                shapes)
+            z_ih = z_x[:, :, t] + F.linear(att_res, w_att) + z_q
+            carry, out = self.core.rnn.gates(carry, z_ih)
+            hs.append(self.dropout(out))
+        return torch.stack(hs, dim=2)
+
+    def teacher_forced_nll(self, query, reference, memory, memory_mask,
+                           temporal_shapes, valid_ratios, seq, seq_mask,
+                           ref_prepared: bool = False):
+        """Per-event masked NLL (B, Ne) of teacher forcing: caption_nll over
+        `forward`'s logprobs, but as picked logit minus logsumexp, so the
+        normalised (B, Ne, T, V) tensor is never built. No scheduled
+        sampling. Port of captioner.py:372-393."""
+        ref, value, shapes = self._prepare(reference, valid_ratios,
+                                           temporal_shapes, memory,
+                                           memory_mask, ref_prepared)
+        hs = self._tf_hidden_states(seq, query, ref, value, shapes)
+        z = self.logit(hs).float()                               # (B,Ne,T,V)
+        lse = torch.logsumexp(z, dim=-1)
+        picked = torch.gather(z, 3, seq[:, :, 1:].long()[..., None])[..., 0]
+        m = seq_mask[:, :, 1:].float()
+        return -((picked - lse) * m).sum(-1) / (m.sum(-1) + 1e-6)
+
+    def forward(self, query, reference, memory, memory_mask, temporal_shapes,
+                valid_ratios, seq, ss_prob: float = 0.0,
+                ref_prepared: bool = False):
+        """Teacher-forced logprobs (B, Ne, Lc-1, V+1) for seq (B, Ne, Lc).
+        All Lc-1 steps are computed and the loss masks them. Port of
+        captioner.py:395-424; scheduled sampling (ss_prob > 0 in train mode)
+        is not ported."""
+        if self.training and ss_prob > 0:
+            raise NotImplementedError(
+                "scheduled sampling (ss_prob > 0) is not ported yet")
+        ref, value, shapes = self._prepare(reference, valid_ratios,
+                                           temporal_shapes, memory,
+                                           memory_mask, ref_prepared)
+        hs = self._tf_hidden_states(seq, query, ref, value, shapes)
+        return torch.log_softmax(self.logit(hs).float(), dim=-1)
 
     def sample(self, query, reference, memory, memory_mask, temporal_shapes,
                valid_ratios):

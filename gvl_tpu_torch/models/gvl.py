@@ -1,8 +1,9 @@
 """The GVL model in query mode: PDVC-style deformable-transformer event
 detector with iterative box refinement and the LSTM-DSA caption head.
 
-Port of gvl_tpu/models/gvl.py for the dense-captioning eval path. Not ported
-yet, and refused by `build_model`: contrastive projections and the text side,
+Port of gvl_tpu/models/gvl.py for the dense-captioning eval path and the
+train step (trunk in train mode, teacher-forced captions). Not ported yet,
+and refused by `build_model`: contrastive projections and the text side,
 caption heads other than 'standard', MLP class heads, heads shared across
 decoder layers (no box refinement), and beam search. Two-stage / proposal
 queries are refused by the EvalRunner. Parameter names follow the reference pdvc/pdvc.py
@@ -59,6 +60,8 @@ class GVLArch:
     enable_contrastive: bool = True
     feature_dim: int = 500
     msda_band_margin: int = 32
+    dropout: float = 0.1          # transformer_dropout_prob
+    drop_prob: float = 0.5        # caption head, on the cell output
 
     @classmethod
     def from_config(cls, cfg: Any) -> "GVLArch":
@@ -91,6 +94,8 @@ class GVLArch:
             enable_contrastive=bool(get("enable_contrastive", False)),
             feature_dim=cfg.feature_dim,
             msda_band_margin=int(get("msda_band_margin", 32)),
+            dropout=float(get("transformer_dropout_prob", 0.1)),
+            drop_prob=float(get("drop_prob", 0.5)),
         )
 
 
@@ -112,7 +117,10 @@ def _check_ported(a: GVLArch) -> None:
 
 
 class GVLModel(nn.Module):
-    """Trunk (`forward`) and greedy caption decode (`caption_sample`).
+    """Trunk (`forward`), greedy caption decode (`caption_sample`) and
+    teacher forcing (`caption_train`, `caption_train_nll`). Dropout is live
+    under `.train()` only; its draws come from the device's default
+    generator, which the caller seeds (`torch.manual_seed`).
 
     Built on `device`; parameters are drawn by `init_params` with the JAX
     package's initializers from `generator`, or loaded with
@@ -128,7 +136,7 @@ class GVLModel(nn.Module):
         self.transformer = DeformableTransformer(
             a.hidden_dim, a.ff_dim, a.enc_layers, a.dec_layers,
             a.num_feature_levels, a.nheads, a.enc_n_points, a.dec_n_points,
-            a.msda_band_margin, device=device)
+            a.msda_band_margin, a.dropout, device=device)
         self.query_embed = nn.Embedding(a.num_queries, a.hidden_dim * 2,
                                         device=device)
 
@@ -148,7 +156,7 @@ class GVLModel(nn.Module):
                 a.vocab_size, a.input_encoding_size, a.rnn_size, a.hidden_dim,
                 a.cap_num_feature_levels, a.cap_nheads, a.cap_dec_n_points,
                 a.att_hid_size, a.max_caption_len,
-                a.enable_pos_emb_for_captioner, device=device)
+                a.enable_pos_emb_for_captioner, a.drop_prob, device=device)
 
         if a.share_caption_head:
             self.caption_head = nn.ModuleList([captioner(0)] * num_pred)
@@ -223,6 +231,24 @@ class GVLModel(nn.Module):
         return torch.sigmoid(torch.cat([center, tmp[..., 1:]], dim=-1))
 
     # ------------------------------------------------------------ captioning
+    def caption_train(self, layer_id: int, query, reference, memory,
+                      memory_mask, temporal_shapes, valid_ratios, seq,
+                      ss_prob: float = 0.0, ref_prepared: bool = False):
+        """Teacher-forced logprobs (B, Ne, Lc-1, V+1) of the layer's caption
+        head (gvl.py:474-489)."""
+        return self.caption_head[layer_id](
+            query, reference, memory, memory_mask, temporal_shapes,
+            valid_ratios, seq, ss_prob=ss_prob, ref_prepared=ref_prepared)
+
+    def caption_train_nll(self, layer_id: int, query, reference, memory,
+                          memory_mask, temporal_shapes, valid_ratios, seq,
+                          seq_mask, ref_prepared: bool = False):
+        """Fused teacher-forcing NLL (B, Ne): caption_train + caption_nll
+        without the normalised logprob tensor (gvl.py:491-519)."""
+        return self.caption_head[layer_id].teacher_forced_nll(
+            query, reference, memory, memory_mask, temporal_shapes,
+            valid_ratios, seq, seq_mask, ref_prepared=ref_prepared)
+
     def caption_sample(self, layer_id: int, query, reference, memory,
                        memory_mask, temporal_shapes, valid_ratios,
                        beam_size: int = 1):
@@ -236,12 +262,20 @@ class GVLModel(nn.Module):
 
 def build_model(cfg: Any, device=None,
                 generator: torch.Generator = None) -> GVLModel:
-    """GVLModel for `cfg` on `device`. With a generator, its parameters are
-    drawn with the JAX package's initializers; without one they are left
-    uninitialised for `load_state_dict`."""
+    """GVLModel for `cfg`, in eval mode, on `device`: the current CUDA device
+    when none is given (raising where there is none), so a CPU caller asks
+    for "cpu". With a generator, its parameters are drawn with the JAX
+    package's initializers; without one they are left uninitialised for
+    `load_state_dict`."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_model: no CUDA device is available; pass "
+                "device='cpu' to build the model on the CPU")
+        device = torch.device("cuda", torch.cuda.current_device())
     with torch.device("meta"):
         model = GVLModel(GVLArch.from_config(cfg), device="meta")
-    model = model.to_empty(device=device or "cpu")
+    model = model.to_empty(device=device)
     if generator is not None:
         init_params(model, generator)
     return model.eval()

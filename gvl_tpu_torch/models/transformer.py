@@ -1,7 +1,8 @@
 """Deformable transformer encoder/decoder over the temporal pyramid.
 
 Port of gvl_tpu/models/transformer.py (query mode; the two-stage proposal
-embedding and remat are not ported). As in the JAX package, the decoder loop
+embedding and remat are not ported). Dropout sits where the JAX modules have
+it and is live under `.train()` only. As in the JAX package, the decoder loop
 and box refinement live in the top-level model (gvl.py); here the decoder is
 only the container of its layers, so that parameter names follow the
 reference pdvc/deformable_transformer.py state_dict
@@ -70,22 +71,26 @@ class FFN(nn.Module):
     layer as in the reference state_dict; the norm is `norm2` in encoder
     layers and `norm3` in decoder layers."""
 
-    def __init__(self, d_model: int, d_ffn: int, norm_name: str, device=None):
+    def __init__(self, d_model: int, d_ffn: int, norm_name: str,
+                 dropout: float = 0.1, device=None):
         super().__init__()
         self.linear1 = nn.Linear(d_model, d_ffn, device=device)
         self.linear2 = nn.Linear(d_ffn, d_model, device=device)
         self._ffn_norm = norm_name
         setattr(self, norm_name, nn.LayerNorm(d_model, eps=1e-5, device=device))
+        self.dropout = nn.Dropout(dropout)
 
     def forward_ffn(self, x):
-        h = self.linear2(F.relu(self.linear1(x)))
+        h = self.dropout(F.relu(self.linear1(x)))
+        h = self.dropout(self.linear2(h))
         return getattr(self, self._ffn_norm)(x + h)
 
 
 class DeformableEncoderLayer(FFN):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int, band_margin: int = 32, device=None):
-        super().__init__(d_model, d_ffn, "norm2", device=device)
+                 n_points: int, band_margin: int = 32, dropout: float = 0.1,
+                 device=None):
+        super().__init__(d_model, d_ffn, "norm2", dropout, device=device)
         self.self_attn = MSDeformAttn1D(d_model, n_levels, n_heads, n_points,
                                         band_margin=band_margin, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
@@ -93,17 +98,17 @@ class DeformableEncoderLayer(FFN):
     def forward(self, src, pos, reference_points, mask_flat, temporal_shapes):
         h = self.self_attn(src + pos, reference_points, src, mask_flat,
                            temporal_shapes)
-        return self.forward_ffn(self.norm1(src + h))
+        return self.forward_ffn(self.norm1(src + self.dropout(h)))
 
 
 class DeformableEncoder(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, num_layers: int,
                  n_levels: int, n_heads: int, n_points: int,
-                 band_margin: int = 32, device=None):
+                 band_margin: int = 32, dropout: float = 0.1, device=None):
         super().__init__()
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
-                                   band_margin, device=device)
+                                   band_margin, dropout, device=device)
             for _ in range(num_layers))
 
     def forward(self, src, pos, mask_flat, temporal_shapes, valid_ratios):
@@ -118,11 +123,14 @@ class MultiheadSelfAttention(nn.Module):
     """Multi-head dot-product attention with nn.MultiheadAttention's
     parameter names (in_proj_weight (3C, C), in_proj_bias, out_proj) and
     flax MultiHeadDotProductAttention's math: q scaled by 1/sqrt(Dh), masked
-    keys set to the dtype's minimum before the softmax."""
+    keys set to the dtype's minimum before the softmax, dropout on the
+    attention weights."""
 
-    def __init__(self, d_model: int, n_heads: int, device=None):
+    def __init__(self, d_model: int, n_heads: int, dropout: float = 0.1,
+                 device=None):
         super().__init__()
         self.n_heads = n_heads
+        self.attn_dropout = nn.Dropout(dropout)
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * d_model, d_model, device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model, device=device))
@@ -145,16 +153,17 @@ class MultiheadSelfAttention(nn.Module):
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
-        w = torch.softmax(logits, dim=-1)
+        w = self.attn_dropout(torch.softmax(logits, dim=-1))
         out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, Nq, C)
         return self.out_proj(out)
 
 
 class DeformableDecoderLayer(FFN):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int, device=None):
-        super().__init__(d_model, d_ffn, "norm3", device=device)
-        self.self_attn = MultiheadSelfAttention(d_model, n_heads, device=device)
+                 n_points: int, dropout: float = 0.1, device=None):
+        super().__init__(d_model, d_ffn, "norm3", dropout, device=device)
+        self.self_attn = MultiheadSelfAttention(d_model, n_heads, dropout,
+                                                device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.cross_attn = MSDeformAttn1D(d_model, n_levels, n_heads, n_points,
                                          device=device)
@@ -163,10 +172,11 @@ class DeformableDecoderLayer(FFN):
     def forward(self, tgt, query_pos, reference_points_input, memory,
                 mask_flat, temporal_shapes, query_mask):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, query_mask))
+        h = self.self_attn(q, q, tgt, query_mask)
+        tgt = self.norm2(tgt + self.dropout(h))
         h = self.cross_attn(tgt + query_pos, reference_points_input, memory,
                             mask_flat, temporal_shapes)
-        return self.forward_ffn(self.norm1(tgt + h))
+        return self.forward_ffn(self.norm1(tgt + self.dropout(h)))
 
 
 class DeformableDecoder(nn.Module):
@@ -184,16 +194,16 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, enc_layers: int,
                  dec_layers: int, n_levels: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int,
-                 band_margin: int = 32, device=None):
+                 band_margin: int = 32, dropout: float = 0.1, device=None):
         super().__init__()
         self.level_embed = nn.Parameter(
             torch.empty(n_levels, d_model, device=device))
         self.encoder = DeformableEncoder(d_model, d_ffn, enc_layers, n_levels,
                                          n_heads, enc_n_points, band_margin,
-                                         device=device)
+                                         dropout, device=device)
         self.decoder = DeformableDecoder(
             [DeformableDecoderLayer(d_model, d_ffn, n_levels, n_heads,
-                                    dec_n_points, device=device)
+                                    dec_n_points, dropout, device=device)
              for _ in range(dec_layers)])
         self.reference_points = nn.Linear(d_model, 1, device=device)
 

@@ -22,9 +22,10 @@ from typing import NamedTuple
 _ROOT = Path(__file__).resolve().parents[2]
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = _ROOT / "build" / "kernels"
-SOURCES = ("ms_deform_attn_fwd.cu",)
+SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu")
+# --threads 0: the sources compile side by side, one job per core
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--threads", "0")
 
 
 class Built(NamedTuple):
@@ -71,4 +72,7 @@ def library() -> ctypes.CDLL:
     lib.msda_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                  ctypes.POINTER(ctypes.c_int), p]
     lib.msda_fwd_f32.restype = i
+    lib.msda_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                 ctypes.POINTER(ctypes.c_int), p]
+    lib.msda_bwd_f32.restype = i
     return lib

@@ -10,10 +10,17 @@ Semantics, for each (batch b, query q, head h, level l, point p):
 Shapes: value (B, S, H, Dh) with S = sum(temporal_shapes); loc, attn
 (B, Lq, H, L, P); out (B, Lq, H * Dh).
 
-`ms_deform_attn_1d` runs the hand-written CUDA kernel
-(csrc/ms_deform_attn_fwd.cu, the port of the TPU kernel
-gvl_tpu/ops/ms_deform_attn.py::_fwd_kernel) on a CUDA tensor and the plain
-version `ms_deform_attn_1d_ref` beside it on a CPU tensor.
+`ms_deform_attn_1d` runs the hand-written CUDA kernels on a CUDA tensor:
+csrc/ms_deform_attn_fwd.cu in the forward (the port of the TPU kernel
+gvl_tpu/ops/ms_deform_attn.py::_fwd_kernel) and csrc/ms_deform_attn_bwd.cu
+in the backward (the port of ::_bwd_kernel_full, with the derivative of the
+tap preparation folded in). On a CPU tensor it runs the plain version
+`ms_deform_attn_1d_ref`, differentiated by autograd.
+`ms_deform_attn_1d_bwd_ref` is the backward kernel's plain version.
+
+Gradient of loc at the clamp: zero where the clamp is active and on its two
+bounds (x = 0 and x = T_l - 1 exactly), in the kernel, in its plain version
+and under autograd of `ms_deform_attn_1d_ref` alike.
 """
 
 from __future__ import annotations
@@ -33,21 +40,38 @@ def level_tensor(values: Sequence[int], like: torch.Tensor,
         like.device, non_blocking=True)
 
 
-def prep_taps(temporal_shapes: Sequence[int], loc: torch.Tensor,
-              attn: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Global tap indices g0, g1 (int64) and lerp-folded weights w0, w1, all
-    (B, Lq, H, L, P). Port of `_prep_taps` (ms_deform_attn.py:56-81)."""
+def _inside_clamp(x_raw: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Taps whose position lies strictly between the clamp's bounds."""
+    return (x_raw > 0) & (x_raw < t - 1.0)
+
+
+def _tap_parts(temporal_shapes: Sequence[int], loc: torch.Tensor):
+    """Global tap indices g0, g1 (int64), the lerp fraction f, the unclamped
+    tap position x_raw and the level lengths t (L, 1)."""
     starts = [0]
     for t in temporal_shapes[:-1]:
         starts.append(starts[-1] + int(t))
     t = level_tensor(temporal_shapes, loc)[:, None]                  # (L, 1)
     starts_t = level_tensor(starts, loc, torch.long)[:, None]
-    x = torch.clamp(loc * t - 0.5, torch.zeros_like(t), t - 1.0)
+    x_raw = loc * t - 0.5
+    x = torch.clamp(x_raw, torch.zeros_like(t), t - 1.0)
+    if loc.requires_grad:
+        # same values; the gradient is cut on the clamp's bounds as well as
+        # outside them (torch.clamp alone would pass it on the bounds)
+        x = torch.where(_inside_clamp(x_raw, t), x_raw, x.detach())
     i0 = torch.floor(x)
     f = x - i0.detach()
     i0 = i0.long()
     i1 = torch.minimum(i0 + 1, (t - 1.0).long())
-    return i0 + starts_t, i1 + starts_t, attn * (1.0 - f), attn * f
+    return i0 + starts_t, i1 + starts_t, f, x_raw, t
+
+
+def prep_taps(temporal_shapes: Sequence[int], loc: torch.Tensor,
+              attn: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Global tap indices g0, g1 (int64) and lerp-folded weights w0, w1, all
+    (B, Lq, H, L, P). Port of `_prep_taps` (ms_deform_attn.py:56-81)."""
+    g0, g1, f, _, _ = _tap_parts(temporal_shapes, loc)
+    return g0, g1, attn * (1.0 - f), attn * f
 
 
 def _gather_taps(value: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -93,8 +117,46 @@ def ms_deform_attn_1d_sampled_values(value: torch.Tensor,
     return out.permute(0, 2, 1, 3, 4)
 
 
-def _check_kernel_inputs(value, temporal_shapes, loc, attn):
-    for name, t in (("value", value), ("loc", loc), ("attn", attn)):
+def ms_deform_attn_1d_bwd_ref(grad_out: torch.Tensor, value: torch.Tensor,
+                              temporal_shapes: Sequence[int],
+                              loc: torch.Tensor, attn: torch.Tensor
+                              ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel: (grad_value, grad_loc,
+    grad_attn) of `ms_deform_attn_1d_ref` for the output gradient grad_out
+    (B, Lq, H*Dh), by the kernel's formulas: per-tap dot products for loc
+    and attn, `index_add_` for value."""
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P = loc.shape
+    with torch.no_grad():
+        g0, g1, f, x_raw, t = _tap_parts(temporal_shapes, loc)
+        go = grad_out.reshape(B, Lq, H, Dh).permute(0, 2, 1, 3)    # (B,H,Lq,Dh)
+        go = go[:, :, :, None, :]
+
+        def dots(g):                      # <V[g], dOut> -> (B, Lq, H, L, P)
+            d = (_gather_taps(value, g) * go).sum(-1)              # (B,H,Lq,K)
+            return d.permute(0, 2, 1, 3).reshape(B, Lq, H, L, P)
+
+        d0, d1 = dots(g0), dots(g1)
+        grad_attn = (1.0 - f) * d0 + f * d1
+        grad_loc = torch.where(_inside_clamp(x_raw, t),
+                               attn * t * (d1 - d0), torch.zeros_like(d0))
+
+        grad_value = value.new_zeros((B * H * S, Dh))
+        bh = torch.arange(B * H, device=value.device)[:, None] * S
+        for g, w in ((g0, attn * (1.0 - f)), (g1, attn * f)):
+            idx = g.permute(0, 2, 1, 3, 4).reshape(B * H, -1) + bh
+            w = w.permute(0, 2, 1, 3, 4).reshape(B, H, Lq, L * P, 1)
+            grad_value.index_add_(0, idx.reshape(-1),
+                                  (w * go).reshape(-1, Dh))
+        grad_value = grad_value.reshape(B, H, S, Dh).permute(0, 2, 1, 3)
+    return grad_value.contiguous(), grad_loc, grad_attn
+
+
+def _check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
+    tensors = [("value", value), ("loc", loc), ("attn", attn)]
+    if grad_out is not None:
+        tensors.append(("grad_out", grad_out))
+    for name, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"ms_deform_attn kernel: {name} is on {t.device}")
         if t.dtype != torch.float32:
@@ -117,8 +179,12 @@ def _check_kernel_inputs(value, temporal_shapes, loc, attn):
     if sum(int(t) for t in temporal_shapes) != S:
         raise ValueError(f"ms_deform_attn kernel: shapes {temporal_shapes} do "
                          f"not sum to S={S}")
-    if len({value.device, loc.device, attn.device}) != 1:
+    if len({t.device for _, t in tensors}) != 1:
         raise ValueError("ms_deform_attn kernel: inputs on different devices")
+    if grad_out is not None and grad_out.shape != (
+            B, loc.shape[1], H * value.shape[3]):
+        raise ValueError(f"ms_deform_attn kernel: grad_out "
+                         f"{tuple(grad_out.shape)} is not (B, Lq, H*Dh)")
 
 
 def ms_deform_attn_1d_cuda(value: torch.Tensor, temporal_shapes: Sequence[int],
@@ -143,17 +209,62 @@ def ms_deform_attn_1d_cuda(value: torch.Tensor, temporal_shapes: Sequence[int],
     return out
 
 
+def ms_deform_attn_1d_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
+                               temporal_shapes: Sequence[int],
+                               loc: torch.Tensor, attn: torch.Tensor,
+                               need_value: bool = True
+                               ) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward CUDA kernel on the current stream and return
+    (grad_value, grad_loc, grad_attn); grad_value is None, and nothing is
+    scattered, with need_value=False. float32 contiguous CUDA tensors only;
+    raises on anything else, and if the launch is refused."""
+    from gvl_tpu_torch.ops._build import library
+
+    _check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out)
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P = loc.shape
+    # the kernel adds into grad_value with atomics: zeroed, on this stream
+    grad_value = torch.zeros_like(value) if need_value else None
+    grad_loc = torch.empty_like(loc)
+    grad_attn = torch.empty_like(attn)
+    shapes = (ctypes.c_int * L)(*(int(t) for t in temporal_shapes))
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().msda_bwd_f32(
+            grad_out.data_ptr(), value.data_ptr(), loc.data_ptr(),
+            attn.data_ptr(), grad_value.data_ptr() if need_value else None,
+            grad_loc.data_ptr(), grad_attn.data_ptr(),
+            B, S, H, Dh, Lq, L, P, shapes, stream)
+    if err != 0:
+        raise RuntimeError("ms_deform_attn backward kernel launch failed: "
+                           f"CUDA error {err}")
+    ms_deform_attn_1d.bwd_launches += 1
+    return grad_value, grad_loc, grad_attn
+
+
 class _MSDeformAttnCUDA(torch.autograd.Function):
+    """Forward and backward are the two CUDA kernels; neither gives way to
+    the plain version."""
+
     @staticmethod
     def forward(ctx, value, temporal_shapes, loc, attn):
+        ctx.save_for_backward(value, loc, attn)
+        ctx.temporal_shapes = temporal_shapes
         return ms_deform_attn_1d_cuda(value, temporal_shapes, loc, attn)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the ms_deform_attn backward kernel is not ported yet "
-            "(ROADMAP Queue 2 item 2); run the forward under "
-            "torch.inference_mode() or use ms_deform_attn_1d_ref")
+        value, loc, attn = ctx.saved_tensors
+        need_value, _, need_loc, need_attn = ctx.needs_input_grad
+        if grad_out.dtype != torch.float32:
+            raise TypeError(f"ms_deform_attn backward: grad_out is "
+                            f"{grad_out.dtype}, the kernel takes float32")
+        # autograd hands over views (of an expand, a transpose) as often as not
+        grad_value, grad_loc, grad_attn = ms_deform_attn_1d_bwd_cuda(
+            grad_out.contiguous(), value, ctx.temporal_shapes, loc, attn,
+            need_value=need_value)
+        return (grad_value, None, grad_loc if need_loc else None,
+                grad_attn if need_attn else None)
 
 
 def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
@@ -161,7 +272,8 @@ def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
     """Deformable attention: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. As in the JAX op, value is computed in float32
     and the result cast back to value's dtype. `ms_deform_attn_1d.launches`
-    counts kernel launches."""
+    counts launches of the forward kernel, `.bwd_launches` of the backward
+    kernel."""
     shapes = tuple(int(t) for t in temporal_shapes)
     v32 = value.float()
     if value.is_cuda:
@@ -172,3 +284,4 @@ def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
 
 
 ms_deform_attn_1d.launches = 0
+ms_deform_attn_1d.bwd_launches = 0

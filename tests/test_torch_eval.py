@@ -55,7 +55,7 @@ def runs(tmp_path_factory):
     jr.set_params(params, None)
     want_path, want_json, *_ = jr.run(batcher, str(tmp / "jax.json"))
 
-    port = build_model(cfg)
+    port = build_model(cfg, device="cpu")
     port.load_state_dict(jax_params_to_state_dict(
         params, GVLArch.from_config(cfg)), strict=True)
     got_path, got_json = EvalRunner(cfg, port, ds.translator).run(

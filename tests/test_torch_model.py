@@ -56,7 +56,7 @@ def jax_world(**cfg_kw):
                   jnp.asarray(mask), jnp.asarray(duration), captions=captions)
     params = add_noise(params)
     sd = jax_params_to_state_dict(params, GVLArch.from_config(cfg))
-    port = build_model(cfg)
+    port = build_model(cfg, device="cpu")
     port.load_state_dict(sd, strict=True)
     return cfg, model, params, port, sd
 

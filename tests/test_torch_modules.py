@@ -82,7 +82,8 @@ def test_msdeformattn_matches_jax(world, ref_width):
 def test_model_calls_the_kernel_wrapper_whatever_the_config(monkeypatch):
     # the JAX test configs set msda_impl='ref'; the port reads no such option
     cfg = tiny_cfg(enable_contrastive=False, feature_dim=32, msda_impl="ref")
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
     calls = []
 
     def counted(*args):

@@ -1,0 +1,348 @@
+"""The port's train step (gvl_tpu_torch.train.state) against the JAX
+package's, at the tiny test config with both dropout probabilities 0, from
+the same weights on the same seeded numpy batch.
+
+One jitted JAX step gives the reference losses and, through Adam's first
+moment (mu = 0.1 x the clipped gradient after the first update), the
+reference gradients; four more give the loss trajectory. Tolerances are
+stated where they are used. Schedules, the gradient clip and the optimizers
+are held to optax on toy parameters.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gvl_tpu.config import Config
+from gvl_tpu.train import state as jstate
+from gvl_tpu.train.criterion import LossSpec as JLossSpec
+from gvl_tpu.train.criterion import make_weight_dict as j_weight_dict
+from gvl_tpu_torch.convert import jax_grads_to_named, jax_params_to_state_dict
+from gvl_tpu_torch.models.gvl import GVLArch
+from gvl_tpu_torch.train import state as pstate
+from gvl_tpu_torch.train.criterion import LossSpec, make_weight_dict
+from tests.test_torch_model import jax_world, make_inputs
+
+N_STEPS = 5
+LR = 5e-5
+LOSS_SIDE = dict(
+    drop_prob=0.0, transformer_dropout_prob=0.0, set_cost_class=2.0,
+    set_cost_giou=4.0, set_cost_bbox=0.0, cls_loss_coef=2.0,
+    giou_loss_coef=4.0, bbox_loss_coef=0.0, count_loss_coef=0.5,
+    caption_loss_coef=2.0, lr=LR, grad_clip=100.0)
+
+
+def statics_kw(cfg):
+    return dict(enable_contrastive=False, caption_loss=True, two_stage=False,
+                train_text_encoder=False, disable_mid_caption_heads=False,
+                enable_pos_emb_for_captioner=False,
+                temporal_shapes=tuple(cfg.temporal_shapes()))
+
+
+def make_batch(cfg, G=3, seed=11):
+    feats, mask, duration = make_inputs(cfg)
+    rs = np.random.RandomState(seed)
+    B, Lc = feats.shape[0], cfg.max_caption_len
+    captions = rs.randint(1, cfg.vocab_size, (B, G, Lc)).astype(np.int32)
+    captions[..., 0] = 0
+    return dict(
+        video_feats=feats, video_mask=mask, duration=duration,
+        gt_boxes=np.stack([rs.uniform(0.2, 0.8, (B, G)),
+                           rs.uniform(0.05, 0.4, (B, G))], -1).astype(np.float32),
+        gt_labels=np.zeros((B, G), np.int32),
+        gt_mask=np.arange(G)[None, :] < np.array([G, 2])[:, None],
+        captions=captions,
+        caption_mask=np.arange(Lc)[None, None, :] < rs.randint(
+            3, Lc + 1, (B, G, 1)))
+
+
+def adam_mu(opt_state):
+    found = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(s, "mu")]
+    assert len(found) == 1
+    return found[0].mu
+
+
+@pytest.fixture(scope="module")
+def world():
+    cfg, model, params, port, _ = jax_world(**LOSS_SIDE)
+    batch = make_batch(cfg)
+
+    jst = jstate.StepStatics(spec=JLossSpec.from_config(cfg), **statics_kw(cfg))
+    state = jstate.create_train_state(cfg, model, params, None, 100, jst)
+    step_fn, _, _ = jstate.make_train_step(model, None, cfg, jst)
+    step_jit = jax.jit(step_fn)
+    db = {k: jnp.asarray(v) for k, v in batch.items()}
+    jw = {k: jnp.asarray(v, jnp.float32) for k, v in j_weight_dict(cfg).items()}
+    jax_losses, jax_grads = [], None
+    for i in range(N_STEPS):
+        state, losses = step_jit(state, db, jw, jax.random.PRNGKey(i))
+        jax_losses.append({k: float(v) for k, v in losses.items()})
+        if i == 0:
+            jax_grads = jax.tree_util.tree_map(
+                lambda m: np.asarray(m) / 0.1, adam_mu(state.opt_state))
+    arch = GVLArch.from_config(cfg)
+
+    pst = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    pstate_ = pstate.create_train_state(cfg, port, 100, pst)
+    step = pstate.make_train_step(port, cfg, pst)
+    pw = make_weight_dict(cfg)
+    port_losses, port_grads = [], None
+    try:
+        for i in range(N_STEPS):
+            losses = step(pstate_, batch, pw)
+            port_losses.append({k: float(v) for k, v in losses.items()})
+            if i == 0:
+                port_grads = {n: p.grad.clone()
+                              for n, p in port.named_parameters()}
+    finally:
+        port.eval()
+    return dict(cfg=cfg, arch=arch, port=port, state=pstate_,
+                jax_losses=jax_losses, port_losses=port_losses,
+                jax_grads=jax_grads_to_named(jax_grads, arch),
+                port_grads=port_grads,
+                jax_params=jax_params_to_state_dict(
+                    jax.tree_util.tree_map(np.asarray, state.params), arch))
+
+
+def test_first_step_losses_match_jax(world):
+    """Every loss of the first step, rtol 2e-4 / atol 2e-5 (f32, the
+    tolerance of the forward parity tests)."""
+    want, got = world["jax_losses"][0], world["port_losses"][0]
+    assert set(got) == set(want)
+    assert {"loss_caption", "loss_caption_0", "total_loss"} <= set(got)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+
+
+def test_first_step_named_gradients_match_jax(world):
+    """Every named gradient (after the clip, as the optimizer sees it): max
+    abs difference <= 1e-3 x its own max abs + 1e-7. The JAX side is read
+    back from Adam's first moment, which costs one f32 rounding."""
+    want, got = world["jax_grads"], world["port_grads"]
+    assert set(got) == set(want)
+    assert not any(k.startswith("caption_head.1.") for k in got)
+    for name, g in got.items():
+        w = want[name].numpy()
+        scale = np.abs(w).max()
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-3 * scale + 1e-7, (name, err, scale)
+    assert sum(float(np.abs(w.numpy()).max()) > 1e-6 for w in want.values()) \
+        > 0.9 * len(want)                   # the gradients are not all zero
+
+
+def test_loss_trajectory_matches_jax(world):
+    """Five Adam steps on a fixed batch. Adam's first update is lr x sign(g),
+    so a parameter whose gradient is ~0 may move by 2 x lr apart between the
+    frameworks; the losses stay within rtol 1e-3, and they fall."""
+    want = [l["total_loss"] for l in world["jax_losses"]]
+    got = [l["total_loss"] for l in world["port_losses"]]
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert got[-1] < got[0]
+    for k in ("loss_caption", "loss_giou", "loss_ce_0"):
+        np.testing.assert_allclose([l[k] for l in world["port_losses"]],
+                                   [l[k] for l in world["jax_losses"]],
+                                   rtol=2e-3, atol=1e-4, err_msg=k)
+
+
+def test_parameters_after_the_trajectory_match_jax_in_units_of_lr(world):
+    """After 5 updates no parameter is further than 2 x lr x 5 from the JAX
+    package's, and 99% of all entries are within 0.5 x lr."""
+    port_sd = world["port"].state_dict()
+    diffs = np.concatenate([
+        (port_sd[k] - v).abs().numpy().ravel() / LR
+        for k, v in world["jax_params"].items()])
+    assert diffs.max() <= 2 * N_STEPS
+    assert np.quantile(diffs, 0.99) <= 0.5
+    assert world["state"].step == N_STEPS
+
+
+@pytest.mark.parametrize("name", pstate._NOT_PORTED)
+def test_unported_train_options_raise_by_name(world, name):
+    cfg = world["cfg"]
+    kw = dict(statics_kw(cfg), **{name: True})
+    st = pstate.StepStatics(spec=LossSpec.from_config(cfg), **kw)
+    with pytest.raises(NotImplementedError, match=name):
+        pstate.make_train_step(world["port"], cfg, st)
+    with pytest.raises(NotImplementedError, match=name):
+        pstate.create_train_state(cfg, world["port"], 10, st)
+
+
+def test_scheduled_sampling_is_refused(world):
+    cfg = world["cfg"]
+    st = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    step = pstate.make_train_step(world["port"], cfg, st)
+    with pytest.raises(NotImplementedError, match="scheduled sampling"):
+        step(world["state"], {}, {}, ss_prob=0.25)
+
+
+def test_per_layer_caption_branch_matches_the_fused_one(world):
+    """fuse_caption_layers=False takes one teacher-forcing pass per layer and
+    gives the fused pass's losses (no dropout): rtol 2e-5 / atol 1e-6, the
+    tolerance of the JAX package's own test of the two branches."""
+    cfg, port = world["cfg"], world["port"]
+    st = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    batch = make_batch(cfg)
+    res = {}
+    for fuse in (True, False):
+        c = types.SimpleNamespace(fuse_caption_layers=fuse)
+        with torch.no_grad():
+            res[fuse] = pstate.make_train_step(port, c, st).forward_losses(batch)
+    assert set(res[True]) == set(res[False])
+    for k in res[True]:
+        np.testing.assert_allclose(float(res[False][k]), float(res[True][k]),
+                                   rtol=2e-5, atol=1e-6, err_msg=k)
+
+
+def test_freeze_mode_steps_match_jax():
+    """Three steps with only_ft_captioner at a gradient clip that is active
+    (15, under the one-step global norm of ~20.6): the frozen parameters'
+    gradients count in the clipped norm of their own step only. The head
+    after the steps: 99% of its entries within 0.01 x lr of the JAX
+    package's and none further than 2 x lr x 3 (Adam's first update is
+    lr x sign(g)); nothing outside the head moves. Gradients left over from
+    an earlier step would halve the second step's clip scale and put the
+    median entry 0.1 x lr away."""
+    n_steps = 3
+    cfg, model, params, port, sd0 = jax_world(
+        **dict(LOSS_SIDE, grad_clip=15.0, only_ft_captioner=True))
+    batch = make_batch(cfg)
+    jst = jstate.StepStatics(spec=JLossSpec.from_config(cfg), **statics_kw(cfg))
+    state = jstate.create_train_state(cfg, model, params, None, 100, jst)
+    step_jit = jax.jit(jstate.make_train_step(model, None, cfg, jst)[0])
+    db = {k: jnp.asarray(v) for k, v in batch.items()}
+    jw = {k: jnp.asarray(v, jnp.float32) for k, v in j_weight_dict(cfg).items()}
+    for i in range(n_steps):
+        state, _ = step_jit(state, db, jw, jax.random.PRNGKey(i))
+    want = jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, state.params),
+        GVLArch.from_config(cfg))
+
+    pst = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    pstate_ = pstate.create_train_state(cfg, port, 100, pst)
+    step = pstate.make_train_step(port, cfg, pst)
+    norms = []
+    for i in range(n_steps):
+        step(pstate_, batch, make_weight_dict(cfg))
+        norms.append(float(torch.sqrt(sum(
+            (p.grad ** 2).sum() for p in port.parameters()))))
+    np.testing.assert_allclose(norms, 15.0, rtol=1e-5)   # the clip was active
+    got = port.state_dict()
+    for k, v in sd0.items():
+        if not k.startswith("caption_head."):
+            assert torch.equal(got[k], v), k
+    head = [k for k in want if k.startswith("caption_head.0.")]
+    assert any(not torch.equal(got[k], sd0[k]) for k in head)
+    diffs = np.concatenate([(got[k] - want[k]).abs().numpy().ravel() / LR
+                            for k in head])
+    assert diffs.max() <= 2 * n_steps
+    assert np.quantile(diffs, 0.99) <= 0.01
+
+
+# --------------------------------------------------------------- schedules
+
+SCHEDULES = {
+    "warmup_linear": ("warmup_linear", 1e-3, 40, 8, 0.1, 2, 1, 0.5, 5),
+    "warmup_cosine": ("warmup_cosine", 1e-3, 40, 8, 0.25, 2, 1, 0.5, 5),
+    "multi_step": ("multi_step", 1e-3, 40, 8, 0.1, 2, 1, 0.5, 5),
+}
+
+
+@pytest.mark.parametrize("strategy", sorted(SCHEDULES))
+def test_schedule_matches_optax(strategy):
+    """Values at every step from 0 past the end, rtol 1e-5 (f32 on the JAX
+    side)."""
+    want = jstate.build_schedule(*SCHEDULES[strategy])
+    got = pstate.build_schedule(*SCHEDULES[strategy])
+    for step in range(0, 46):
+        np.testing.assert_allclose(got(step), float(want(jnp.asarray(step))),
+                                   rtol=1e-5,
+                                   atol=1e-10, err_msg=str(step))
+    with pytest.raises(NotImplementedError):
+        pstate.build_schedule("other", *SCHEDULES[strategy][1:])
+
+
+# ------------------------------------------------------ clip and optimizers
+
+def toy_params(rng):
+    return {"caption_head_0": {"w": rng.randn(4, 3).astype(np.float32)},
+            "bbox_head_1": {"w": rng.randn(5).astype(np.float32)},
+            "class_head_0": {"w": rng.randn(3, 2).astype(np.float32)},
+            "encoder": {"w": rng.randn(6).astype(np.float32)}}
+
+
+def flat_names(tree):
+    return {f"{k}.w": v["w"] for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 100.0])
+def test_clip_global_norm_matches_jax(rng, max_norm):
+    grads = toy_params(rng)
+    want = jstate.clip_global_norm(
+        jax.tree_util.tree_map(jnp.asarray, grads), max_norm)
+    params = {}
+    for n, g in flat_names(grads).items():
+        params[n] = torch.zeros(g.shape, requires_grad=True)
+        params[n].grad = torch.from_numpy(g.copy())
+    norm = pstate.clip_global_norm(params.values(), max_norm)
+    np.testing.assert_allclose(float(norm), np.sqrt(sum(
+        (g ** 2).sum() for g in flat_names(grads).values())), rtol=1e-6)
+    for n, w in flat_names(want).items():
+        np.testing.assert_allclose(params[n].grad.numpy(), np.asarray(w),
+                                   rtol=1e-6, atol=1e-8, err_msg=n)
+
+
+OPTIMIZERS = {
+    "adam": {},
+    "adam_l2": dict(weight_decay=1e-2),
+    "adamw": dict(optimizer_type="adamw", weight_decay=1e-2),
+    "head_lr": dict(task_heads_different_lr=True, task_heads_lr=5e-3),
+    "freeze_captioner": dict(only_ft_captioner=True),
+    "freeze_class_head": dict(only_ft_class_head=True, weight_decay=1e-2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIMIZERS))
+def test_optimizer_matches_optax(rng, case):
+    """Four updates with seeded gradients under a warm-up schedule, against
+    optax from the same config: rtol 1e-5 / atol 1e-7 on every parameter."""
+    cfg = Config()
+    cfg.update(dict(lr=1e-2, learning_strategy="warmup_linear",
+                    warm_up_ratio=0.5, epoch=1, **OPTIMIZERS[case]))
+    total, spe = 6, 6
+    params = toy_params(rng)
+    grads = [jax.tree_util.tree_map(
+        lambda x: rng.randn(*x.shape).astype(np.float32), params)
+        for _ in range(4)]
+
+    opt = jstate.build_optimizer(cfg, total, spe)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    opt_state = opt.init(jp)
+    import optax
+    for g in grads:
+        updates, opt_state = opt.update(
+            jax.tree_util.tree_map(jnp.asarray, g), opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+
+    named = {n: torch.from_numpy(v.copy()).requires_grad_()
+             for n, v in flat_names(params).items()}
+    popt, sched = pstate.build_optimizer(cfg, named, total, spe)
+    for g in grads:
+        for n, v in flat_names(g).items():
+            named[n].grad = torch.from_numpy(v.copy())
+        popt.step()
+        sched.step()
+
+    for n, w in flat_names(jp).items():
+        np.testing.assert_allclose(named[n].detach().numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-7, err_msg=n)
+    if case.startswith("freeze"):
+        prefix = "caption_head" if "captioner" in case else "class_head"
+        for n, v in flat_names(params).items():
+            moved = not np.array_equal(named[n].detach().numpy(), v)
+            assert moved == n.startswith(prefix), n
