@@ -9,7 +9,8 @@ exits non-zero:
   2. build: nvcc builds the deformable-attention kernel from
      gvl_tpu_torch/csrc into build/kernels/.
   3. kernel vs plain: the CUDA kernel against its plain PyTorch version at
-     the flagship encoder (Lq=188) and decoder (Lq=30) shapes, with taps in
+     the flagship encoder (Lq=188) and decoder (Lq=30) shapes and at the
+     long-video decoder shape (B=8, S=1500, Lq=100), with taps in
      [0, 1], "wild" taps in [-0.4, 1.4] and taps on level borders; max abs
      error <= 1e-5; per-call median times over CUDA events.
   4. main path: the flagship ActivityNet dense-captioning model (widths of
@@ -28,8 +29,9 @@ exits non-zero:
      device time and op count per step and its top device ops; writes the
      op table and a Chrome trace into DIR.
   8. backward kernel vs plain: the backward CUDA kernel against its plain
-     PyTorch version at the same two shapes and three tap kinds with a
-     seeded output gradient; bounds per gradient in BWD_ABS_TOL and
+     PyTorch version at the same shapes (the long-video decoder at B=4, as
+     the train step runs it) and three tap kinds with a seeded output
+     gradient; bounds per gradient in BWD_ABS_TOL and
      BWD_REL_TOL; per-call median times. Runs right after phase 3.
   9. train main path: build_model on the card, create_train_state,
      make_train_step, 5 steps on 2 alternating synthetic batches (B=16, 30
@@ -47,14 +49,37 @@ exits non-zero:
      backward, optimizer; peak device memory. With --profile DIR also
      torch.profiler's device time and op count per train step and its top
      device ops; the op table goes into DIR.
-With --kernels-only the script stops after phases 1-3 and 8. The last two
-lines are the kernels' JSON summary and {"ok": true, "device": {...}}. The
-run uses one card, the first visible.
+ 12. banded kernel vs plain: the banded forward CUDA kernel against its
+     plain PyTorch version at the long-video encoder shape of the eval step
+     (YouMakeup widths: B=8, levels 800+400+200+100 = S 1500, H=8, Dh=64,
+     K=16) over three tap classes: local (encoder reference points, offsets
+     within +-4 rows; the band clamp inactive, also held to the dense plain
+     op), wide (offsets of up to +-96 rows, the clamp engages), border (taps
+     on rows 0 and T_l - 1 and beyond), at margin 32 and at a margin that
+     makes every band full; max abs error <= 1e-5. Per-call medians at B=8
+     and B=4 beside the dense kernel on the same local inputs.
+ 13. banded backward kernel vs plain: same classes and margins at the train
+     step's shape (B=4), bounds of phase 8; without grad_value nothing is
+     scattered. Per-call medians at B=4 and B=8.
+ 14. long-video eval main path: the YouMakeup-shaped model (widths of
+     cfgs/ym_i3d_msvg_dvc.yml as tools/bench_longvideo.py builds them:
+     hidden 512, 8 heads, 2+2 layers, 100 queries, vocab 1247, 1024-d
+     features, 800 frames; contrastive off) through EvalRunner.run over 3
+     batches of 8 synthetic videos: 2 banded + 2 dense forward launches per
+     batch; then phases 5 and 6 on this model (6 with fewer rounds).
+ 15. long-video train main path: 5 steps at B=4 (10 GT slots, 3-10 events
+     per video, captions of 30 tokens, Adam at 1e-4 with L2 1e-4): 2 launches
+     per step of each of the four kernels; then phases 10 and 11 on it.
+With --kernels-only the script stops after phases 1-3, 8, 12 and 13. With
+--profile DIR phases 7 and 11 also profile the long-video steps. The last
+two lines are the kernels' JSON summary (four kernels) and {"ok": true,
+"device": {...}}. The run uses one card, the first visible.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -74,26 +99,39 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 SEED = 0
-B, T_FEAT, D_FEAT = 16, 100, 512
-ENC_SHAPES = (100, 50, 25, 13)
 H, DH, P = 8, 64, 4
 KERNEL_TOL = 1e-5
-# grad_loc = attn * T_l * (d1 - d0) carries the factor T_l <= 100: its values
-# reach several hundred, where one f32 ulp is 6.1e-5, so its absolute bound
-# is ten times the others'
+# grad_loc = attn * T_l * (d1 - d0) carries the factor T_l: its values reach
+# several hundred (T_l <= 100) or thousand (T_l = 800), where one f32 ulp is
+# 6.1e-5 to 4.9e-4, so its absolute bound is ten times the others' and every
+# gradient is also held to BWD_REL_TOL x the plain result's max abs
 BWD_ABS_TOL = {"grad_value": 1e-4, "grad_loc": 1e-3, "grad_attn": 1e-4}
 BWD_REL_TOL = 1e-5
 TRUNK_TOL = 1e-4
 TOKEN_AGREEMENT = 0.99
 N_BATCHES = 3
-N_ROUNDS, N_WINDOW = 10, 10     # phase 6: rounds x steps per window and path
+N_WINDOW = 10                   # phase 6: steps per window and path
 N_PROFILED = 5
+N_TRAIN_STEPS, N_TRAIN_TIMED, N_TRAIN_WARMUP, N_TRAIN_SPLIT = 5, 10, 3, 5
+STEPS_PER_EPOCH = 100
+# a gradient that is zero in exact arithmetic (the bias under a softmax) is
+# rounding noise of ~1e-10 on either path: GRAD_FLOOR lets it pass
+LOSS_TOL, GRAD_TOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-8
+TRAIN_LOSS_KEYS = {f"{k}{sfx}" for k in (
+    "loss_ce", "loss_counter", "loss_bbox", "loss_giou", "loss_self_iou",
+    "cardinality_error", "loss_caption") for sfx in ("", "_0")} | {"total_loss"}
+# NVIDIA H100 SXM data sheet: device memory rate, f32 rate outside the
+# tensor cores
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+DVC_KEYS = {"timestamp", "raw_box", "label", "proposal_score", "sentence",
+            "sentence_score", "cl_score", "query_id", "vid_duration",
+            "pred_event_count"}
 
 # __graft_entry__._flagship_cfg(tiny=False), contrastive off
 FLAGSHIP = dict(
     hidden_dim=512, nheads=8, enc_layers=2, dec_layers=2,
     transformer_ff_dim=512, num_feature_levels=4, num_queries=30,
-    feature_dim=D_FEAT, frame_embedding_num=T_FEAT, vocab_size=8517,
+    feature_dim=512, frame_embedding_num=100, vocab_size=8517,
     input_encoding_size=512, rnn_size=512, att_hid_size=512,
     max_caption_len=30, cap_nheads=1, cap_num_feature_levels=4,
     max_eseq_length=10, with_box_refine=1, enable_contrastive=False,
@@ -107,20 +145,48 @@ FLAGSHIP = dict(
     transformer_dropout_prob=0.1, drop_prob=0.5, optimizer_type="adam",
     weight_decay=0.0, lr=5e-5, grad_clip=100.0, epoch=30,
     learning_strategy="multi_step")
-MAX_GT, STEPS_PER_EPOCH = 30, 100
-N_TRAIN_STEPS, N_TRAIN_TIMED, N_TRAIN_WARMUP, N_TRAIN_SPLIT = 5, 10, 3, 5
-# a gradient that is zero in exact arithmetic (the bias under a softmax) is
-# rounding noise of ~1e-10 on either path: GRAD_FLOOR lets it pass
-LOSS_TOL, GRAD_TOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-8
-TRAIN_LOSS_KEYS = {f"{k}{sfx}" for k in (
-    "loss_ce", "loss_counter", "loss_bbox", "loss_giou", "loss_self_iou",
-    "cardinality_error", "loss_caption") for sfx in ("", "_0")} | {"total_loss"}
-# NVIDIA H100 SXM data sheet: device memory rate, f32 rate outside the
-# tensor cores
-HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
-DVC_KEYS = {"timestamp", "raw_box", "label", "proposal_score", "sentence",
-            "sentence_score", "cl_score", "query_id", "vid_duration",
-            "pred_event_count"}
+# cfgs/ym_i3d_msvg_dvc.yml at the shapes of tools/bench_longvideo.py
+# (YouMakeup: 800 frames of 1024-d i3d features, 100 queries, vocab 1247),
+# contrastive off; its loss coefficients are the flagship's
+LONGVIDEO = dict(
+    FLAGSHIP, num_queries=100, feature_dim=1024, frame_embedding_num=800,
+    vocab_size=1247, lr=1e-4, weight_decay=1e-4, epoch=25)
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """One model configuration and the batches both of its paths run."""
+    name: str
+    tag: str                 # prefix of the phases' log tags
+    cfg: dict
+    shapes: tuple            # the pyramid's level lengths
+    eval_B: int
+    train_B: int
+    max_gt: int              # GT slots of a train batch
+    gt_counts: tuple         # (lo, hi) events per video; None: ActivityNet's
+    duration: tuple          # seconds, (lo, hi)
+    n_rounds: int            # phase 6: paired rounds of N_WINDOW steps
+
+    @property
+    def banded(self) -> bool:
+        """Encoder self-attention goes to the banded kernels (S >= 512)."""
+        return sum(self.shapes) >= 512
+
+    def launches_per_step(self) -> dict:
+        """Forward launches of the dense and the banded kernel in one trunk
+        forward; the backward kernels launch as often in a train step."""
+        enc, dec = self.cfg["enc_layers"], self.cfg["dec_layers"]
+        return ({"dense": dec, "banded": enc} if self.banded
+                else {"dense": enc + dec, "banded": 0})
+
+
+ANET = Workload("anet", "", FLAGSHIP, (100, 50, 25, 13), eval_B=16,
+                train_B=16, max_gt=30, gt_counts=None, duration=(30, 200),
+                n_rounds=10)
+LONG = Workload("longvideo", "lv", LONGVIDEO, (800, 400, 200, 100), eval_B=8,
+                train_B=4, max_gt=10, gt_counts=(3, 10), duration=(100, 300),
+                n_rounds=5)
+LV_MARGIN = 32               # msda_band_margin's default, as the model runs it
 
 
 def log(phase: str, msg: str) -> None:
@@ -149,6 +215,30 @@ def cuda_median_ms(fn, n: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_fns():
+    from gvl_tpu_torch.ops import ms_deform_attn_1d, ms_deform_attn_1d_banded
+    return ms_deform_attn_1d, ms_deform_attn_1d_banded
+
+
+def reset_counts() -> None:
+    for fn in kernel_fns():
+        fn.launches = fn.bwd_launches = 0
+
+
+def read_counts() -> dict:
+    dense, banded = kernel_fns()
+    return {"fwd": dense.launches, "bwd": dense.bwd_launches,
+            "banded_fwd": banded.launches, "banded_bwd": banded.bwd_launches}
+
+
+def want_counts(w: Workload, steps: int, train: bool) -> dict:
+    per = w.launches_per_step()
+    return {"fwd": per["dense"] * steps,
+            "bwd": per["dense"] * steps * train,
+            "banded_fwd": per["banded"] * steps,
+            "banded_bwd": per["banded"] * steps * train}
+
+
 # ---------------------------------------------------------------- phase 1
 def phase_device() -> str:
     if not torch.cuda.is_available():
@@ -160,15 +250,9 @@ def phase_device() -> str:
         timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    try:
-        import yaml  # noqa: F401
-        has_yaml = True
-    except ImportError:
-        has_yaml = False
     log("device", f"{name}; torch {torch.__version__}, CUDA "
                   f"{torch.version.cuda}, python {sys.version.split()[0]}; "
-                  f"devices {torch.cuda.device_count()}; "
-                  f"TF32 off; yaml importable: {has_yaml}")
+                  f"devices {torch.cuda.device_count()}; TF32 off")
     check(torch.cuda.device_count() == 1, "one visible card")
     print(smi, flush=True)
     return name
@@ -189,15 +273,28 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------- phase 3
-def msda_inputs(kind: str, Lq: int, gen: torch.Generator, dev):
-    L = len(ENC_SHAPES)
-    S = sum(ENC_SHAPES)
+# label -> (level lengths, batch of the forward, batch of the backward, Lq):
+# every shape a main path gives the dense kernels. The forward runs in the
+# eval step and in the train step, so where the two batches differ the train
+# batch gets a forward case of its own (no backward: None).
+DENSE_CASES = {
+    "encoder": (ANET.shapes, ANET.eval_B, ANET.train_B, sum(ANET.shapes)),
+    "decoder": (ANET.shapes, ANET.eval_B, ANET.train_B, 30),
+    "longvideo_decoder": (LONG.shapes, LONG.eval_B, LONG.train_B, 100),
+    "longvideo_decoder_train": (LONG.shapes, LONG.train_B, None, 100),
+}
+assert ANET.eval_B == ANET.train_B
+
+
+def msda_inputs(kind: str, shapes, B: int, Lq: int, gen: torch.Generator, dev):
+    L = len(shapes)
+    S = sum(shapes)
     value = torch.randn(B, S, H, DH, generator=gen, device=dev)
     attn = torch.rand(B, Lq, H, L, P, generator=gen, device=dev) + 1e-3
     attn = attn / attn.sum(dim=(3, 4), keepdim=True)
     if kind == "border":
         loc = torch.empty(B, Lq, H, L, P, device=dev)
-        for l, T in enumerate(ENC_SHAPES):
+        for l, T in enumerate(shapes):
             special = torch.tensor([0.5 / T, (T - 0.5) / T, 1.5 / T,
                                     (T - 1.5) / T, 0.0, 1.0, -0.3, 1.3],
                                    device=dev)
@@ -211,80 +308,207 @@ def msda_inputs(kind: str, Lq: int, gen: torch.Generator, dev):
     return value, loc, attn
 
 
+def check_forward(tag: str, got, want) -> float:
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(tag.split()[0], f"{tag}: max abs err {err!r}")
+    check(math.isfinite(err) and err <= KERNEL_TOL,
+          f"kernel vs plain at {tag}: {err} > {KERNEL_TOL}")
+    return err
+
+
+def check_backward(tag: str, got, want) -> float:
+    """Bounds per gradient: max abs error <= BWD_ABS_TOL[name] x max(1, the
+    plain result's max abs / 1000) and <= BWD_REL_TOL x that max abs. No tap
+    is excluded: on a clamp bound both give 0."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(("grad_value", "grad_loc", "grad_attn"), got, want):
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        worst = max(worst, err)
+        log(tag.split()[0], f"{tag} {name}: max abs err {err!r}, plain max "
+                            f"abs {scale!r}")
+        check(math.isfinite(err)
+              and err <= BWD_ABS_TOL[name] * max(1.0, scale / 1e3)
+              and err <= BWD_REL_TOL * scale,
+              f"backward kernel vs plain at {tag}/{name}: {err} (max abs "
+              f"{scale})")
+    return worst
+
+
 def phase_kernel_vs_plain(dev) -> dict:
     from gvl_tpu_torch.ops import ms_deform_attn_1d_cuda, ms_deform_attn_1d_ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
     times = {}
-    for label, Lq in (("encoder", sum(ENC_SHAPES)), ("decoder", 30)):
+    for label, (shapes, B, _, Lq) in DENSE_CASES.items():
         for kind in ("normal", "wild", "border"):
-            value, loc, attn = msda_inputs(kind, Lq, gen, dev)
-            got = ms_deform_attn_1d_cuda(value, ENC_SHAPES, loc, attn)
-            want = ms_deform_attn_1d_ref(value, ENC_SHAPES, loc, attn)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            worst = max(worst, err)
-            log("kernel", f"{label} Lq={Lq} {kind}: max abs err {err!r}")
-            check(math.isfinite(err) and err <= KERNEL_TOL,
-                  f"kernel vs plain at {label}/{kind}: {err} > {KERNEL_TOL}")
-        value, loc, attn = msda_inputs("normal", Lq, gen, dev)
+            value, loc, attn = msda_inputs(kind, shapes, B, Lq, gen, dev)
+            worst = max(worst, check_forward(
+                f"kernel {label} B={B} Lq={Lq} {kind}",
+                ms_deform_attn_1d_cuda(value, shapes, loc, attn),
+                ms_deform_attn_1d_ref(value, shapes, loc, attn)))
+        value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
         k_ms = cuda_median_ms(
-            lambda: ms_deform_attn_1d_cuda(value, ENC_SHAPES, loc, attn), 50)
+            lambda: ms_deform_attn_1d_cuda(value, shapes, loc, attn), 50)
         p_ms = cuda_median_ms(
-            lambda: ms_deform_attn_1d_ref(value, ENC_SHAPES, loc, attn), 50)
+            lambda: ms_deform_attn_1d_ref(value, shapes, loc, attn), 50)
         times[label] = (k_ms, p_ms)
-        log("kernel", f"{label} B={B} S={sum(ENC_SHAPES)} Lq={Lq} H={H} "
-                      f"Dh={DH} K={len(ENC_SHAPES) * P}: kernel {k_ms!r} ms, "
+        log("kernel", f"{label} B={B} S={sum(shapes)} Lq={Lq} H={H} "
+                      f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms, "
                       f"plain {p_ms!r} ms per call (median of 50)")
     return dict(max_abs_err=worst, times=times)
 
 
 # ---------------------------------------------------------------- phase 8
 def phase_bwd_kernel_vs_plain(dev) -> dict:
-    """The backward kernel against its plain version, same inputs. Bounds per
-    gradient: max abs error <= BWD_ABS_TOL[name] and <= BWD_REL_TOL x the plain
-    result's max abs. No tap is excluded: on a clamp bound both give 0."""
+    """The backward kernel against its plain version, same inputs."""
     from gvl_tpu_torch.ops import (ms_deform_attn_1d_bwd_cuda,
                                    ms_deform_attn_1d_bwd_ref)
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     worst = 0.0
     times = {}
-    for label, Lq in (("encoder", sum(ENC_SHAPES)), ("decoder", 30)):
+    for label, (shapes, _, B, Lq) in DENSE_CASES.items():
+        if B is None:
+            continue
         for kind in ("normal", "wild", "border"):
-            value, loc, attn = msda_inputs(kind, Lq, gen, dev)
+            value, loc, attn = msda_inputs(kind, shapes, B, Lq, gen, dev)
             grad_out = torch.randn(B, Lq, H * DH, generator=gen, device=dev)
-            got = ms_deform_attn_1d_bwd_cuda(grad_out, value, ENC_SHAPES, loc,
-                                             attn)
-            want = ms_deform_attn_1d_bwd_ref(grad_out, value, ENC_SHAPES, loc,
-                                             attn)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("grad_value", "grad_loc", "grad_attn"),
-                                  got, want):
-                err = (g - w).abs().max().item()
-                scale = w.abs().max().item()
-                worst = max(worst, err)
-                log("bwd", f"{label} Lq={Lq} {kind} {name}: max abs err "
-                           f"{err!r}, plain max abs {scale!r}")
-                check(math.isfinite(err) and err <= BWD_ABS_TOL[name]
-                      and err <= BWD_REL_TOL * scale,
-                      f"backward kernel vs plain at {label}/{kind}/{name}: "
-                      f"{err} (max abs {scale})")
+            got = ms_deform_attn_1d_bwd_cuda(grad_out, value, shapes, loc, attn)
+            want = ms_deform_attn_1d_bwd_ref(grad_out, value, shapes, loc, attn)
+            worst = max(worst, check_backward(
+                f"bwd {label} B={B} Lq={Lq} {kind}", got, want))
             no_value = ms_deform_attn_1d_bwd_cuda(
-                grad_out, value, ENC_SHAPES, loc, attn, need_value=False)
+                grad_out, value, shapes, loc, attn, need_value=False)
             check(no_value[0] is None and torch.equal(no_value[1], got[1])
                   and torch.equal(no_value[2], got[2]),
                   "backward kernel without grad_value")
-        value, loc, attn = msda_inputs("normal", Lq, gen, dev)
+        value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
         grad_out = torch.randn(B, Lq, H * DH, generator=gen, device=dev)
         k_ms = cuda_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
-            grad_out, value, ENC_SHAPES, loc, attn), 50)
+            grad_out, value, shapes, loc, attn), 50)
         p_ms = cuda_median_ms(lambda: ms_deform_attn_1d_bwd_ref(
-            grad_out, value, ENC_SHAPES, loc, attn), 50)
+            grad_out, value, shapes, loc, attn), 50)
         times[label] = (k_ms, p_ms)
-        log("bwd", f"{label} B={B} S={sum(ENC_SHAPES)} Lq={Lq} H={H} "
-                   f"Dh={DH} K={len(ENC_SHAPES) * P}: kernel {k_ms!r} ms "
+        log("bwd", f"{label} B={B} S={sum(shapes)} Lq={Lq} H={H} "
+                   f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms "
                    f"(zeroing grad_value included), plain {p_ms!r} ms per "
                    f"call (median of 50)")
+    return dict(max_abs_err=worst, times=times)
+
+
+# --------------------------------------------------------- phases 12, 13
+BANDED_KINDS = ("local", "wide", "border")
+FULL_MARGIN = max(LONG.shapes)       # every band is its whole padded level
+
+
+def banded_inputs(kind: str, B: int, gen: torch.Generator, dev):
+    """One query per token of the long-video pyramid. local: the encoder's
+    reference points (the query's own normalised position in every level)
+    with offsets within +-4 rows; wide: offsets of up to +-96 rows, three
+    times the margin; border: the special taps of `msda_inputs`."""
+    shapes = LONG.shapes
+    if kind == "border":
+        return msda_inputs("border", shapes, B, sum(shapes), gen, dev)
+    value, _, attn = msda_inputs("normal", shapes, B, sum(shapes), gen, dev)
+    ref = torch.cat([(torch.arange(T, device=dev) + 0.5) / T for T in shapes])
+    spread = 4.0 if kind == "local" else 3.0 * LV_MARGIN
+    offsets = (2 * torch.rand(attn.shape, generator=gen, device=dev) - 1) * spread
+    t = torch.tensor(shapes, dtype=torch.float32, device=dev)[:, None]
+    return value, ref[None, :, None, None, None] + offsets / t, attn
+
+
+def phase_banded_kernel_vs_plain(dev) -> dict:
+    from gvl_tpu_torch.ops import (ms_deform_attn_1d_banded_cuda,
+                                   ms_deform_attn_1d_banded_ref,
+                                   ms_deform_attn_1d_cuda,
+                                   ms_deform_attn_1d_ref)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    shapes, B = LONG.shapes, LONG.eval_B
+    worst = 0.0
+    for kind in BANDED_KINDS:
+        value, loc, attn = banded_inputs(kind, B, gen, dev)
+        dense = ms_deform_attn_1d_ref(value, shapes, loc, attn)
+        for margin in (LV_MARGIN, FULL_MARGIN):
+            want = ms_deform_attn_1d_banded_ref(value, shapes, loc, attn, margin)
+            worst = max(worst, check_forward(
+                f"banded B={B} {kind} margin={margin}",
+                ms_deform_attn_1d_banded_cuda(value, shapes, loc, attn, margin),
+                want))
+            clamped = (want - dense).abs().max().item()
+            log("banded", f"{kind} margin={margin}: plain banded vs plain "
+                          f"dense max abs diff {clamped!r}")
+            # the clamp is inactive on local taps and in full bands, and
+            # engages on wide and border taps at the model's margin
+            check((clamped <= KERNEL_TOL) == (kind == "local"
+                                              or margin == FULL_MARGIN),
+                  f"band clamp at {kind}/margin {margin}: diff {clamped}")
+    times = {}
+    for b in (LONG.eval_B, LONG.train_B):    # the eval and the train batch
+        value, loc, attn = banded_inputs("local", b, gen, dev)
+        worst = max(worst, check_forward(
+            f"banded B={b} local margin={LV_MARGIN}, timed inputs",
+            ms_deform_attn_1d_banded_cuda(value, shapes, loc, attn, LV_MARGIN),
+            ms_deform_attn_1d_banded_ref(value, shapes, loc, attn, LV_MARGIN)))
+        times[b] = dict(
+            ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_cuda(
+                value, shapes, loc, attn, LV_MARGIN), 50),
+            plain_ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_ref(
+                value, shapes, loc, attn, LV_MARGIN), 20),
+            dense_kernel_ms=cuda_median_ms(lambda: ms_deform_attn_1d_cuda(
+                value, shapes, loc, attn), 50))
+        log("banded", f"B={b} S=Lq={sum(shapes)} H={H} Dh={DH} "
+                      f"K={len(shapes) * P} margin={LV_MARGIN}, local taps: "
+                      f"kernel {times[b]['ms']!r} ms, plain "
+                      f"{times[b]['plain_ms']!r} ms, the dense kernel on the "
+                      f"same inputs {times[b]['dense_kernel_ms']!r} ms per "
+                      f"call (medians of 50 / 20 / 50)")
+    return dict(max_abs_err=worst, times=times)
+
+
+def phase_banded_bwd_kernel_vs_plain(dev) -> dict:
+    from gvl_tpu_torch.ops import (ms_deform_attn_1d_banded_bwd_cuda,
+                                   ms_deform_attn_1d_banded_bwd_ref,
+                                   ms_deform_attn_1d_bwd_cuda)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    shapes, B = LONG.shapes, LONG.train_B
+    worst = 0.0
+    for kind in BANDED_KINDS:
+        value, loc, attn = banded_inputs(kind, B, gen, dev)
+        grad_out = torch.randn(B, sum(shapes), H * DH, generator=gen,
+                               device=dev)
+        for margin in (LV_MARGIN, FULL_MARGIN):
+            got = ms_deform_attn_1d_banded_bwd_cuda(
+                grad_out, value, shapes, loc, attn, margin)
+            want = ms_deform_attn_1d_banded_bwd_ref(
+                grad_out, value, shapes, loc, attn, margin)
+            worst = max(worst, check_backward(
+                f"bbwd B={B} {kind} margin={margin}", got, want))
+            no_value = ms_deform_attn_1d_banded_bwd_cuda(
+                grad_out, value, shapes, loc, attn, margin, need_value=False)
+            check(no_value[0] is None and torch.equal(no_value[1], got[1])
+                  and torch.equal(no_value[2], got[2]),
+                  "banded backward kernel without grad_value")
+    times = {}
+    for b in (LONG.train_B, LONG.eval_B):
+        value, loc, attn = banded_inputs("local", b, gen, dev)
+        grad_out = torch.randn(b, sum(shapes), H * DH, generator=gen,
+                               device=dev)
+        times[b] = dict(
+            ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_bwd_cuda(
+                grad_out, value, shapes, loc, attn, LV_MARGIN), 50),
+            plain_ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_bwd_ref(
+                grad_out, value, shapes, loc, attn, LV_MARGIN), 20),
+            dense_kernel_ms=cuda_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
+                grad_out, value, shapes, loc, attn), 50))
+        log("bbwd", f"B={b} S=Lq={sum(shapes)} H={H} Dh={DH} "
+                    f"K={len(shapes) * P} margin={LV_MARGIN}, local taps: "
+                    f"kernel {times[b]['ms']!r} ms (zeroing grad_value "
+                    f"included), plain {times[b]['plain_ms']!r} ms, the dense "
+                    f"backward kernel on the same inputs "
+                    f"{times[b]['dense_kernel_ms']!r} ms per call (medians of "
+                    f"50 / 20 / 50)")
     return dict(max_abs_err=worst, times=times)
 
 
@@ -301,43 +525,45 @@ class WordTranslator:
         return " ".join(out) + "." if out else ""
 
 
-def synthetic_batches(n: int, seed: int):
+def synthetic_batches(w: Workload, n: int, seed: int):
     rs = np.random.RandomState(seed)
+    B, T = w.eval_B, w.cfg["frame_embedding_num"]
     for i in range(n):
-        mask = np.ones((B, T_FEAT), bool)
-        for b in range(0, B, 8):          # two padded videos per batch
-            mask[b, rs.randint(T_FEAT // 2, T_FEAT):] = False
+        mask = np.ones((B, T), bool)
+        for b in range(0, B, 8):          # one padded video in eight
+            mask[b, rs.randint(T // 2, T):] = False
         yield dict(keys=[f"v_{i:02d}{b:02d}" for b in range(B)],
-                   video_feats=rs.randn(B, T_FEAT, D_FEAT).astype(np.float32),
+                   video_feats=rs.randn(B, T, w.cfg["feature_dim"]).astype(
+                       np.float32),
                    video_mask=mask,
-                   duration=rs.uniform(30, 200, B).astype(np.float32))
+                   duration=rs.uniform(*w.duration, B).astype(np.float32))
 
 
-def phase_main_path(dev, kernel_fn):
+def phase_main_path(w: Workload, dev):
     from gvl_tpu_torch.eval.evaluate import EvalRunner
     from gvl_tpu_torch.models.gvl import build_model
-    cfg = types.SimpleNamespace(**FLAGSHIP)
+    tag = w.tag + "main"
+    cfg = types.SimpleNamespace(**w.cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = build_model(cfg, device=dev, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
     runner = EvalRunner(cfg, model, WordTranslator())
+    B = w.eval_B
     with tempfile.TemporaryDirectory() as tmp:
-        kernel_fn.launches = kernel_fn.bwd_launches = 0
+        reset_counts()
         t0 = time.perf_counter()
-        path, out_json = runner.run(synthetic_batches(N_BATCHES, SEED),
+        path, out_json = runner.run(synthetic_batches(w, N_BATCHES, SEED),
                                     f"{tmp}/dvc.json")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = (kernel_fn.launches, kernel_fn.bwd_launches)
+        launches = read_counts()
         with open(path) as f:
             reranked = json.load(f)
-    per_batch = cfg.enc_layers + cfg.dec_layers
-    log("main", f"model {n_params} params; EvalRunner.run over {N_BATCHES} "
-                f"batches of {B}: {wall:.3f} s wall (first batch included); "
-                f"kernel launches {launches[0]} forward (want "
-                f"{per_batch}/batch), {launches[1]} backward (want 0)")
-    check(launches == (per_batch * N_BATCHES, 0),
-          f"kernel launches {launches} != ({per_batch * N_BATCHES}, 0)")
+    want = want_counts(w, N_BATCHES, train=False)
+    log(tag, f"{w.name} model {n_params} params; EvalRunner.run over "
+             f"{N_BATCHES} batches of {B}: {wall:.3f} s wall (first batch "
+             f"included); kernel launches {launches} (want {want})")
+    check(launches == want, f"kernel launches {launches} != {want}")
     res = out_json["results"]
     check(len(res) == B * N_BATCHES, f"{len(res)} videos in the DVC JSON")
     n_items = 0
@@ -353,22 +579,24 @@ def phase_main_path(dev, kernel_fn):
                   <= it["vid_duration"] + 1e-3, f"{vid} timestamp out of range")
     n_sent = sum(bool(it["sentence"]) for v in res.values() for it in v)
     check(len(reranked["results"]) == B * N_BATCHES, "reranked JSON videos")
-    log("main", f"DVC JSON: {len(res)} videos, {n_items} events, {n_sent} "
-                f"with a sentence; reranked JSON: "
-                f"{sum(len(v) for v in reranked['results'].values())} events")
+    log(tag, f"DVC JSON: {len(res)} videos, {n_items} events, {n_sent} "
+             f"with a sentence; reranked JSON: "
+             f"{sum(len(v) for v in reranked['results'].values())} events")
     return cfg, model, runner, launches
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_paths_agree(cfg, model, runner):
+def phase_paths_agree(w: Workload, cfg, model, runner):
     from gvl_tpu_torch.models.layers import set_msda_impl
     from gvl_tpu_torch.models.transformer import pyramid_shapes
-    batch = next(synthetic_batches(1, SEED + 1))
+    tag = w.tag + "paths"
+    batch = next(synthetic_batches(w, 1, SEED + 1))
     dev = runner.device
     feats = torch.from_numpy(batch["video_feats"]).to(dev)
     mask = torch.from_numpy(batch["video_mask"]).to(dev)
     dur = torch.from_numpy(batch["duration"]).to(dev)
-    shapes = pyramid_shapes(T_FEAT, cfg.num_feature_levels)
+    shapes = pyramid_shapes(cfg.frame_embedding_num, cfg.num_feature_levels)
+    check(tuple(shapes) == w.shapes, f"pyramid {shapes} != {w.shapes}")
     outs = {}
     with torch.inference_mode():
         for impl in ("kernel", "ref"):
@@ -384,23 +612,25 @@ def phase_paths_agree(cfg, model, runner):
     for key in ("pred_logits", "pred_boxes", "memory", "hs"):
         check(bool(torch.isfinite(ko[key]).all()), f"{key} not finite")
         err = (ko[key] - po[key]).abs().max().item()
-        log("paths", f"{key} {tuple(ko[key].shape)}: max abs diff {err!r}")
+        log(tag, f"{key} {tuple(ko[key].shape)}: max abs diff {err!r}")
         check(err <= TRUNK_TOL, f"{key} kernel vs plain path {err} > {TRUNK_TOL}")
     share = (kseq == pseq).float().mean().item()
-    log("paths", f"greedy tokens {tuple(kseq.shape)}: {share!r} of positions "
-                 f"equal")
+    log(tag, f"greedy tokens {tuple(kseq.shape)}: {share!r} of positions "
+             f"equal")
     check(share >= TOKEN_AGREEMENT, f"token agreement {share}")
 
 
 # ---------------------------------------------------------------- phase 6
-def phase_time(model, runner):
+def phase_time(w: Workload, model, runner):
     """Eval step time of both paths. A step is what EvalRunner.run does for
     a batch, less the JSON assembly: the eval step and the copy of its
     results to the host. Each window of N_WINDOW back-to-back steps is timed
     whole by one pair of CUDA events; each round times one window per path,
     in alternating order."""
     from gvl_tpu_torch.models.layers import set_msda_impl
-    batch = next(synthetic_batches(1, SEED + 2))
+    tag = w.tag + "time"
+    B, n_rounds = w.eval_B, w.n_rounds
+    batch = next(synthetic_batches(w, 1, SEED + 2))
     win = {"kernel": [], "ref": []}
 
     def window():
@@ -411,7 +641,7 @@ def phase_time(model, runner):
         for impl in ("kernel", "ref"):
             set_msda_impl(model, impl)
             cuda_median_ms(window, 1, warmup=1)
-        for i in range(N_ROUNDS):
+        for i in range(n_rounds):
             order = ("ref", "kernel") if i % 2 else ("kernel", "ref")
             for impl in order:
                 set_msda_impl(model, impl)
@@ -421,39 +651,65 @@ def phase_time(model, runner):
     quart = {k: statistics.quantiles(v, n=4) for k, v in win.items()}
     for impl, name in (("kernel", "kernel path"), ("ref", "plain path")):
         q1, q2, q3 = quart[impl]
-        log("time", f"eval step B={B} ({name}): {mean[impl]!r} ms per step "
-                    f"over {N_ROUNDS * N_WINDOW} steps; window means: median "
-                    f"{q2!r}, quartiles {q1!r} / {q3!r}, min "
-                    f"{min(win[impl])!r}, max {max(win[impl])!r} ms; "
-                    f"{B / mean[impl] * 1e3!r} clips/s")
+        log(tag, f"{w.name} eval step B={B} ({name}): {mean[impl]!r} ms per "
+                 f"step over {n_rounds * N_WINDOW} steps; window means: median "
+                 f"{q2!r}, quartiles {q1!r} / {q3!r}, min "
+                 f"{min(win[impl])!r}, max {max(win[impl])!r} ms; "
+                 f"{B / mean[impl] * 1e3!r} clips/s")
     diffs = [p - k for p, k in zip(win["ref"], win["kernel"])]
     wins = sum(d > 0 for d in diffs)
     gap = quart["ref"][1] - quart["kernel"][1]
     spread = max(q[2] - q[0] for q in quart.values())
-    resolved = (max(wins, N_ROUNDS - wins) >= 0.9 * N_ROUNDS
+    resolved = (max(wins, n_rounds - wins) >= 0.9 * n_rounds
                 and abs(gap) > spread)
-    log("time", f"plain minus kernel path per round: {diffs!r} ms per step; "
-                f"kernel path faster in {wins} of {N_ROUNDS} rounds; medians "
-                f"differ by {gap!r} ms, widest quartile spread {spread!r} ms: "
-                f"{'resolved' if resolved else 'not resolved'}")
+    log(tag, f"plain minus kernel path per round: {diffs!r} ms per step; "
+             f"kernel path faster in {wins} of {n_rounds} rounds; medians "
+             f"differ by {gap!r} ms, widest quartile spread {spread!r} ms: "
+             f"{'resolved' if resolved else 'not resolved'}")
     return mean
 
 
 # ---------------------------------------------------------------- phase 7
-def phase_profile(cfg, model, runner, out_dir: pathlib.Path) -> None:
+def summarise_profile(tag: str, prof, what: str, path: pathlib.Path) -> None:
+    """Device busy time, device op count and the top device ops of a
+    torch.profiler run over N_PROFILED steps; the op table goes to `path`.
+    Annotation spans that the profiler mirrors onto the device track (the
+    optimizer's step) are no device work and are left out."""
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    device_ops = [e for e in avgs if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+    busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3
+    n_ops = sum(e.count for e in device_ops)
+    check(busy_ms > 0 and n_ops > 0, "torch.profiler saw no device time")
+    path.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=40))
+    log(tag, f"torch.profiler over {N_PROFILED} {what}: device busy "
+             f"{busy_ms / N_PROFILED!r} ms per step, "
+             f"{n_ops / N_PROFILED!r} device ops per step")
+    top = sorted(device_ops, key=lambda e: -e.self_device_time_total)
+    for e in top[:8] + [e for e in top[8:] if "msda_" in e.key]:
+        ms = e.self_device_time_total / 1e3
+        log(tag, f"  {ms / N_PROFILED!r} ms/step ({ms / busy_ms:.1%}), "
+                 f"{e.count / N_PROFILED!r} calls/step: {e.key[:90]}")
+    log(tag, f"op table in {path}")
+
+
+def phase_profile(w: Workload, cfg, model, runner,
+                  out_dir: pathlib.Path) -> None:
     """Where one eval step's time goes, kernel path. Host: seconds to
     enqueue a step, then to wait for the device. CUDA events: trunk and
     caption decode. torch.profiler over N_PROFILED steps: device busy time,
-    device op count, top device ops; the table and trace go to out_dir."""
-    from torch.autograd import DeviceType
+    device op count, top device ops; the table goes to out_dir, and for the
+    flagship the trace too."""
     from torch.profiler import ProfilerActivity, profile
     from gvl_tpu_torch.models.transformer import pyramid_shapes
+    tag = w.tag + "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    batch = next(synthetic_batches(1, SEED + 3))
+    batch = next(synthetic_batches(w, 1, SEED + 3))
     dev = runner.device
     feats, mask, dur = (torch.from_numpy(batch[k]).to(dev) for k in
                         ("video_feats", "video_mask", "duration"))
-    shapes = pyramid_shapes(T_FEAT, cfg.num_feature_levels)
+    shapes = pyramid_shapes(cfg.frame_embedding_num, cfg.num_feature_levels)
     enqueue, wait = [], []
     with torch.inference_mode():
         out = model(feats, mask, dur)
@@ -478,48 +734,41 @@ def phase_profile(cfg, model, runner, out_dir: pathlib.Path) -> None:
             for _ in range(N_PROFILED):
                 runner._eval_step(batch)
             torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    device_ops = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3
-    n_ops = sum(e.count for e in device_ops)
-    check(busy_ms > 0 and n_ops > 0, "torch.profiler saw no device time")
-    (out_dir / "eval_step_ops.txt").write_text(
-        avgs.table(sort_by="self_cuda_time_total", row_limit=40))
-    prof.export_chrome_trace(str(out_dir / "eval_step_trace.json"))
-    log("profile", f"trunk {trunk_ms!r} ms, caption decode {decode_ms!r} ms "
-                   f"(CUDA-event medians of {N_PROFILED})")
-    log("profile", f"host enqueue per step {statistics.median(enqueue)!r} ms "
-                   f"(min {min(enqueue)!r}, max {max(enqueue)!r}), then device "
-                   f"done {statistics.median(wait)!r} ms later (medians of "
-                   f"{N_PROFILED})")
-    log("profile", f"torch.profiler over {N_PROFILED} steps: device busy "
-                   f"{busy_ms / N_PROFILED!r} ms per step, "
-                   f"{n_ops / N_PROFILED!r} device ops per step")
-    top = sorted(device_ops, key=lambda e: -e.self_device_time_total)
-    for e in top[:8] + [e for e in top[8:] if "msda_fwd_kernel" in e.key]:
-        ms = e.self_device_time_total / 1e3
-        log("profile", f"  {ms / N_PROFILED!r} ms/step "
-                       f"({ms / busy_ms:.1%}), {e.count // N_PROFILED} calls/"
-                       f"step: {e.key[:90]}")
-    log("profile", f"op table and trace in {out_dir}")
+    log(tag, f"{w.name} eval step B={w.eval_B}: trunk {trunk_ms!r} ms, "
+             f"caption decode {decode_ms!r} ms (CUDA-event medians of "
+             f"{N_PROFILED})")
+    log(tag, f"host enqueue per step {statistics.median(enqueue)!r} ms "
+             f"(min {min(enqueue)!r}, max {max(enqueue)!r}), then device "
+             f"done {statistics.median(wait)!r} ms later (medians of "
+             f"{N_PROFILED})")
+    if w is ANET:
+        prof.export_chrome_trace(str(out_dir / "anet_eval_step_trace.json"))
+    summarise_profile(tag, prof, f"{w.name} eval steps",
+                      out_dir / f"{w.name}_eval_step_ops.txt")
 
 
 # ---------------------------------------------------------------- phase 9
-def train_batch(seed: int) -> dict:
-    """The synthetic train batch of the JAX package's train-step bench
-    (bench.py build_train_bench, gt_counts='anet'): every GT box (0.5, 0.3),
-    event counts drawn from the ActivityNet count frequencies."""
+def train_batch(w: Workload, seed: int) -> dict:
+    """A synthetic train batch in the form of the JAX package's train-step
+    bench (bench.py build_train_bench): every GT box (0.5, 0.3). Event
+    counts: uniform in w.gt_counts, or drawn from the ActivityNet count
+    frequencies."""
     from gvl_tpu_torch.train.criterion import COUNTER_CLASS_RATE
     rs = np.random.RandomState(seed)
-    G, Lc = MAX_GT, FLAGSHIP["max_caption_len"]
-    probs = np.asarray(COUNTER_CLASS_RATE[:G + 1], np.float64)
-    counts = np.maximum(rs.choice(len(probs), size=B, p=probs / probs.sum()), 1)
-    captions = rs.randint(1, FLAGSHIP["vocab_size"], (B, G, Lc)).astype(np.int32)
+    B, G, Lc = w.train_B, w.max_gt, w.cfg["max_caption_len"]
+    T, D = w.cfg["frame_embedding_num"], w.cfg["feature_dim"]
+    if w.gt_counts is None:
+        probs = np.asarray(COUNTER_CLASS_RATE[:G + 1], np.float64)
+        counts = np.maximum(
+            rs.choice(len(probs), size=B, p=probs / probs.sum()), 1)
+    else:
+        counts = rs.randint(w.gt_counts[0], w.gt_counts[1] + 1, B)
+    captions = rs.randint(1, w.cfg["vocab_size"], (B, G, Lc)).astype(np.int32)
     captions[..., 0] = 0
     return dict(
-        video_feats=rs.randn(B, T_FEAT, D_FEAT).astype(np.float32),
-        video_mask=np.ones((B, T_FEAT), bool),
-        duration=rs.uniform(30, 90, (B,)).astype(np.float32),
+        video_feats=rs.randn(B, T, D).astype(np.float32),
+        video_mask=np.ones((B, T), bool),
+        duration=rs.uniform(*w.duration, (B,)).astype(np.float32),
         gt_boxes=np.stack([np.full((B, G), 0.5), np.full((B, G), 0.3)],
                           -1).astype(np.float32),
         gt_labels=np.zeros((B, G), np.int32),
@@ -527,12 +776,13 @@ def train_batch(seed: int) -> dict:
         captions=captions, caption_mask=np.ones((B, G, Lc), bool))
 
 
-def phase_train_main_path(dev, kernel_fn):
+def phase_train_main_path(w: Workload, dev):
     from gvl_tpu_torch.models.gvl import build_model
     from gvl_tpu_torch.train.criterion import LossSpec, make_weight_dict
     from gvl_tpu_torch.train.state import (StepStatics, create_train_state,
                                            make_train_step)
-    cfg = types.SimpleNamespace(**FLAGSHIP)
+    tag = w.tag + "train"
+    cfg = types.SimpleNamespace(**w.cfg)
     torch.manual_seed(SEED)               # the dropout draws
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = build_model(cfg, generator=gen)          # no device: the card
@@ -542,14 +792,13 @@ def phase_train_main_path(dev, kernel_fn):
         spec=LossSpec.from_config(cfg), enable_contrastive=False,
         caption_loss=True, two_stage=False, train_text_encoder=False,
         disable_mid_caption_heads=False, enable_pos_emb_for_captioner=False,
-        temporal_shapes=ENC_SHAPES)
+        temporal_shapes=w.shapes)
     state = create_train_state(cfg, model, STEPS_PER_EPOCH, statics)
     step = make_train_step(model, cfg, statics)
     weights = make_weight_dict(cfg)
-    batches = [train_batch(SEED), train_batch(SEED + 1)]
+    batches = [train_batch(w, SEED), train_batch(w, SEED + 1)]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    per_step = cfg.enc_layers + cfg.dec_layers
-    kernel_fn.launches = kernel_fn.bwd_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for i in range(N_TRAIN_STEPS):
         losses = {k: float(v) for k, v in
@@ -558,16 +807,15 @@ def phase_train_main_path(dev, kernel_fn):
               f"loss keys {sorted(set(losses) ^ TRAIN_LOSS_KEYS)} differ")
         check(all(math.isfinite(v) for v in losses.values()),
               f"step {i}: non-finite loss in {losses}")
-        check(kernel_fn.launches == per_step * (i + 1)
-              and kernel_fn.bwd_launches == per_step * (i + 1),
-              f"step {i}: launches {kernel_fn.launches} forward, "
-              f"{kernel_fn.bwd_launches} backward, want {per_step * (i + 1)}")
-        log("train", f"step {i}: total {losses['total_loss']!r}, caption "
-                     f"{losses['loss_caption']!r}, giou {losses['loss_giou']!r}"
-                     f", ce {losses['loss_ce']!r}")
+        want = want_counts(w, i + 1, train=True)
+        check(read_counts() == want,
+              f"step {i}: launches {read_counts()}, want {want}")
+        log(tag, f"step {i}: total {losses['total_loss']!r}, caption "
+                 f"{losses['loss_caption']!r}, giou {losses['loss_giou']!r}"
+                 f", ce {losses['loss_ce']!r}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (kernel_fn.launches, kernel_fn.bwd_launches)
+    launches = read_counts()
     n_params = 0
     for n, p in model.named_parameters():
         n_params += 1
@@ -577,17 +825,19 @@ def phase_train_main_path(dev, kernel_fn):
                 for n, p in model.named_parameters())
     check(moved > 0.9 * n_params, f"only {moved} of {n_params} tensors moved")
     check(state.step == N_TRAIN_STEPS, f"state.step {state.step}")
-    log("train", f"{N_TRAIN_STEPS} steps at B={B}, G={MAX_GT}: {wall:.3f} s "
-                 f"wall (first step included); launches {launches[0]} forward"
-                 f", {launches[1]} backward (want {per_step}/step each); "
-                 f"{n_params} parameter tensors with a finite gradient, "
-                 f"{moved} moved; lr {state.optimizer.param_groups[0]['lr']!r}")
+    log(tag, f"{w.name}: {N_TRAIN_STEPS} steps at B={w.train_B}, "
+             f"G={w.max_gt}: {wall:.3f} s wall (first step included); "
+             f"launches {launches} (per step "
+             f"{want_counts(w, 1, train=True)}); {n_params} parameter "
+             f"tensors with a finite gradient, {moved} moved; lr "
+             f"{state.optimizer.param_groups[0]['lr']!r}")
     return model, state, step, weights, batches, launches
 
 
 # --------------------------------------------------------------- phase 10
-def phase_train_paths_agree(model, step, weights, batch) -> None:
+def phase_train_paths_agree(w: Workload, model, step, weights, batch) -> None:
     from gvl_tpu_torch.models.layers import set_msda_impl
+    tag = w.tag + "tpaths"
     model.eval()                          # dropout off, gradients on
     res = {}
     for impl in ("kernel", "ref"):
@@ -602,8 +852,8 @@ def phase_train_paths_agree(model, step, weights, batch) -> None:
     model.zero_grad(set_to_none=True)
     (kt, kg), (pt, pg) = res["kernel"], res["ref"]
     rel = abs(kt - pt) / abs(pt)
-    log("tpaths", f"total loss kernel path {kt!r}, plain path {pt!r}: "
-                  f"relative difference {rel!r}")
+    log(tag, f"total loss kernel path {kt!r}, plain path {pt!r}: "
+             f"relative difference {rel!r}")
     check(rel <= LOSS_TOL, f"total loss differs by {rel} > {LOSS_TOL}")
     worst, worst_name = 0.0, ""
     for n, g in pg.items():
@@ -615,13 +865,15 @@ def phase_train_paths_agree(model, step, weights, batch) -> None:
         check(err <= GRAD_TOL * scale + GRAD_FLOOR,
               f"{n}: kernel vs plain path gradient {err} > {GRAD_TOL} x "
               f"{scale} + {GRAD_FLOOR}")
-    log("tpaths", f"{len(pg)} named gradients: worst max abs diff / own max "
-                  f"abs {worst!r} ({worst_name})")
+    log(tag, f"{len(pg)} named gradients: worst max abs diff / own max "
+             f"abs {worst!r} ({worst_name})")
 
 
 # --------------------------------------------------------------- phase 11
-def phase_train_time(state, step, weights, batches) -> dict:
+def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
     import gvl_tpu_torch.train.criterion as criterion
+    tag = w.tag + "ttime"
+    B = w.train_B
     for i in range(N_TRAIN_WARMUP):
         step(state, batches[i % 2], weights)
     torch.cuda.synchronize()
@@ -631,11 +883,11 @@ def phase_train_time(state, step, weights, batches) -> dict:
         lambda: step(state, batches[next(it) % 2], weights), N_TRAIN_TIMED,
         warmup=0)
     peak = torch.cuda.max_memory_allocated()
-    log("ttime", f"train step B={B}: {step_ms!r} ms (median of "
-                 f"{N_TRAIN_TIMED} CUDA-event-timed steps after "
-                 f"{N_TRAIN_WARMUP} warm-up steps), {1e3 / step_ms!r} steps/s,"
-                 f" {B * 1e3 / step_ms!r} clips/s; peak device memory "
-                 f"{peak / 2 ** 30!r} GiB")
+    log(tag, f"{w.name} train step B={B}: {step_ms!r} ms (median of "
+             f"{N_TRAIN_TIMED} CUDA-event-timed steps after "
+             f"{N_TRAIN_WARMUP} warm-up steps), {1e3 / step_ms!r} steps/s,"
+             f" {B * 1e3 / step_ms!r} clips/s; peak device memory "
+             f"{peak / 2 ** 30!r} GiB")
 
     # the split: one CUDA event and one host time at the end of each part,
     # taken where the step calls the part: the trunk (model.forward), the
@@ -704,53 +956,40 @@ def phase_train_time(state, step, weights, batches) -> dict:
         criterion.batched_lap = orig_lap
         train_state.compute_criterion, train_state.clip_global_norm = orig
     med = statistics.median
-    log("ttime", "split, medians of %d steps, device timeline (CUDA events) "
-                 "/ host enqueue (host clock), ms: " % N_TRAIN_SPLIT
+    log(tag, "split, medians of %d steps, device timeline (CUDA events) "
+             "/ host enqueue (host clock), ms: " % N_TRAIN_SPLIT
         + "; ".join(f"{k} {med(dev_ms[k])!r} / {med(host_ms[k])!r}"
                     for k in parts))
-    log("ttime", f"matcher inside 'criterion' (host clock after a "
-                 f"synchronise): copies {med(lap_ms['copy'])!r} ms, scipy "
-                 f"solve of {FLAGSHIP['dec_layers'] * B} problems "
-                 f"{med(lap_ms['solve'])!r} ms")
+    log(tag, f"matcher inside 'criterion' (host clock after a "
+             f"synchronise): copies {med(lap_ms['copy'])!r} ms, scipy "
+             f"solve of {w.cfg['dec_layers'] * B} problems "
+             f"{med(lap_ms['solve'])!r} ms")
     return dict(step_ms=step_ms, peak=peak)
 
 
-def phase_train_profile(state, step, weights, batches,
+def phase_train_profile(w: Workload, state, step, weights, batches,
                         out_dir: pathlib.Path) -> None:
-    """torch.profiler over N_PROFILED train steps: device busy time and
-    device op count per step, the top device ops and the two kernels; the
-    op table goes to out_dir."""
-    from torch.autograd import DeviceType
+    """torch.profiler over N_PROFILED train steps, summarised as the eval
+    steps' profile."""
     from torch.profiler import ProfilerActivity, profile
+    tag = w.tag + "tprofile"
     out_dir.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(N_PROFILED):
             step(state, batches[i % 2], weights)
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    device_ops = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3
-    n_ops = sum(e.count for e in device_ops)
-    check(busy_ms > 0 and n_ops > 0, "torch.profiler saw no device time")
-    (out_dir / "train_step_ops.txt").write_text(
-        avgs.table(sort_by="self_cuda_time_total", row_limit=40))
-    log("tprofile", f"torch.profiler over {N_PROFILED} train steps: device "
-                    f"busy {busy_ms / N_PROFILED!r} ms per step, "
-                    f"{n_ops / N_PROFILED!r} device ops per step")
-    top = sorted(device_ops, key=lambda e: -e.self_device_time_total)
-    for e in top[:8] + [e for e in top[8:] if "msda_" in e.key]:
-        ms = e.self_device_time_total / 1e3
-        log("tprofile", f"  {ms / N_PROFILED!r} ms/step ({ms / busy_ms:.1%}), "
-                        f"{e.count / N_PROFILED!r} calls/step: {e.key[:90]}")
+    summarise_profile(tag, prof, f"{w.name} train steps",
+                      out_dir / f"{w.name}_train_step_ops.txt")
 
 
-def msda_bound(Lq: int, backward: bool) -> dict:
-    """The least time the card could take for one call at B, S=188, H, Dh,
-    K=16 and this Lq: each input read once and each output written once at
-    the memory rate, against 2 FMAs per tap and channel (forward) or 4
-    (backward: two dot products, two scatter-adds) at the f32 rate."""
-    S, K = sum(ENC_SHAPES), len(ENC_SHAPES) * P
+def msda_bound(B: int, S: int, Lq: int, backward: bool) -> dict:
+    """The least time the card could take for one call at these sizes with
+    H, Dh and K=16: each input read once and each output written once at the
+    memory rate, against 2 FMAs per tap and channel (forward) or 4 (backward:
+    two dot products, two scatter-adds) at the f32 rate. The banded kernels
+    move the same bytes and do the same FMAs as the dense ones at Lq == S."""
+    K = 4 * P
     value, out, taps = B * S * H * DH, B * Lq * H * DH, B * Lq * H * K
     floats = value + out + 2 * taps       # value, loc, attn in; out out
     if backward:
@@ -764,81 +1003,129 @@ def msda_bound(Lq: int, backward: bool) -> dict:
                 bytes=4 * floats, flops=flops)
 
 
-def kernel_row(name, source, replaces, launches, kv, backward) -> dict:
-    """One entry of the kernels line: the required keys at the encoder
-    shape, the decoder shape's beside them. library_ms is null: no single
-    PyTorch call computes either function (F.grid_sample would take one call
-    per level and a weighted sum after them)."""
-    enc, dec = msda_bound(sum(ENC_SHAPES), backward), msda_bound(30, backward)
-    (k_ms, p_ms), (dk_ms, dp_ms) = kv["times"]["encoder"], kv["times"]["decoder"]
+def dense_row(name, source, replaces, launches, kv, backward) -> dict:
+    """A dense kernel's entry of the kernels line: the required keys at the
+    flagship encoder shape, its other shapes beside them. library_ms is
+    null: no single PyTorch call computes either function (F.grid_sample
+    would take one call per level and a weighted sum after them)."""
+    by_shape = {}
+    for label, (shapes, fwd_B, bwd_B, Lq) in DENSE_CASES.items():
+        B = bwd_B if backward else fwd_B
+        if B is None:
+            continue
+        bd = msda_bound(B, sum(shapes), Lq, backward)
+        k_ms, p_ms = kv["times"][label]
+        by_shape[label] = {"B": B, "S": sum(shapes), "Lq": Lq, "ms": k_ms,
+                           "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
+                           "bound_by": bd["bound_by"], "bytes": bd["bytes"],
+                           "flops": bd["flops"]}
+        log("bound", f"{name} {label}: {bd['bytes']} bytes, {bd['flops']} "
+                     f"flop -> {bd['bound_ms']!r} ms, bound by "
+                     f"{bd['bound_by']}; kernel {k_ms!r} ms")
+    enc = by_shape["encoder"]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches.values()), "max_abs_err": kv["max_abs_err"],
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": enc["bound_ms"],
-        "bound_by": enc["bound_by"], "library_ms": None,
-        "shape": "encoder B=16 S=188 Lq=188 H=8 Dh=64 K=16",
+        "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+        "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+        "library_ms": None,
+        "shape": "flagship encoder B=16 S=188 Lq=188 H=8 Dh=64 K=16",
+        "launches_by_path": launches, "by_shape": by_shape}
+
+
+def banded_row(name, source, replaces, launches, kv, backward) -> dict:
+    """A banded kernel's entry: the required keys at the shape its main path
+    gives it (forward: the eval step's B=8; backward: the train step's B=4),
+    the other batch beside them. library_ms is null, as for the dense
+    kernels."""
+    S = sum(LONG.shapes)
+    by_batch = {}
+    for b, tm in kv["times"].items():
+        bd = msda_bound(b, S, S, backward)
+        by_batch[b] = dict(tm, bound_ms=bd["bound_ms"],
+                           bound_by=bd["bound_by"], bytes=bd["bytes"],
+                           flops=bd["flops"])
+        log("bound", f"{name} B={b}: {bd['bytes']} bytes, {bd['flops']} flop "
+                     f"-> {bd['bound_ms']!r} ms, bound by {bd['bound_by']}; "
+                     f"kernel {tm['ms']!r} ms")
+    B = LONG.train_B if backward else LONG.eval_B
+    main = by_batch[B]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches.values()), "max_abs_err": kv["max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": f"long-video encoder B={B} S={S} Lq={S} H=8 Dh=64 K=16 "
+                 f"margin={LV_MARGIN}",
+        "dense_kernel_ms": main["dense_kernel_ms"],
         "launches_by_path": launches,
-        "decoder_shape": {"Lq": 30, "ms": dk_ms, "plain_ms": dp_ms,
-                          "bound_ms": dec["bound_ms"],
-                          "bound_by": dec["bound_by"]}}
+        "by_batch": {str(b): v for b, v in by_batch.items()}}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=pathlib.Path, metavar="DIR",
-                    help="also profile the eval step (phase 7) and the train "
-                         "step and write the op tables and a trace here")
+                    help="also profile the eval steps (phase 7) and the train "
+                         "steps and write the op tables and a trace here")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks (phases 1-3 and 8); "
-                         "prints no result line")
+                    help="stop after the kernel checks (phases 1-3, 8, 12, "
+                         "13); prints no result line")
     args = ap.parse_args()
     name = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    from gvl_tpu_torch.ops import ms_deform_attn_1d
-    kv = phase_kernel_vs_plain(dev)
-    bkv = phase_bwd_kernel_vs_plain(dev)
+    kv = {"fwd": phase_kernel_vs_plain(dev),
+          "bwd": phase_bwd_kernel_vs_plain(dev),
+          "banded_fwd": phase_banded_kernel_vs_plain(dev),
+          "banded_bwd": phase_banded_bwd_kernel_vs_plain(dev)}
     if args.kernels_only:
         return
-    cfg, model, runner, launches = phase_main_path(dev, ms_deform_attn_1d)
-    phase_paths_agree(cfg, model, runner)
-    med = phase_time(model, runner)
-    if args.profile:
-        phase_profile(cfg, model, runner, args.profile)
-    del model, runner
-    (tmodel, state, step, weights, batches,
-     train_launches) = phase_train_main_path(dev, ms_deform_attn_1d)
-    phase_train_paths_agree(tmodel, step, weights, batches[0])
-    phase_train_time(state, step, weights, batches)
-    if args.profile:
-        phase_train_profile(state, step, weights, batches, args.profile)
-    k_ms, p_ms = kv["times"]["encoder"]
-    log("time", f"per call at the encoder shape: kernel {k_ms!r} ms, plain "
-                f"{p_ms!r} ms; decoder shape: kernel "
-                f"{kv['times']['decoder'][0]!r} ms, plain "
-                f"{kv['times']['decoder'][1]!r} ms; eval clips/s kernel path "
-                f"{B / med['kernel'] * 1e3!r}, plain path "
-                f"{B / med['ref'] * 1e3!r}")
-    for row in ("fwd", kv, False), ("bwd", bkv, True):
-        for label, Lq in (("encoder", sum(ENC_SHAPES)), ("decoder", 30)):
-            bd = msda_bound(Lq, row[2])
-            log("bound", f"{row[0]} {label}: {bd['bytes']} bytes, "
-                         f"{bd['flops']} flop -> {bd['bound_ms']!r} ms, bound "
-                         f"by {bd['bound_by']}; kernel "
-                         f"{row[1]['times'][label][0]!r} ms")
-    print(json.dumps({"kernels": [
-        kernel_row("ms_deform_attn_fwd",
-                   "gvl_tpu_torch/csrc/ms_deform_attn_fwd.cu",
-                   "gvl_tpu/ops/ms_deform_attn.py:217",
-                   {"eval": launches[0], "train": train_launches[0]}, kv,
-                   False),
-        kernel_row("ms_deform_attn_bwd",
-                   "gvl_tpu_torch/csrc/ms_deform_attn_bwd.cu",
-                   "gvl_tpu/ops/ms_deform_attn.py:236",
-                   {"eval": launches[1], "train": train_launches[1]}, bkv,
-                   True),
-    ]}), flush=True)
+    launches = {}
+    for w in (ANET, LONG):
+        cfg, model, runner, launches[f"{w.name}_eval"] = phase_main_path(w, dev)
+        phase_paths_agree(w, cfg, model, runner)
+        med = phase_time(w, model, runner)
+        log("time", f"{w.name} eval clips/s: kernel path "
+                    f"{w.eval_B / med['kernel'] * 1e3!r}, plain path "
+                    f"{w.eval_B / med['ref'] * 1e3!r}")
+        if args.profile:
+            phase_profile(w, cfg, model, runner, args.profile)
+        del model, runner
+        (tmodel, state, step, weights, batches,
+         launches[f"{w.name}_train"]) = phase_train_main_path(w, dev)
+        phase_train_paths_agree(w, tmodel, step, weights, batches[0])
+        phase_train_time(w, state, step, weights, batches)
+        if args.profile:
+            phase_train_profile(w, state, step, weights, batches, args.profile)
+        del tmodel, state, step
+        torch.cuda.empty_cache()
+    rows = []
+    for key, row, rname, source, replaces in (
+            ("fwd", dense_row, "ms_deform_attn_fwd",
+             "gvl_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+             "gvl_tpu/ops/ms_deform_attn.py:217"),
+            ("bwd", dense_row, "ms_deform_attn_bwd",
+             "gvl_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+             "gvl_tpu/ops/ms_deform_attn.py:236"),
+            ("banded_fwd", banded_row, "ms_deform_attn_banded_fwd",
+             "gvl_tpu_torch/csrc/ms_deform_attn_banded_fwd.cu",
+             "gvl_tpu/ops/ms_deform_attn_banded.py:65"),
+            ("banded_bwd", banded_row, "ms_deform_attn_banded_bwd",
+             "gvl_tpu_torch/csrc/ms_deform_attn_banded_bwd.cu",
+             "gvl_tpu/ops/ms_deform_attn_banded.py:92")):
+        by_path = {path: counts[key] for path, counts in launches.items()}
+        rows.append(row(rname, source, replaces, by_path, kv[key],
+                        key.endswith("bwd")))
+    # each kernel of a path was launched on that path
+    for w in (ANET, LONG):
+        for train in (False, True):
+            path = f"{w.name}_{'train' if train else 'eval'}"
+            for key, n in want_counts(w, 1, train).items():
+                check((launches[path][key] > 0) == (n > 0),
+                      f"{path}: {key} launched {launches[path][key]} times")
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,7 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gvl_tpu_torch.ops import ms_deform_attn_1d, ms_deform_attn_1d_ref
+from gvl_tpu_torch.ops import (ms_deform_attn_1d, ms_deform_attn_1d_banded,
+                               ms_deform_attn_1d_banded_ref,
+                               ms_deform_attn_1d_ref)
 from gvl_tpu_torch.ops.ms_deform_attn import level_tensor
 
 # ---------------------------------------------------------------------------
@@ -103,7 +105,7 @@ def _directional_offset_bias(n_heads: int, n_levels: int, n_points: int,
 
 class MSDeformAttn1D(nn.Module):
     """Multi-scale deformable attention over a flattened temporal pyramid.
-    Port of layers.py:55-165, dense branch only.
+    Port of layers.py:55-165 without the sequence-parallel route.
 
     query            (B, Lq, C)
     reference_points (B, Lq, L, 1) or (B, Lq, L, 2) (center [, length])
@@ -111,9 +113,12 @@ class MSDeformAttn1D(nn.Module):
     memory_mask      (B, S) bool, True = valid
     Returns (B, Lq, C).
 
-    Runs `ms_deform_attn_1d`: the CUDA kernel on a CUDA tensor, its plain
-    version on a CPU tensor. Only `set_msda_impl`, which compares the two
-    on the card, points it at the plain version.
+    Long-sequence self-attention (one query per memory token, S >= 512,
+    band_margin > 0) runs `ms_deform_attn_1d_banded`, whose taps beyond the
+    margin clamp to the band's edge; everything else `ms_deform_attn_1d`.
+    Either is the CUDA kernel on a CUDA tensor and its plain version on a CPU
+    tensor. Only `set_msda_impl`, which compares the two on the card, points
+    the module at the plain versions.
     """
 
     impl = "kernel"
@@ -146,15 +151,6 @@ class MSDeformAttn1D(nn.Module):
         Dh = self.d_model // H
         shapes = tuple(int(t) for t in temporal_shapes)
         S = sum(shapes)
-        if Lq == S and S >= 512 and self.band_margin > 0:
-            # the JAX module sends this case to the banded kernel, whose
-            # band clamp changes the result; that kernel is not ported yet
-            raise NotImplementedError(
-                "long-sequence encoder self-attention (S >= 512 with "
-                "band_margin > 0) needs the banded kernel, not ported yet "
-                "(ROADMAP Queue 2 items 3-4); set band_margin=0 for the "
-                "exact dense kernel")
-
         value = self.value_proj(memory)
         if memory_mask is not None:
             value = value.masked_fill(~memory_mask[..., None], 0.0)
@@ -174,8 +170,14 @@ class MSDeformAttn1D(nn.Module):
         else:
             raise ValueError("reference_points last dim must be 1 or 2")
 
-        op = ms_deform_attn_1d if self.impl == "kernel" else ms_deform_attn_1d_ref
-        out = op(value, shapes, loc.contiguous(), attn.contiguous())
+        loc, attn = loc.contiguous(), attn.contiguous()
+        kernel = self.impl == "kernel"
+        if Lq == S and S >= 512 and self.band_margin > 0:
+            op = ms_deform_attn_1d_banded if kernel else ms_deform_attn_1d_banded_ref
+            out = op(value, shapes, loc, attn, margin=self.band_margin)
+        else:
+            op = ms_deform_attn_1d if kernel else ms_deform_attn_1d_ref
+            out = op(value, shapes, loc, attn)
         return self.output_proj(out)
 
 

@@ -22,7 +22,9 @@ from typing import NamedTuple
 _ROOT = Path(__file__).resolve().parents[2]
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = _ROOT / "build" / "kernels"
-SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu")
+SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu",
+           "ms_deform_attn_banded_fwd.cu", "ms_deform_attn_banded_bwd.cu")
+HEADERS = ("ms_deform_attn_banded.cuh",)      # included by the sources
 # --threads 0: the sources compile side by side, one job per core
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--threads", "0")
@@ -46,7 +48,7 @@ def build() -> Built:
     flags exists. Raises CalledProcessError with nvcc's output on failure."""
     srcs = [_CSRC / s for s in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [_CSRC / name for name in HEADERS]:
         h.update(s.read_bytes())
     out = BUILD_DIR / f"libgvl_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -75,4 +77,11 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                  ctypes.POINTER(ctypes.c_int), p]
     lib.msda_bwd_f32.restype = i
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.msda_banded_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                        ints, ints, p]
+    lib.msda_banded_fwd_f32.restype = i
+    lib.msda_banded_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                        ints, ints, p]
+    lib.msda_banded_bwd_f32.restype = i
     return lib

@@ -45,7 +45,7 @@ def _inside_clamp(x_raw: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return (x_raw > 0) & (x_raw < t - 1.0)
 
 
-def _tap_parts(temporal_shapes: Sequence[int], loc: torch.Tensor):
+def tap_parts(temporal_shapes: Sequence[int], loc: torch.Tensor):
     """Global tap indices g0, g1 (int64), the lerp fraction f, the unclamped
     tap position x_raw and the level lengths t (L, 1)."""
     starts = [0]
@@ -70,7 +70,7 @@ def prep_taps(temporal_shapes: Sequence[int], loc: torch.Tensor,
               attn: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Global tap indices g0, g1 (int64) and lerp-folded weights w0, w1, all
     (B, Lq, H, L, P). Port of `_prep_taps` (ms_deform_attn.py:56-81)."""
-    g0, g1, f, _, _ = _tap_parts(temporal_shapes, loc)
+    g0, g1, f, _, _ = tap_parts(temporal_shapes, loc)
     return g0, g1, attn * (1.0 - f), attn * f
 
 
@@ -83,13 +83,12 @@ def _gather_taps(value: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(v, idx, dim=1).reshape(B, H, Lq, L * P, Dh)
 
 
-def ms_deform_attn_1d_ref(value: torch.Tensor, temporal_shapes: Sequence[int],
-                          loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    """Plain version: gathers and a weighted sum. Differentiable by autograd.
-    Port of `ms_deform_attn_1d_ref` (ms_deform_attn.py:88-114)."""
+def weighted_tap_sum(value: torch.Tensor, g0: torch.Tensor, g1: torch.Tensor,
+                     w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """sum_k w0 * value[g0] + w1 * value[g1] over the K = L*P taps of each
+    query: value (B, S, H, Dh), taps (B, Lq, H, L, P) -> (B, Lq, H*Dh)."""
     B, S, H, Dh = value.shape
-    Lq = loc.shape[1]
-    g0, g1, w0, w1 = prep_taps(temporal_shapes, loc, attn)
+    Lq = g0.shape[1]
 
     def flat(w):
         return w.to(value.dtype).permute(0, 2, 1, 3, 4).reshape(
@@ -98,6 +97,13 @@ def ms_deform_attn_1d_ref(value: torch.Tensor, temporal_shapes: Sequence[int],
     out = (_gather_taps(value, g0) * flat(w0)
            + _gather_taps(value, g1) * flat(w1)).sum(dim=3)        # (B,H,Lq,Dh)
     return out.permute(0, 2, 1, 3).reshape(B, Lq, H * Dh)
+
+
+def ms_deform_attn_1d_ref(value: torch.Tensor, temporal_shapes: Sequence[int],
+                          loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """Plain version: gathers and a weighted sum. Differentiable by autograd.
+    Port of `ms_deform_attn_1d_ref` (ms_deform_attn.py:88-114)."""
+    return weighted_tap_sum(value, *prep_taps(temporal_shapes, loc, attn))
 
 
 def ms_deform_attn_1d_sampled_values(value: torch.Tensor,
@@ -117,42 +123,49 @@ def ms_deform_attn_1d_sampled_values(value: torch.Tensor,
     return out.permute(0, 2, 1, 3, 4)
 
 
+def tap_grads(grad_out: torch.Tensor, value: torch.Tensor, g0: torch.Tensor,
+              g1: torch.Tensor, f: torch.Tensor, x_raw: torch.Tensor,
+              t: torch.Tensor, attn: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(grad_value, grad_loc, grad_attn) of `weighted_tap_sum` over taps read
+    at rows g0, g1 with lerp fraction f, by the backward kernels' formulas:
+    per-tap dot products for loc and attn, `index_add_` for value."""
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P = g0.shape
+    go = grad_out.reshape(B, Lq, H, Dh).permute(0, 2, 1, 3)        # (B,H,Lq,Dh)
+    go = go[:, :, :, None, :]
+
+    def dots(g):                          # <V[g], dOut> -> (B, Lq, H, L, P)
+        d = (_gather_taps(value, g) * go).sum(-1)                  # (B,H,Lq,K)
+        return d.permute(0, 2, 1, 3).reshape(B, Lq, H, L, P)
+
+    d0, d1 = dots(g0), dots(g1)
+    grad_attn = (1.0 - f) * d0 + f * d1
+    grad_loc = torch.where(_inside_clamp(x_raw, t),
+                           attn * t * (d1 - d0), torch.zeros_like(d0))
+
+    grad_value = value.new_zeros((B * H * S, Dh))
+    bh = torch.arange(B * H, device=value.device)[:, None] * S
+    for g, w in ((g0, attn * (1.0 - f)), (g1, attn * f)):
+        idx = g.permute(0, 2, 1, 3, 4).reshape(B * H, -1) + bh
+        w = w.permute(0, 2, 1, 3, 4).reshape(B, H, Lq, L * P, 1)
+        grad_value.index_add_(0, idx.reshape(-1), (w * go).reshape(-1, Dh))
+    grad_value = grad_value.reshape(B, H, S, Dh).permute(0, 2, 1, 3)
+    return grad_value.contiguous(), grad_loc, grad_attn
+
+
 def ms_deform_attn_1d_bwd_ref(grad_out: torch.Tensor, value: torch.Tensor,
                               temporal_shapes: Sequence[int],
                               loc: torch.Tensor, attn: torch.Tensor
                               ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward kernel: (grad_value, grad_loc,
     grad_attn) of `ms_deform_attn_1d_ref` for the output gradient grad_out
-    (B, Lq, H*Dh), by the kernel's formulas: per-tap dot products for loc
-    and attn, `index_add_` for value."""
-    B, S, H, Dh = value.shape
-    _, Lq, _, L, P = loc.shape
+    (B, Lq, H*Dh)."""
     with torch.no_grad():
-        g0, g1, f, x_raw, t = _tap_parts(temporal_shapes, loc)
-        go = grad_out.reshape(B, Lq, H, Dh).permute(0, 2, 1, 3)    # (B,H,Lq,Dh)
-        go = go[:, :, :, None, :]
-
-        def dots(g):                      # <V[g], dOut> -> (B, Lq, H, L, P)
-            d = (_gather_taps(value, g) * go).sum(-1)              # (B,H,Lq,K)
-            return d.permute(0, 2, 1, 3).reshape(B, Lq, H, L, P)
-
-        d0, d1 = dots(g0), dots(g1)
-        grad_attn = (1.0 - f) * d0 + f * d1
-        grad_loc = torch.where(_inside_clamp(x_raw, t),
-                               attn * t * (d1 - d0), torch.zeros_like(d0))
-
-        grad_value = value.new_zeros((B * H * S, Dh))
-        bh = torch.arange(B * H, device=value.device)[:, None] * S
-        for g, w in ((g0, attn * (1.0 - f)), (g1, attn * f)):
-            idx = g.permute(0, 2, 1, 3, 4).reshape(B * H, -1) + bh
-            w = w.permute(0, 2, 1, 3, 4).reshape(B, H, Lq, L * P, 1)
-            grad_value.index_add_(0, idx.reshape(-1),
-                                  (w * go).reshape(-1, Dh))
-        grad_value = grad_value.reshape(B, H, S, Dh).permute(0, 2, 1, 3)
-    return grad_value.contiguous(), grad_loc, grad_attn
+        g0, g1, f, x_raw, t = tap_parts(temporal_shapes, loc)
+        return tap_grads(grad_out, value, g0, g1, f, x_raw, t, attn)
 
 
-def _check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
+def check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
     tensors = [("value", value), ("loc", loc), ("attn", attn)]
     if grad_out is not None:
         tensors.append(("grad_out", grad_out))
@@ -193,7 +206,7 @@ def ms_deform_attn_1d_cuda(value: torch.Tensor, temporal_shapes: Sequence[int],
     raises on anything else, and if the launch is refused."""
     from gvl_tpu_torch.ops._build import library
 
-    _check_kernel_inputs(value, temporal_shapes, loc, attn)
+    check_kernel_inputs(value, temporal_shapes, loc, attn)
     B, S, H, Dh = value.shape
     _, Lq, _, L, P = loc.shape
     out = torch.empty((B, Lq, H * Dh), dtype=torch.float32, device=value.device)
@@ -220,7 +233,7 @@ def ms_deform_attn_1d_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
     raises on anything else, and if the launch is refused."""
     from gvl_tpu_torch.ops._build import library
 
-    _check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out)
+    check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out)
     B, S, H, Dh = value.shape
     _, Lq, _, L, P = loc.shape
     # the kernel adds into grad_value with atomics: zeroed, on this stream

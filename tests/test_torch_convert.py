@@ -13,9 +13,14 @@ from gvl_tpu_torch.models.gvl import GVLArch
 from tests.test_torch_model import jax_world
 
 
-@pytest.mark.parametrize("share_caption_head", [1, 0])
-def test_round_trip_through_jax_importer(share_caption_head):
-    cfg, _, params, port, _ = jax_world(share_caption_head=share_caption_head)
+# the last case: the tiny analogue of the long-video widths (more frames,
+# queries and events, another feature width; the banded op has no parameters)
+@pytest.mark.parametrize("share_caption_head, cfg_kw", [
+    (1, {}), (0, {}),
+    (1, dict(frame_embedding_num=300, num_queries=20, max_eseq_length=10))])
+def test_round_trip_through_jax_importer(share_caption_head, cfg_kw):
+    cfg, _, params, port, _ = jax_world(share_caption_head=share_caption_head,
+                                        **cfg_kw)
     sd = {k: v.numpy() for k, v in port.state_dict().items()}
     new, unused, unfilled = import_pytorch_state_dict(
         sd, params, n_heads=cfg.nheads,

@@ -1,7 +1,12 @@
 """The port's EvalRunner against the JAX EvalRunner on the synthetic dataset
 (tests/test_train_smoke.py build_world), contrastive off, with the same
 (noisy) weights: the DVC JSON and the reranked JSON must be equal, with
-sentences, query ids, labels and counts exact and floats to 1e-4."""
+sentences, query ids, labels and counts exact and floats to 1e-4. The
+'long' case evaluates the same dataset at 300 frames (levels 300, 150, 75:
+S = 525 >= 512), where the encoder runs the banded op, against the JAX
+runner with msda_impl='pallas', its kernels in interpret mode."""
+
+import contextlib
 
 import functools
 import json
@@ -10,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.experimental.pallas import tpu as pltpu
 
 from gvl_tpu.data.dataset import Batcher
 from gvl_tpu.eval.evaluate import EvalRunner as JaxEvalRunner
@@ -37,10 +43,17 @@ def assert_same_json(got, want, path="$"):
         assert got == want, path
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+WORLDS = {"short": ({}, contextlib.nullcontext),
+          "long": (dict(frame_embedding_num=300, msda_impl="pallas"),
+                   pltpu.force_tpu_interpret_mode)}
+
+
+@pytest.fixture(scope="module", params=sorted(WORLDS))
+def runs(request, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("eval")
-    cfg, ds, *_ = build_world(tmp, eval_disable_plot_hook=True)
+    cfg_kw, jax_context = WORLDS[request.param]
+    cfg, ds, *_ = build_world(tmp, eval_disable_plot_hook=True, **cfg_kw)
+    assert (sum(cfg.temporal_shapes()) >= 512) == (request.param == "long")
     cfg.enable_contrastive = False        # eval.py --eval_disable_contrastive
     model = jax_build_model(cfg)
     batcher = Batcher(ds, cfg, cfg.batch_size, shuffle=False)
@@ -53,7 +66,8 @@ def runs(tmp_path_factory):
 
     jr = JaxEvalRunner(cfg, model, None, ds.translator)
     jr.set_params(params, None)
-    want_path, want_json, *_ = jr.run(batcher, str(tmp / "jax.json"))
+    with jax_context():
+        want_path, want_json, *_ = jr.run(batcher, str(tmp / "jax.json"))
 
     port = build_model(cfg, device="cpu")
     port.load_state_dict(jax_params_to_state_dict(

@@ -49,8 +49,10 @@ def test_train_modules_import_without_jax():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                             "gvl_tpu"))
         assert not bad, bad
-        from gvl_tpu_torch.ops import ms_deform_attn_1d
-        assert ms_deform_attn_1d.launches == ms_deform_attn_1d.bwd_launches == 0
+        from gvl_tpu_torch.ops import (ms_deform_attn_1d,
+                                       ms_deform_attn_1d_banded)
+        for fn in (ms_deform_attn_1d, ms_deform_attn_1d_banded):
+            assert fn.launches == fn.bwd_launches == 0
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

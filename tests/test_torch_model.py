@@ -5,7 +5,12 @@ Both models hold the same weights: JAX parameters with seeded noise
 (sigma 0.02, so zero-initialised kernels are not zero and a transposed
 layout shows) go through gvl_tpu_torch.convert. Inputs are seeded numpy with
 one padded video. Tolerance: atol 2e-5 / rtol 2e-4 in f32; decoded tokens
-must be equal.
+must be equal. The long-video cases run a tiny model at 300 frames, 3 levels
+(300, 150, 75: S = 525 >= 512), whose encoder self-attention is the banded
+op: the JAX side with msda_impl='pallas', its kernels in interpret mode as
+tests/test_model_pallas.py runs them, and outside jit (XLA's CPU compiler
+contracts loc * T - 0.5 into an FMA, which moves the lerp fraction by an ulp
+of the tap row, 3e-5 at row 300).
 """
 
 import functools
@@ -15,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from gvl_tpu.eval.postprocess import detection_outputs as jax_detection
 from gvl_tpu.models import build_model as jax_build_model
@@ -73,6 +79,23 @@ def world():
     return cfg, model, params, port, (feats, mask, duration), want, got
 
 
+LONG_VIDEO = dict(frame_embedding_num=300, msda_impl="pallas")
+
+
+@pytest.fixture(scope="module")
+def long_world():
+    cfg, model, params, port, _ = jax_world(**LONG_VIDEO)
+    assert sum(cfg.temporal_shapes()) >= 512 and cfg.msda_band_margin > 0
+    feats, mask, duration = make_inputs(cfg)
+    with pltpu.force_tpu_interpret_mode():
+        want = model.apply(params, jnp.asarray(feats), jnp.asarray(mask),
+                           jnp.asarray(duration))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(feats), torch.from_numpy(mask),
+                   torch.from_numpy(duration))
+    return cfg, want, got
+
+
 def close(got, want, **tol):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                **(tol or TOL))
@@ -91,6 +114,42 @@ def test_trunk_matches_jax(world, key):
         close(got[key], want[key])
     np.testing.assert_array_equal(got["mask_flat"].numpy(),
                                   np.asarray(want["mask_flat"]))
+
+
+@pytest.mark.parametrize("key", ["hs", "pred_logits", "pred_count",
+                                 "pred_boxes", "memory"])
+def test_long_video_trunk_matches_jax_pallas(long_world, key):
+    """The trunk whose encoder runs the banded op (2 layers at S = 525),
+    against the JAX trunk with the Pallas kernels. rtol 2e-4 as the trunk
+    test above; atol 5e-5, not 2e-5: every softmax, layer norm and attention
+    sum runs over 22 times as many tokens (525 against 24), and the outputs
+    are of order 1 after four layers."""
+    _, want, got = long_world
+    close(got[key], want[key], rtol=2e-4, atol=5e-5)
+
+
+def test_long_video_trunk_runs_the_banded_op(long_world, monkeypatch):
+    from gvl_tpu_torch.models import layers
+    cfg = long_world[0]
+    calls = {"banded": 0, "dense": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(layers, "ms_deform_attn_1d_banded", counted(
+        "banded", layers.ms_deform_attn_1d_banded))
+    monkeypatch.setattr(layers, "ms_deform_attn_1d", counted(
+        "dense", layers.ms_deform_attn_1d))
+    port = build_model(cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    feats, mask, duration = make_inputs(cfg)
+    with torch.inference_mode():
+        port(torch.from_numpy(feats), torch.from_numpy(mask),
+             torch.from_numpy(duration))
+    assert calls == {"banded": cfg.enc_layers, "dense": cfg.dec_layers}
 
 
 def test_caption_sample_matches_jax(world):

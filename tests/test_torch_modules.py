@@ -99,19 +99,41 @@ def test_model_calls_the_kernel_wrapper_whatever_the_config(monkeypatch):
 
 @pytest.mark.parametrize("band_margin", [32, 0])
 def test_msdeformattn_long_self_attention_needs_banded_kernel(band_margin):
-    shapes = (300, 150, 75, 38)                    # S = 563 >= 512
-    S, C = sum(shapes), 16
+    """One query per memory token at S = 525 >= 512: with band_margin=32 the
+    module runs the banded op, as the JAX module with impl='pallas' does (its
+    kernel in interpret mode); with band_margin=0 the dense op. The reference
+    points are random, so taps leave the bands and the clamp shows. The JAX
+    module runs outside jit: XLA's CPU compiler would contract loc * T - 0.5
+    into an FMA and move the lerp fraction by an ulp of the tap row. atol
+    2e-5 / rtol 2e-4, as the other modules."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+    shapes = (280, 140, 70, 35)                    # S = 525 >= 512
+    S, C, heads, points = sum(shapes), 32, 2, 2
     rs = np.random.RandomState(7)
-    pm = players.MSDeformAttn1D(C, len(shapes), 2, 2, band_margin=band_margin)
-    players.init_params(pm, torch.Generator().manual_seed(0))
-    x = t(arr(rs, 1, S, C))
-    ref = t(rs.uniform(0.05, 0.95, (1, S, len(shapes), 1)).astype(np.float32))
+    x = arr(rs, 1, S, C)
+    ref = rs.uniform(0.05, 0.95, (1, S, len(shapes), 1)).astype(np.float32)
+    jm = jlayers.MSDeformAttn1D(C, len(shapes), heads, points, impl="pallas",
+                                band_margin=band_margin)
+    args = (jnp.asarray(x), jnp.asarray(ref), jnp.asarray(x), None, shapes)
+    with pltpu.force_tpu_interpret_mode():
+        params = jax.tree_util.tree_map(
+            lambda p: np.asarray(p) + 0.02 * rs.randn(*p.shape).astype(
+                np.float32), jm.init(jax.random.PRNGKey(0), *args))
+        want = jm.apply(params, *args)
+    pm = players.MSDeformAttn1D(C, len(shapes), heads, points,
+                                band_margin=band_margin)
+    pm.load_state_dict({f"{name}.{k}": t(v.T if k == "weight" else v)
+                        for name, p in params["params"].items()
+                        for k, v in (("weight", p["kernel"]),
+                                     ("bias", p["bias"]))}, strict=True)
     with torch.inference_mode():
-        if band_margin:
-            with pytest.raises(NotImplementedError, match="banded kernel"):
-                pm(x, ref, x, None, shapes)
-        else:
-            assert pm(x, ref, x, None, shapes).shape == (1, S, C)
+        got = pm(t(x), t(ref), t(x), None, shapes)
+        assert got.shape == (1, S, C)
+        close(got, want)
+        pm.band_margin = 32 - band_margin          # the other op
+        other = pm(t(x), t(ref), t(x), None, shapes)
+    assert float((got - other).abs().max()) > 1e-2   # the band clamp engaged
 
 
 def test_encoder_layer_matches_jax(world):

@@ -244,6 +244,60 @@ def test_freeze_mode_steps_match_jax():
     assert np.quantile(diffs, 0.99) <= 0.01
 
 
+def test_long_video_steps_match_jax():
+    """Three steps of a tiny long-video model (300 frames, levels 300, 150,
+    75: S = 525 >= 512), whose encoder runs the banded op forward and
+    backward, against the jitted JAX `step_fn` with msda_impl='pallas' (its
+    kernels in interpret mode, as tests/test_model_pallas.py runs the
+    model). First-step losses: rtol 5e-4 / atol 2e-5 (the jitted JAX side
+    contracts loc * T - 0.5 into an FMA, which moves each lerp fraction by
+    up to an ulp of the tap row, 3e-5 at row 300; the short model's 2e-4
+    holds at row 24). Trajectory: total loss rtol 1e-3 and falling. The
+    parameters after the steps: none further than 2 x lr x 3 from the JAX
+    package's, 99% within 0.5 x lr, as the short model's trajectory test."""
+    from jax.experimental.pallas import tpu as pltpu
+    n_steps = 3
+    cfg, model, params, port, sd0 = jax_world(
+        **dict(LOSS_SIDE, frame_embedding_num=300, msda_impl="pallas"))
+    assert sum(cfg.temporal_shapes()) >= 512 and cfg.msda_band_margin > 0
+    batch = make_batch(cfg)
+    jst = jstate.StepStatics(spec=JLossSpec.from_config(cfg), **statics_kw(cfg))
+    state = jstate.create_train_state(cfg, model, params, None, 100, jst)
+    step_jit = jax.jit(jstate.make_train_step(model, None, cfg, jst)[0])
+    db = {k: jnp.asarray(v) for k, v in batch.items()}
+    jw = {k: jnp.asarray(v, jnp.float32) for k, v in j_weight_dict(cfg).items()}
+    want = []
+    with pltpu.force_tpu_interpret_mode():
+        for i in range(n_steps):
+            state, losses = step_jit(state, db, jw, jax.random.PRNGKey(i))
+            want.append({k: float(v) for k, v in losses.items()})
+    want_params = jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, state.params),
+        GVLArch.from_config(cfg))
+
+    pst = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    pstate_ = pstate.create_train_state(cfg, port, 100, pst)
+    step = pstate.make_train_step(port, cfg, pst)
+    got = [{k: float(v) for k, v in
+            step(pstate_, batch, make_weight_dict(cfg)).items()}
+           for _ in range(n_steps)]
+    assert set(got[0]) == set(want[0])
+    for k in want[0]:
+        np.testing.assert_allclose(got[0][k], want[0][k], rtol=5e-4, atol=2e-5,
+                                   err_msg=k)
+    totals = [l["total_loss"] for l in got]
+    np.testing.assert_allclose(totals, [l["total_loss"] for l in want],
+                               rtol=1e-3)
+    assert totals[-1] < totals[0]
+    sd = port.state_dict()
+    diffs = np.concatenate([(sd[k] - v).abs().numpy().ravel() / LR
+                            for k, v in want_params.items()])
+    assert diffs.max() <= 2 * n_steps
+    assert np.quantile(diffs, 0.99) <= 0.5
+    enc = "transformer.encoder.layers.0.self_attn.sampling_offsets.weight"
+    assert not torch.equal(sd[enc], sd0[enc])    # the banded op's gradient
+
+
 # --------------------------------------------------------------- schedules
 
 SCHEDULES = {
