@@ -12,7 +12,7 @@ exits non-zero:
      the flagship encoder (Lq=188) and decoder (Lq=30) shapes and at the
      long-video decoder shape (B=8, S=1500, Lq=100), with taps in
      [0, 1], "wild" taps in [-0.4, 1.4] and taps on level borders; max abs
-     error <= 1e-5; per-call median times over CUDA events.
+     error <= 1e-5; median times over CUDA events.
   4. main path: the flagship ActivityNet dense-captioning model (widths of
      cfgs/anet_tsp_msvg_dvc.yml: hidden 512, 8 heads, 2+2 layers, 4 levels,
      30 queries, vocab 8517; random weights from a seed) evaluated by
@@ -42,7 +42,14 @@ exits non-zero:
  10. kernel path vs plain path, gradients: one batch's loss and gradients
      with dropout off, through the kernels and through the plain op; total
      loss to 1e-4 relative, each named gradient to 1e-3 x its max abs
-     (+ 1e-8 for gradients that are zero but for rounding).
+     (+ 1e-8 for gradients that are zero but for rounding). Runs before
+     phase 9, on the seeded weights: the gradient of a sampling location
+     jumps where a tap crosses a value row, the 3e-6 between the paths'
+     activations moves a few taps of a step across one, and a single such
+     tap moves a small tensor's gradient by 1e-3 to 5e-2 of its max abs. On
+     seeded weights and a seeded batch the same taps cross in every run, so
+     the verdict is the same in every run; after train steps, whose float
+     atomics land in a different order every time, it is not.
  11. train time: median of 10 CUDA-event-timed steps after 3 warm-up steps,
      steps/s and clips/s; the split into trunk forward, criterion (with the
      matcher's copy to the host and its solve, host clock), teacher forcing,
@@ -52,15 +59,25 @@ exits non-zero:
  12. banded kernel vs plain: the banded forward CUDA kernel against its
      plain PyTorch version at the long-video encoder shape of the eval step
      (YouMakeup widths: B=8, levels 800+400+200+100 = S 1500, H=8, Dh=64,
-     K=16) over three tap classes: local (encoder reference points, offsets
+     K=16) over five tap classes: local (encoder reference points, offsets
      within +-4 rows; the band clamp inactive, also held to the dense plain
      op), wide (offsets of up to +-96 rows, the clamp engages), border (taps
-     on rows 0 and T_l - 1 and beyond), at margin 32 and at a margin that
-     makes every band full; max abs error <= 1e-5. Per-call medians at B=8
-     and B=4 beside the dense kernel on the same local inputs.
- 13. banded backward kernel vs plain: same classes and margins at the train
-     step's shape (B=4), bounds of phase 8; without grad_value nothing is
-     scattered. Per-call medians at B=4 and B=8.
+     on rows 0 and T_l - 1 and beyond), pile (half of a tile's taps clamped
+     onto the one last row of its band), top (the band start of the last
+     level at its upper limit, the band reaching past the level); then
+     local, wide and pile at the tiny long-video geometry of the CPU tests
+     (levels 300+150+75, short tiles and levels, K=12) with H=8, Dh=64 and
+     with rows of 32 and of 128 floats; each at margin 32 and at a margin
+     that makes every band full; max abs error <= 1e-5. Medians at B=8 and
+     B=4 beside the dense kernel on the same local inputs.
+ 13. banded backward kernel vs plain: same classes, geometries and margins
+     at the train step's batch (B=4), bounds of phase 8; without grad_value
+     nothing is scattered. Medians at B=4 and B=8, with and without
+     grad_value.
+     A kernel's time (phases 3, 8, 12, 13) is the device's: each timed call
+     is enqueued behind a kernel that spins while the host prepares it; the
+     time per call from an idle device, the host's share included, is
+     logged beside it.
  14. long-video eval main path: the YouMakeup-shaped model (widths of
      cfgs/ym_i3d_msvg_dvc.yml as tools/bench_longvideo.py builds them:
      hidden 512, 8 heads, 2+2 layers, 100 queries, vocab 1247, 1024-d
@@ -123,6 +140,7 @@ TRAIN_LOSS_KEYS = {f"{k}{sfx}" for k in (
 # NVIDIA H100 SXM data sheet: device memory rate, f32 rate outside the
 # tensor cores
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+SPIN_HZ = 2e9   # device_median_ms: no slower than the card's clock (1.98 GHz)
 DVC_KEYS = {"timestamp", "raw_box", "label", "proposal_score", "sentence",
             "sentence_score", "cl_score", "query_id", "vid_duration",
             "pred_event_count"}
@@ -198,21 +216,45 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_median_ms(fn, n: int, warmup: int = 3) -> float:
-    """Median over n calls of fn, each timed by its own pair of CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _median_event_ms(fn, n: int, spin_cycles: int = 0) -> float:
+    """Median over n calls of fn, each between its own pair of CUDA events;
+    with spin_cycles each call is enqueued behind a kernel that spins so
+    long."""
     times = []
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_median_ms(fn, n: int, warmup: int = 3) -> float:
+    """Median over n calls of fn of the time the device takes for one call:
+    each call waits on the device behind a kernel that spins for longer than
+    the host takes to enqueue it, so the host's share of a call (checks,
+    ctypes, the launch) stays out of the measurement."""
+    host_s = 0.0
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        fn()
+        host_s = max(host_s, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return _median_event_ms(fn, n, int((2 * host_s + 2e-4) * SPIN_HZ))
+
+
+def cuda_median_ms(fn, n: int, warmup: int = 3) -> float:
+    """Median over n calls of fn on an idle device, each between its own
+    pair of CUDA events: the host's share of the call included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _median_event_ms(fn, n)
 
 
 def kernel_fns():
@@ -350,14 +392,17 @@ def phase_kernel_vs_plain(dev) -> dict:
                 ms_deform_attn_1d_cuda(value, shapes, loc, attn),
                 ms_deform_attn_1d_ref(value, shapes, loc, attn)))
         value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
-        k_ms = cuda_median_ms(
-            lambda: ms_deform_attn_1d_cuda(value, shapes, loc, attn), 50)
-        p_ms = cuda_median_ms(
+        def kernel():
+            return ms_deform_attn_1d_cuda(value, shapes, loc, attn)
+        k_ms, c_ms = device_median_ms(kernel, 50), cuda_median_ms(kernel, 50)
+        p_ms = device_median_ms(
             lambda: ms_deform_attn_1d_ref(value, shapes, loc, attn), 50)
-        times[label] = (k_ms, p_ms)
+        times[label] = (k_ms, p_ms, c_ms)
         log("kernel", f"{label} B={B} S={sum(shapes)} Lq={Lq} H={H} "
-                      f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms, "
-                      f"plain {p_ms!r} ms per call (median of 50)")
+                      f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms on "
+                      f"the device ({c_ms!r} ms per call from an idle "
+                      f"device, the host's share included), plain {p_ms!r} "
+                      f"ms (medians of 50)")
     return dict(max_abs_err=worst, times=times)
 
 
@@ -386,37 +431,91 @@ def phase_bwd_kernel_vs_plain(dev) -> dict:
                   "backward kernel without grad_value")
         value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
         grad_out = torch.randn(B, Lq, H * DH, generator=gen, device=dev)
-        k_ms = cuda_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
+        def kernel():
+            return ms_deform_attn_1d_bwd_cuda(grad_out, value, shapes, loc,
+                                              attn)
+        k_ms, c_ms = device_median_ms(kernel, 50), cuda_median_ms(kernel, 50)
+        p_ms = device_median_ms(lambda: ms_deform_attn_1d_bwd_ref(
             grad_out, value, shapes, loc, attn), 50)
-        p_ms = cuda_median_ms(lambda: ms_deform_attn_1d_bwd_ref(
-            grad_out, value, shapes, loc, attn), 50)
-        times[label] = (k_ms, p_ms)
+        times[label] = (k_ms, p_ms, c_ms)
         log("bwd", f"{label} B={B} S={sum(shapes)} Lq={Lq} H={H} "
-                   f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms "
-                   f"(zeroing grad_value included), plain {p_ms!r} ms per "
-                   f"call (median of 50)")
+                   f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms on the "
+                   f"device, zeroing grad_value included ({c_ms!r} ms per "
+                   f"call from an idle device, the host's share included), "
+                   f"plain {p_ms!r} ms (medians of 50)")
     return dict(max_abs_err=worst, times=times)
 
 
 # --------------------------------------------------------- phases 12, 13
-BANDED_KINDS = ("local", "wide", "border")
+# tap class -> does the band clamp engage at the model's margin (the plain
+# banded result then differs from the plain dense one)
+BANDED_KINDS = {"local": False, "wide": True, "border": True, "pile": True,
+                "top": False}
 FULL_MARGIN = max(LONG.shapes)       # every band is its whole padded level
+# the tiny long-video model of the CPU tests: 300 frames, three levels, none
+# a multiple of 128 and two not of 8; K = 12 taps does not divide a block
+TINY_SHAPES = (300, 150, 75)
+# (level lengths, batch, heads, head width): the long-video encoder, then
+# short tiles and short levels, then rows of half and of twice the width
+BANDED_GEOMETRIES = ((LONG.shapes, None, H, DH), (TINY_SHAPES, 2, H, DH),
+                     (TINY_SHAPES, 2, 4, 32), (TINY_SHAPES, 2, 2, 128))
 
 
-def banded_inputs(kind: str, B: int, gen: torch.Generator, dev):
-    """One query per token of the long-video pyramid. local: the encoder's
+def banded_inputs(kind: str, B: int, gen: torch.Generator, dev,
+                  shapes=LONG.shapes, heads: int = H, dh: int = DH):
+    """One query per token of the pyramid `shapes`. local: the encoder's
     reference points (the query's own normalised position in every level)
     with offsets within +-4 rows; wide: offsets of up to +-96 rows, three
-    times the margin; border: the special taps of `msda_inputs`."""
-    shapes = LONG.shapes
-    if kind == "border":
-        return msda_inputs("border", shapes, B, sum(shapes), gen, dev)
-    value, _, attn = msda_inputs("normal", shapes, B, sum(shapes), gen, dev)
-    ref = torch.cat([(torch.arange(T, device=dev) + 0.5) / T for T in shapes])
-    spread = 4.0 if kind == "local" else 3.0 * LV_MARGIN
-    offsets = (2 * torch.rand(attn.shape, generator=gen, device=dev) - 1) * spread
+    times the margin; border: the special taps of `msda_inputs`; pile: the
+    even points of every query at 0.1 and the odd ones at 0.9 of each level
+    (+-1 row), so that in most tiles half of the taps are clamped onto the
+    one last row of the band, lower and upper row alike; top: local, but
+    every tap into the last level at or above the highest band start any
+    tile may have there (T_pad - BS of the finest query level) and up to two
+    rows past the level, so that the band start is at its upper limit T_pad
+    - BS and the band reaches past T_l."""
+    L, S = len(shapes), sum(shapes)
+    value = torch.randn(B, S, heads, dh, generator=gen, device=dev)
+    attn = torch.rand(B, S, heads, L, P, generator=gen, device=dev) + 1e-3
+    attn = attn / attn.sum(dim=(3, 4), keepdim=True)
     t = torch.tensor(shapes, dtype=torch.float32, device=dev)[:, None]
-    return value, ref[None, :, None, None, None] + offsets / t, attn
+    if kind == "border":
+        _, loc, _ = msda_inputs("border", shapes, B, S, gen, dev)
+        return value, loc[:, :, :heads].contiguous(), attn
+    noise = 2 * torch.rand(attn.shape, generator=gen, device=dev) - 1
+    if kind == "pile":
+        centre = torch.tensor([0.1, 0.9] * P, device=dev)[:P]
+        return value, (centre + noise / t).contiguous(), attn
+    ref = torch.cat([(torch.arange(T, device=dev) + 0.5) / T for T in shapes])
+    spread = 3.0 * LV_MARGIN if kind == "wide" else 4.0
+    loc = ref[None, :, None, None, None] + noise * spread / t
+    if kind == "top":
+        from gvl_tpu_torch.ops.ms_deform_attn_banded import (band_table,
+                                                             padded_shapes)
+        last = shapes[-1]
+        limit = padded_shapes(shapes)[-1] - min(
+            row[-1] for row in band_table(shapes, LV_MARGIN))
+        loc[..., -1, :] = (limit + 0.5 + (last + 2 - limit) * torch.rand(
+            loc[..., -1, :].shape, generator=gen, device=dev)) / last
+    return value, loc.contiguous(), attn
+
+
+def banded_cases(gen: torch.Generator, dev, main_B: int):
+    """Every (tag, shapes, margin, clamp engages, inputs) phases 12 and 13
+    check: all tap classes at the long-video encoder shape, three at the
+    other geometries; each at the model's margin and with full bands."""
+    for shapes, B, heads, dh in BANDED_GEOMETRIES:
+        main = shapes == LONG.shapes
+        for kind, engages in BANDED_KINDS.items():
+            if not main and kind in ("border", "top"):
+                continue
+            inputs = banded_inputs(kind, main_B if main else B, gen, dev,
+                                   shapes, heads, dh)
+            for margin in (LV_MARGIN, max(shapes)):
+                tag = (f"B={inputs[0].shape[0]} S={sum(shapes)} H={heads} "
+                       f"Dh={dh} {kind} margin={margin}")
+                yield (tag, shapes, margin, engages and margin == LV_MARGIN,
+                       inputs)
 
 
 def phase_banded_kernel_vs_plain(dev) -> dict:
@@ -425,25 +524,22 @@ def phase_banded_kernel_vs_plain(dev) -> dict:
                                    ms_deform_attn_1d_cuda,
                                    ms_deform_attn_1d_ref)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-    shapes, B = LONG.shapes, LONG.eval_B
+    shapes = LONG.shapes
     worst = 0.0
-    for kind in BANDED_KINDS:
-        value, loc, attn = banded_inputs(kind, B, gen, dev)
-        dense = ms_deform_attn_1d_ref(value, shapes, loc, attn)
-        for margin in (LV_MARGIN, FULL_MARGIN):
-            want = ms_deform_attn_1d_banded_ref(value, shapes, loc, attn, margin)
-            worst = max(worst, check_forward(
-                f"banded B={B} {kind} margin={margin}",
-                ms_deform_attn_1d_banded_cuda(value, shapes, loc, attn, margin),
-                want))
-            clamped = (want - dense).abs().max().item()
-            log("banded", f"{kind} margin={margin}: plain banded vs plain "
-                          f"dense max abs diff {clamped!r}")
-            # the clamp is inactive on local taps and in full bands, and
-            # engages on wide and border taps at the model's margin
-            check((clamped <= KERNEL_TOL) == (kind == "local"
-                                              or margin == FULL_MARGIN),
-                  f"band clamp at {kind}/margin {margin}: diff {clamped}")
+    for tag, shp, margin, engages, (value, loc, attn) in banded_cases(
+            gen, dev, LONG.eval_B):
+        want = ms_deform_attn_1d_banded_ref(value, shp, loc, attn, margin)
+        worst = max(worst, check_forward(
+            f"banded {tag}",
+            ms_deform_attn_1d_banded_cuda(value, shp, loc, attn, margin), want))
+        clamped = (want - ms_deform_attn_1d_ref(value, shp, loc, attn)
+                   ).abs().max().item()
+        log("banded", f"{tag}: plain banded vs plain dense max abs diff "
+                      f"{clamped!r}")
+        # the clamp is inactive on local and top taps and in full bands, and
+        # engages on wide, border and pile taps at the model's margin
+        check((clamped > KERNEL_TOL) == engages,
+              f"band clamp at {tag}: diff {clamped}")
     times = {}
     for b in (LONG.eval_B, LONG.train_B):    # the eval and the train batch
         value, loc, attn = banded_inputs("local", b, gen, dev)
@@ -451,19 +547,24 @@ def phase_banded_kernel_vs_plain(dev) -> dict:
             f"banded B={b} local margin={LV_MARGIN}, timed inputs",
             ms_deform_attn_1d_banded_cuda(value, shapes, loc, attn, LV_MARGIN),
             ms_deform_attn_1d_banded_ref(value, shapes, loc, attn, LV_MARGIN)))
+
+        def kernel():
+            return ms_deform_attn_1d_banded_cuda(value, shapes, loc, attn,
+                                                 LV_MARGIN)
         times[b] = dict(
-            ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_cuda(
-                value, shapes, loc, attn, LV_MARGIN), 50),
-            plain_ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_ref(
+            ms=device_median_ms(kernel, 50), call_ms=cuda_median_ms(kernel, 50),
+            plain_ms=device_median_ms(lambda: ms_deform_attn_1d_banded_ref(
                 value, shapes, loc, attn, LV_MARGIN), 20),
-            dense_kernel_ms=cuda_median_ms(lambda: ms_deform_attn_1d_cuda(
+            dense_kernel_ms=device_median_ms(lambda: ms_deform_attn_1d_cuda(
                 value, shapes, loc, attn), 50))
         log("banded", f"B={b} S=Lq={sum(shapes)} H={H} Dh={DH} "
                       f"K={len(shapes) * P} margin={LV_MARGIN}, local taps: "
-                      f"kernel {times[b]['ms']!r} ms, plain "
+                      f"kernel {times[b]['ms']!r} ms on the device "
+                      f"({times[b]['call_ms']!r} ms per call from an idle "
+                      f"device, the host's share included), plain "
                       f"{times[b]['plain_ms']!r} ms, the dense kernel on the "
-                      f"same inputs {times[b]['dense_kernel_ms']!r} ms per "
-                      f"call (medians of 50 / 20 / 50)")
+                      f"same inputs {times[b]['dense_kernel_ms']!r} ms "
+                      f"(medians of 50 / 50 / 20 / 50)")
     return dict(max_abs_err=worst, times=times)
 
 
@@ -472,43 +573,50 @@ def phase_banded_bwd_kernel_vs_plain(dev) -> dict:
                                    ms_deform_attn_1d_banded_bwd_ref,
                                    ms_deform_attn_1d_bwd_cuda)
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
-    shapes, B = LONG.shapes, LONG.train_B
+    shapes = LONG.shapes
     worst = 0.0
-    for kind in BANDED_KINDS:
-        value, loc, attn = banded_inputs(kind, B, gen, dev)
-        grad_out = torch.randn(B, sum(shapes), H * DH, generator=gen,
+    for tag, shp, margin, _, (value, loc, attn) in banded_cases(
+            gen, dev, LONG.train_B):
+        grad_out = torch.randn(value.shape[0], sum(shp),
+                               value.shape[2] * value.shape[3], generator=gen,
                                device=dev)
-        for margin in (LV_MARGIN, FULL_MARGIN):
-            got = ms_deform_attn_1d_banded_bwd_cuda(
-                grad_out, value, shapes, loc, attn, margin)
-            want = ms_deform_attn_1d_banded_bwd_ref(
-                grad_out, value, shapes, loc, attn, margin)
-            worst = max(worst, check_backward(
-                f"bbwd B={B} {kind} margin={margin}", got, want))
-            no_value = ms_deform_attn_1d_banded_bwd_cuda(
-                grad_out, value, shapes, loc, attn, margin, need_value=False)
-            check(no_value[0] is None and torch.equal(no_value[1], got[1])
-                  and torch.equal(no_value[2], got[2]),
-                  "banded backward kernel without grad_value")
+        got = ms_deform_attn_1d_banded_bwd_cuda(
+            grad_out, value, shp, loc, attn, margin)
+        want = ms_deform_attn_1d_banded_bwd_ref(
+            grad_out, value, shp, loc, attn, margin)
+        worst = max(worst, check_backward(f"bbwd {tag}", got, want))
+        no_value = ms_deform_attn_1d_banded_bwd_cuda(
+            grad_out, value, shp, loc, attn, margin, need_value=False)
+        check(no_value[0] is None and torch.equal(no_value[1], got[1])
+              and torch.equal(no_value[2], got[2]),
+              "banded backward kernel without grad_value")
     times = {}
     for b in (LONG.train_B, LONG.eval_B):
         value, loc, attn = banded_inputs("local", b, gen, dev)
         grad_out = torch.randn(b, sum(shapes), H * DH, generator=gen,
                                device=dev)
+
+        def kernel(need_value=True):
+            return ms_deform_attn_1d_banded_bwd_cuda(
+                grad_out, value, shapes, loc, attn, LV_MARGIN,
+                need_value=need_value)
         times[b] = dict(
-            ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_bwd_cuda(
-                grad_out, value, shapes, loc, attn, LV_MARGIN), 50),
-            plain_ms=cuda_median_ms(lambda: ms_deform_attn_1d_banded_bwd_ref(
+            ms=device_median_ms(kernel, 50), call_ms=cuda_median_ms(kernel, 50),
+            no_value_ms=device_median_ms(lambda: kernel(False), 50),
+            plain_ms=device_median_ms(lambda: ms_deform_attn_1d_banded_bwd_ref(
                 grad_out, value, shapes, loc, attn, LV_MARGIN), 20),
-            dense_kernel_ms=cuda_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
+            dense_kernel_ms=device_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
                 grad_out, value, shapes, loc, attn), 50))
         log("bbwd", f"B={b} S=Lq={sum(shapes)} H={H} Dh={DH} "
                     f"K={len(shapes) * P} margin={LV_MARGIN}, local taps: "
-                    f"kernel {times[b]['ms']!r} ms (zeroing grad_value "
-                    f"included), plain {times[b]['plain_ms']!r} ms, the dense "
-                    f"backward kernel on the same inputs "
-                    f"{times[b]['dense_kernel_ms']!r} ms per call (medians of "
-                    f"50 / 20 / 50)")
+                    f"kernel {times[b]['ms']!r} ms on the device, zeroing "
+                    f"grad_value included ({times[b]['call_ms']!r} ms per "
+                    f"call from an idle device, the host's share included; "
+                    f"{times[b]['no_value_ms']!r} ms without grad_value), "
+                    f"plain {times[b]['plain_ms']!r} ms, the dense backward "
+                    f"kernel on the same inputs "
+                    f"{times[b]['dense_kernel_ms']!r} ms (medians of 50 / 50 "
+                    f"/ 50 / 20 / 50)")
     return dict(max_abs_err=worst, times=times)
 
 
@@ -776,12 +884,13 @@ def train_batch(w: Workload, seed: int) -> dict:
         captions=captions, caption_mask=np.ones((B, G, Lc), bool))
 
 
-def phase_train_main_path(w: Workload, dev):
+def build_train(w: Workload, dev):
+    """The model on the card with seeded weights, its train state and step,
+    the loss weights and two seeded batches."""
     from gvl_tpu_torch.models.gvl import build_model
     from gvl_tpu_torch.train.criterion import LossSpec, make_weight_dict
     from gvl_tpu_torch.train.state import (StepStatics, create_train_state,
                                            make_train_step)
-    tag = w.tag + "train"
     cfg = types.SimpleNamespace(**w.cfg)
     torch.manual_seed(SEED)               # the dropout draws
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -797,6 +906,12 @@ def phase_train_main_path(w: Workload, dev):
     step = make_train_step(model, cfg, statics)
     weights = make_weight_dict(cfg)
     batches = [train_batch(w, SEED), train_batch(w, SEED + 1)]
+    return model, state, step, weights, batches
+
+
+def phase_train_main_path(w: Workload, model, state, step, weights,
+                          batches) -> dict:
+    tag = w.tag + "train"
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     reset_counts()
     t0 = time.perf_counter()
@@ -831,7 +946,7 @@ def phase_train_main_path(w: Workload, dev):
              f"{want_counts(w, 1, train=True)}); {n_params} parameter "
              f"tensors with a finite gradient, {moved} moved; lr "
              f"{state.optimizer.param_groups[0]['lr']!r}")
-    return model, state, step, weights, batches, launches
+    return launches
 
 
 # --------------------------------------------------------------- phase 10
@@ -1014,9 +1129,10 @@ def dense_row(name, source, replaces, launches, kv, backward) -> dict:
         if B is None:
             continue
         bd = msda_bound(B, sum(shapes), Lq, backward)
-        k_ms, p_ms = kv["times"][label]
+        k_ms, p_ms, c_ms = kv["times"][label]
         by_shape[label] = {"B": B, "S": sum(shapes), "Lq": Lq, "ms": k_ms,
-                           "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
+                           "plain_ms": p_ms, "call_ms": c_ms,
+                           "bound_ms": bd["bound_ms"],
                            "bound_by": bd["bound_by"], "bytes": bd["bytes"],
                            "flops": bd["flops"]}
         log("bound", f"{name} {label}: {bd['bytes']} bytes, {bd['flops']} "
@@ -1093,9 +1209,11 @@ def main() -> None:
         if args.profile:
             phase_profile(w, cfg, model, runner, args.profile)
         del model, runner
-        (tmodel, state, step, weights, batches,
-         launches[f"{w.name}_train"]) = phase_train_main_path(w, dev)
+        tmodel, state, step, weights, batches = build_train(w, dev)
+        # phase 10 before phase 9: see the docstring
         phase_train_paths_agree(w, tmodel, step, weights, batches[0])
+        launches[f"{w.name}_train"] = phase_train_main_path(
+            w, tmodel, state, step, weights, batches)
         phase_train_time(w, state, step, weights, batches)
         if args.profile:
             phase_train_profile(w, state, step, weights, batches, args.profile)

@@ -79,9 +79,9 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd_f32.restype = i
     ints = ctypes.POINTER(ctypes.c_int)
     lib.msda_banded_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                        ints, ints, p]
+                                        ints, ints, i, p]
     lib.msda_banded_fwd_f32.restype = i
     lib.msda_banded_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                        ints, ints, p]
+                                        ints, ints, ints, i, p]
     lib.msda_banded_bwd_f32.restype = i
     return lib

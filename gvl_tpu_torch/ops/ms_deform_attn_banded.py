@@ -28,6 +28,9 @@ csrc/ms_deform_attn_banded_bwd.cu in the backward (::_bwd_kernel, with the
 derivative of the tap preparation folded in). On a CPU tensor it runs the
 plain version `ms_deform_attn_1d_banded_ref`, differentiated by autograd.
 `ms_deform_attn_1d_banded_bwd_ref` is the backward kernel's plain version.
+`kernel_plan` is the host side of a launch (tables, shared memory, the sizes
+the kernels refuse), computed from sizes alone so that it is tested without
+a card.
 
 The gradients follow the clamped rows: grad_value is added at the clamped
 row, grad_attn and grad_loc use the value read there. grad_loc is zero on
@@ -37,8 +40,9 @@ and outside the tap clamp's bounds, as in the dense op.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -49,6 +53,10 @@ from gvl_tpu_torch.ops.ms_deform_attn import (check_kernel_inputs,
 
 TILE_Q = 128     # queries per tile; kTileQ in csrc/ms_deform_attn_banded.cuh
 _ROW_ALIGN = 8   # level lengths and band starts are multiples of this
+# limits of the CUDA kernels (csrc/ms_deform_attn_banded.cuh)
+KERNEL_THREADS = 512          # a block; one thread per (level, point) at least
+KERNEL_MAX_DH = 128           # two 16-byte accesses per lane and row
+MAX_SHARED_BYTES = 232448     # the most shared memory a block may take, sm_90
 
 
 def _round_up(x: int, m: int) -> int:
@@ -162,14 +170,85 @@ def ms_deform_attn_1d_banded_bwd_ref(grad_out: torch.Tensor,
         return tap_grads(grad_out, value, r0, r1, f, x_raw, t, attn)
 
 
-def _geometry(temporal_shapes: Sequence[int], margin: int):
-    """The ctypes arrays the kernels' C entries take: level lengths (L) and
-    the band table (L x L, row = query level)."""
-    L = len(temporal_shapes)
-    shapes = (ctypes.c_int * L)(*(int(t) for t in temporal_shapes))
-    table = band_table(temporal_shapes, margin)
-    bands = (ctypes.c_int * (L * L))(*(b for row in table for b in row))
-    return shapes, bands
+def band_row_numbers(table: Sequence[Sequence[int]]
+                     ) -> Tuple[Tuple[int, ...], ...]:
+    """The bands of a tile numbered through, per query level: entry l is the
+    number of target level l's first band row, entry L the rows of all L
+    bands. The backward kernel sorts a tile's tap rows by these numbers and
+    keeps one counter per number."""
+    return tuple(tuple(sum(row[:l]) for l in range(len(row) + 1))
+                 for row in table)
+
+
+class KernelPlan(NamedTuple):
+    """What a launch of the banded kernels needs beside the tensors."""
+    shapes: ctypes.Array        # level lengths (L)
+    bands: ctypes.Array         # band table (L x L, row = query level)
+    band_base: ctypes.Array     # L x (L + 1), see band_row_numbers
+    shared_fwd: int             # dynamic shared memory of a block, bytes
+    shared_bwd: int             # backward with grad_value
+    shared_bwd_no_value: int    # backward without
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_plan(temporal_shapes: Tuple[int, ...], margin: int, H: int, P: int,
+                Dh: int) -> KernelPlan:
+    """The host side of a launch, from sizes alone (kept per set of sizes:
+    the model asks for the same plan at every layer and step). Per tap the
+    forward keeps two row offsets and two weights in shared memory (16
+    bytes), the backward two offsets, f, attn and attn * T_l (20 bytes); with
+    grad_value the backward also keeps two (query, weight) hits per tap and
+    one counter per band row of the tile. Raises ValueError on sizes the
+    kernels refuse."""
+    shapes = [int(t) for t in temporal_shapes]
+    L, K = len(shapes), len(shapes) * P
+    if Dh < 4 or Dh % 4 or Dh > KERNEL_MAX_DH:
+        raise ValueError(
+            f"banded ms_deform_attn kernel: head width {Dh}; the kernels read "
+            f"rows in 16-byte pieces and take multiples of 4 up to "
+            f"{KERNEL_MAX_DH}")
+    if not 1 <= L <= 8 or P < 1 or K > KERNEL_THREADS:
+        raise ValueError(
+            f"banded ms_deform_attn kernel: {L} levels x {P} points; 1..8 "
+            f"levels and at most {KERNEL_THREADS} taps per query are taken")
+    if sum(shapes) * H * Dh > 2 ** 31 - 1:
+        raise ValueError(
+            f"banded ms_deform_attn kernel: a batch element of {sum(shapes)} "
+            f"x {H} x {Dh} floats is past the 32-bit row offsets")
+    table = band_table(shapes, margin)
+    band_base = band_row_numbers(table)
+    taps = TILE_Q * K
+    plan = KernelPlan(
+        shapes=(ctypes.c_int * L)(*shapes),
+        bands=(ctypes.c_int * (L * L))(*(b for row in table for b in row)),
+        band_base=(ctypes.c_int * (L * (L + 1)))(
+            *(n for base in band_base for n in base)),
+        shared_fwd=16 * taps,
+        shared_bwd=36 * taps + 4 * max(base[L] for base in band_base),
+        shared_bwd_no_value=20 * taps)
+    if max(plan.shared_fwd, plan.shared_bwd) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"banded ms_deform_attn kernel: a block would take "
+            f"{max(plan.shared_fwd, plan.shared_bwd)} bytes of shared memory "
+            f"for levels {tuple(shapes)} x {P} points, past the "
+            f"{MAX_SHARED_BYTES} it may have")
+    return plan
+
+
+def _plan_for(value: torch.Tensor, temporal_shapes: Sequence[int],
+              loc: torch.Tensor, margin: int,
+              grad_out: torch.Tensor | None = None) -> KernelPlan:
+    """The plan of a launch on these tensors; raises ValueError on a size or
+    an alignment the kernels refuse. Reads the tensors' metadata only."""
+    _, _, H, Dh = value.shape
+    plan = kernel_plan(tuple(int(t) for t in temporal_shapes), int(margin),
+                       H, loc.shape[4], Dh)
+    for name, t in (("value", value), ("grad_out", grad_out)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"banded ms_deform_attn kernel: {name} is not "
+                             "16-byte aligned; its rows are read in 16-byte "
+                             "pieces")
+    return plan
 
 
 def ms_deform_attn_1d_banded_cuda(value: torch.Tensor,
@@ -185,13 +264,14 @@ def ms_deform_attn_1d_banded_cuda(value: torch.Tensor,
     _check_token_queries(value, temporal_shapes, loc)
     B, S, H, Dh = value.shape
     _, _, _, L, P = loc.shape
+    plan = _plan_for(value, temporal_shapes, loc, margin)
     out = torch.empty((B, S, H * Dh), dtype=torch.float32, device=value.device)
-    shapes, bands = _geometry(temporal_shapes, margin)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().msda_banded_fwd_f32(
             value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            B, S, H, Dh, L, P, shapes, bands, stream)
+            B, S, H, Dh, L, P, plan.shapes, plan.bands, plan.shared_fwd,
+            stream)
     if err != 0:
         raise RuntimeError("banded ms_deform_attn kernel launch failed: CUDA "
                            f"error {err}")
@@ -216,18 +296,20 @@ def ms_deform_attn_1d_banded_bwd_cuda(grad_out: torch.Tensor,
     _check_token_queries(value, temporal_shapes, loc)
     B, S, H, Dh = value.shape
     _, _, _, L, P = loc.shape
+    plan = _plan_for(value, temporal_shapes, loc, margin, grad_out)
     # the kernel adds into grad_value with atomics: zeroed, on this stream
     grad_value = torch.zeros_like(value) if need_value else None
     grad_loc = torch.empty_like(loc)
     grad_attn = torch.empty_like(attn)
-    shapes, bands = _geometry(temporal_shapes, margin)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().msda_banded_bwd_f32(
             grad_out.data_ptr(), value.data_ptr(), loc.data_ptr(),
             attn.data_ptr(), grad_value.data_ptr() if need_value else None,
             grad_loc.data_ptr(), grad_attn.data_ptr(),
-            B, S, H, Dh, L, P, shapes, bands, stream)
+            B, S, H, Dh, L, P, plan.shapes, plan.bands, plan.band_base,
+            plan.shared_bwd if need_value else plan.shared_bwd_no_value,
+            stream)
     if err != 0:
         raise RuntimeError("banded ms_deform_attn backward kernel launch "
                            f"failed: CUDA error {err}")

@@ -212,3 +212,124 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_other_queries(rng):
     with pytest.raises(ValueError, match="one query per token"):
         port.ms_deform_attn_1d_banded(t(value), SHAPES, t(loc[:, :30]),
                                       t(attn[:, :30]))
+
+
+# ---- the host side of a kernel launch (kernel_plan), held on the CPU
+
+YOUMAKEUP = (800, 400, 200, 100)
+TINY_LONG = (300, 150, 75)
+EIGHT_LEVELS = (1024, 512, 256, 128, 64, 32, 16, 8)
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("margin", [32, 4096])
+@pytest.mark.parametrize("shapes", [YOUMAKEUP, TINY_LONG, EIGHT_LEVELS])
+def test_kernel_plan_fits_the_shared_memory_of_a_block(shapes, margin, Dh):
+    """Per tap of a tile of 128 queries: 16 bytes forward, 20 backward, 16
+    more with grad_value, which also takes one counter per band row of the
+    query level with the longest bands. All under the 232,448 bytes a block
+    may take on sm_90, whatever the head width."""
+    plan = port.kernel_plan(shapes, margin, 8, 4, Dh)
+    taps = port.TILE_Q * len(shapes) * 4
+    rows = max(sum(row) for row in port.band_table(shapes, margin))
+    assert plan.shared_fwd == 16 * taps
+    assert plan.shared_bwd_no_value == 20 * taps
+    assert plan.shared_bwd == 36 * taps + 4 * rows
+    assert plan.shared_fwd < plan.shared_bwd_no_value < plan.shared_bwd
+    assert plan.shared_bwd <= port.MAX_SHARED_BYTES == 232448
+    L = len(shapes)
+    assert list(plan.shapes) == list(shapes)
+    assert list(plan.bands) == [b for row in port.band_table(shapes, margin)
+                                for b in row]
+    assert len(plan.band_base) == L * (L + 1)
+
+
+@pytest.mark.parametrize("margin", [0, 4, 32, 4096])
+@pytest.mark.parametrize("shapes", [YOUMAKEUP, TINY_LONG, SHAPES,
+                                    EIGHT_LEVELS])
+def test_band_row_numbers_give_every_band_row_one_counter(shapes, margin, rng):
+    """The backward kernel numbers the rows of a tile's L bands through and
+    keeps one counter per number. Wherever the bands start, every band row
+    gets a number of its own below the count, level after level; and a band
+    may reach past its level (rows T_l .. T_pad - 1), which no tap names."""
+    table = port.band_table(shapes, margin)
+    pad = port.padded_shapes(shapes)
+    numbers = port.band_row_numbers(table)
+    assert list(port.kernel_plan(shapes, margin, 8, 4, 64).band_base) == [
+        n for base in numbers for n in base]
+    for sizes, base in zip(table, numbers):
+        assert base[0] == 0 and base[-1] == sum(sizes)
+        seen = []
+        for l, bs in enumerate(sizes):
+            start = 8 * rng.randint(0, (pad[l] - bs) // 8 + 1)
+            assert 0 <= start <= pad[l] - bs
+            rows = np.arange(start, start + bs)
+            seen.append(base[l] + rows - start)
+            assert seen[-1].min() == base[l]
+            assert seen[-1].max() == base[l + 1] - 1
+        seen = np.concatenate(seen)
+        assert np.array_equal(np.sort(seen), np.arange(base[-1]))
+
+
+def test_clamped_tap_rows_stay_inside_their_band_and_level(rng):
+    """Every tap row the banded op reads lies in its tile's band and below
+    T_l, so its counter exists and no row past a level is ever written."""
+    value, loc, attn, _, margin = world("clamp", rng)
+    g0, g1, _, _ = dense.prep_taps(SHAPES, t(loc), t(attn))
+    r0, r1 = port.banded_rows(SHAPES, g0, g1, margin)
+    starts = torch.tensor([0, 300, 450, 525])
+    pad = torch.tensor(port.padded_shapes(SHAPES))
+    numbers = port.band_row_numbers(port.band_table(SHAPES, margin))
+    qs = 0
+    for lq, Tq in enumerate(SHAPES):
+        bs = torch.tensor(port.band_sizes(port.padded_shapes(SHAPES), Tq,
+                                          margin))
+        l0 = g0[:, qs:qs + Tq] - starts[:4, None]
+        s = port.band_starts(l0, pad, bs).repeat_interleave(
+            port.TILE_Q, dim=1)[:, :Tq, :, :, None]
+        base = torch.tensor(numbers[lq])
+        for r in (r0, r1):
+            local = r[:, qs:qs + Tq] - starts[:4, None]
+            assert bool((local < torch.tensor(SHAPES)[:, None]).all())
+            number = base[:4, None] + local - s
+            assert bool((number >= base[:4, None]).all())
+            assert bool((number < base[1:, None]).all())
+        qs += Tq
+
+
+@pytest.mark.parametrize("shapes,P,H,Dh,match", [
+    (YOUMAKEUP, 4, 8, 6, "head width 6"),
+    (YOUMAKEUP, 4, 8, 2, "head width 2"),
+    (YOUMAKEUP, 4, 8, 256, "head width 256"),
+    ((64,) * 9, 4, 8, 64, "9 levels"),
+    (YOUMAKEUP, 200, 8, 64, "4 levels x 200 points"),
+    ((2 ** 20,) * 8, 4, 64, 128, "32-bit row offsets"),
+    (EIGHT_LEVELS, 16, 8, 64, "bytes of shared memory"),
+])
+def test_kernel_plan_refuses_what_the_kernels_do_not_take(shapes, P, H, Dh,
+                                                          match):
+    with pytest.raises(ValueError, match=match):
+        port.kernel_plan(shapes, 32, H, P, Dh)
+
+
+@pytest.mark.parametrize("case", ["head width", "value alignment",
+                                  "grad_out alignment"])
+def test_plan_of_a_launch_reads_the_tensors_metadata(case):
+    """The wrappers' size and alignment checks need no CUDA tensor."""
+    S, L, P = sum(TINY_LONG), len(TINY_LONG), 4
+    Dh = 6 if case == "head width" else 8
+    value = torch.zeros(1 * S * 2 * Dh + 1)
+    off = 1 if case == "value alignment" else 0
+    value = value[off:off + S * 2 * Dh].view(1, S, 2, Dh)
+    grad_out = torch.zeros(S * 2 * Dh + 1)
+    off = 1 if case == "grad_out alignment" else 0
+    grad_out = grad_out[off:off + S * 2 * Dh].view(1, S, 2 * Dh)
+    loc = torch.zeros(1, S, 2, L, P)
+    match = {"head width": "head width 6",
+             "value alignment": "value is not 16-byte aligned",
+             "grad_out alignment": "grad_out is not 16-byte aligned"}[case]
+    with pytest.raises(ValueError, match=match):
+        port._plan_for(value, TINY_LONG, loc, 32, grad_out)
+    good = port._plan_for(torch.zeros(1, S, 2, 8), TINY_LONG, loc, 32,
+                          torch.zeros(1, S, 16))
+    assert good is port.kernel_plan(TINY_LONG, 32, 2, P, 8)
