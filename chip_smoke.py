@@ -1,18 +1,26 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (built for an H100, sm_90a).
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only] [--old-forms DIR]
 
 Phases, one printed line or more each; any failure raises and the script
 exits non-zero:
   1. device: name, `nvidia-smi` name and power limit, torch/CUDA versions;
      TF32 off for matmuls and cuDNN.
-  2. build: nvcc builds the deformable-attention kernel from
-     gvl_tpu_torch/csrc into build/kernels/.
-  3. kernel vs plain: the CUDA kernel against its plain PyTorch version at
-     the flagship encoder (Lq=188) and decoder (Lq=30) shapes and at the
-     long-video decoder shape (B=8, S=1500, Lq=100), with taps in
-     [0, 1], "wild" taps in [-0.4, 1.4] and taps on level borders; max abs
-     error <= 1e-5; median times over CUDA events.
+  2. build: nvcc builds the deformable-attention kernels from
+     gvl_tpu_torch/csrc into build/kernels/ and logs ptxas's registers,
+     spills and shared memory; with --old-forms DIR also the dense kernels
+     of an earlier commit's package in DIR (see OldDense).
+  3. kernel vs plain: the forward CUDA kernel against its plain PyTorch
+     version at the flagship encoder (Lq=188) and decoder (Lq=30) shapes and
+     at the long-video decoder shape (B=8 and B=4, S=1500, Lq=100), with
+     taps in [0, 1], "wild" taps in [-0.4, 1.4], taps on level borders and
+     "pile" taps (every tap of a (b, h) on three rows of each level); then
+     normal and pile taps at the short pyramid 300+150+75 with K=6 and rows
+     of 32, 64 and 128 floats and at a dense encoder over the long-video
+     pyramid (B=1, Lq=S=1500); max abs error <= 1e-5. Times at the main
+     shapes beside the library call that computes the same sum
+     (F.embedding_bag on prepared taps) and, with --old-forms, the earlier
+     kernel.
   4. main path: the flagship ActivityNet dense-captioning model (widths of
      cfgs/anet_tsp_msvg_dvc.yml: hidden 512, 8 heads, 2+2 layers, 4 levels,
      30 queries, vocab 8517; random weights from a seed) evaluated by
@@ -28,11 +36,16 @@ exits non-zero:
      enqueue vs device finish, trunk vs caption decode, torch.profiler's
      device time and op count per step and its top device ops; writes the
      op table and a Chrome trace into DIR.
-  8. backward kernel vs plain: the backward CUDA kernel against its plain
-     PyTorch version at the same shapes (the long-video decoder at B=4, as
-     the train step runs it) and three tap kinds with a seeded output
-     gradient; bounds per gradient in BWD_ABS_TOL and
-     BWD_REL_TOL; per-call median times. Runs right after phase 3.
+  8. backward kernel vs plain: the backward CUDA kernels against their
+     plain PyTorch version at the same shapes and classes (the long-video
+     decoder at B=4, as the train step runs it) with a seeded output
+     gradient; bounds per gradient in BWD_ABS_TOL and BWD_REL_TOL;
+     grad_value bit-identical over N_REPEATS calls; without grad_value
+     nothing is scattered. Times beside the kernels without grad_value,
+     zeros_like alone, embedding_bag's autograd backward and, with
+     --old-forms, the earlier kernel; the time of each of its two CUDA
+     kernels (torch.profiler) beside that kernel's own bound. Runs right
+     after phase 3.
   9. train main path: build_model on the card, create_train_state,
      make_train_step, 5 steps on 2 alternating synthetic batches (B=16, 30
      GT slots with ActivityNet event counts, caption length 30, Adam at
@@ -69,11 +82,12 @@ exits non-zero:
      (levels 300+150+75, short tiles and levels, K=12) with H=8, Dh=64 and
      with rows of 32 and of 128 floats; each at margin 32 and at a margin
      that makes every band full; max abs error <= 1e-5. Medians at B=8 and
-     B=4 beside the dense kernel on the same local inputs.
+     B=4 beside the dense kernel and embedding_bag on the band-clamped taps
+     on the same local inputs.
  13. banded backward kernel vs plain: same classes, geometries and margins
      at the train step's batch (B=4), bounds of phase 8; without grad_value
      nothing is scattered. Medians at B=4 and B=8, with and without
-     grad_value.
+     grad_value, beside the dense kernel and embedding_bag's backward.
      A kernel's time (phases 3, 8, 12, 13) is the device's: each timed call
      is enqueued behind a kernel that spins while the host prepares it; the
      time per call from an idle device, the host's share included, is
@@ -89,8 +103,10 @@ exits non-zero:
      per step of each of the four kernels; then phases 10 and 11 on it.
 With --kernels-only the script stops after phases 1-3, 8, 12 and 13. With
 --profile DIR phases 7 and 11 also profile the long-video steps. The last
-two lines are the kernels' JSON summary (four kernels) and {"ok": true,
-"device": {...}}. The run uses one card, the first visible.
+two lines are the kernels' JSON summary (four kernels, each with the
+library call's time, library_ms, the dense ones with the earlier kernel's,
+old_ms, null without --old-forms, and the backward's with each of its two
+CUDA kernels' time and bound, split) and {"ok": true, "device": {...}}. The run uses one card, the first visible.
 """
 
 from __future__ import annotations
@@ -114,6 +130,7 @@ os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 SEED = 0
 H, DH, P = 8, 64, 4
@@ -248,6 +265,22 @@ def device_median_ms(fn, n: int, warmup: int = 3) -> float:
     return _median_event_ms(fn, n, int((2 * host_s + 2e-4) * SPIN_HZ))
 
 
+def kernel_split_ms(fn, n: int = 20) -> dict:
+    """Device time per CUDA kernel of one call of fn, by torch.profiler
+    over n calls: kernel name -> ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+
+
 def cuda_median_ms(fn, n: int, warmup: int = 3) -> float:
     """Median over n calls of fn on an idle device, each between its own
     pair of CUDA events: the host's share of the call included."""
@@ -314,6 +347,55 @@ def phase_build() -> None:
             log("build", "ptxas: " + line.strip())
 
 
+def _swap_package(modules: dict) -> dict:
+    """Puts `modules`, a gvl_tpu_torch package's entries of sys.modules, in
+    place of the ones there, and returns those."""
+    out = {k: sys.modules.pop(k) for k in list(sys.modules)
+           if k.split(".")[0] == "gvl_tpu_torch"}
+    sys.modules.update(modules)
+    return out
+
+
+class OldDense:
+    """The dense kernels of an earlier commit, called through that commit's
+    own wrappers (`ms_deform_attn_1d_cuda`, `ms_deform_attn_1d_bwd_cuda`),
+    whatever arguments its C entries take. DIR holds the commit's
+    gvl_tpu_torch package (`git archive COMMIT gvl_tpu_torch | tar -x -C
+    DIR`); it is imported beside this one, not in its place, builds its
+    kernels into DIR/build/kernels, and is put in sys.modules for the length
+    of each call, since its wrappers import their library there."""
+
+    def __init__(self, root: pathlib.Path):
+        import importlib
+        mine = _swap_package({})
+        sys.path.insert(0, str(root.resolve()))
+        try:
+            self.ops = importlib.import_module("gvl_tpu_torch.ops")
+            build = importlib.import_module("gvl_tpu_torch.ops._build")
+            built = build.build()
+            build.library()
+        finally:
+            sys.path.pop(0)
+            self.modules = _swap_package(mine)
+        log("build", f"old dense forms from {root}: nvcc "
+                     f"{built.seconds:.3f} s")
+
+    def _call(self, fn, *args):
+        mine = _swap_package(self.modules)
+        try:
+            return fn(*args)
+        finally:
+            self.modules = _swap_package(mine)
+
+    def fwd(self, value, shapes, loc, attn):
+        return self._call(self.ops.ms_deform_attn_1d_cuda, value, shapes, loc,
+                          attn)
+
+    def bwd(self, grad_out, value, shapes, loc, attn):
+        return self._call(self.ops.ms_deform_attn_1d_bwd_cuda, grad_out,
+                          value, shapes, loc, attn)
+
+
 # ---------------------------------------------------------------- phase 3
 # label -> (level lengths, batch of the forward, batch of the backward, Lq):
 # every shape a main path gives the dense kernels. The forward runs in the
@@ -326,27 +408,55 @@ DENSE_CASES = {
     "longvideo_decoder_train": (LONG.shapes, LONG.train_B, None, 100),
 }
 assert ANET.eval_B == ANET.train_B
+DENSE_KINDS = ("normal", "wild", "border", "pile")
+# phase 8: the backward kernel's grad_value is held bit-identical over this
+# many calls
+N_REPEATS = 20
+# the tiny long-video model of the CPU tests: 300 frames, three levels, none
+# a multiple of 128 and two not of 8
+TINY_SHAPES = (300, 150, 75)
+# (level lengths, batch, queries, heads, head width, points) that phases 3
+# and 8 check beside the main paths' shapes: the short pyramid with K=6 and
+# rows of 32, 64 and 128 floats, and a dense encoder over the long-video
+# pyramid (Lq = S = 1500), whose taps the backward's value kernel walks in
+# several chunks and row ranges
+DENSE_GEOMETRIES = ((TINY_SHAPES, 2, 70, 4, 32, 2),
+                    (TINY_SHAPES, 2, 70, H, DH, 2),
+                    (TINY_SHAPES, 2, 70, 2, 128, 2),
+                    (LONG.shapes, 1, sum(LONG.shapes), H, DH, P))
 
 
-def msda_inputs(kind: str, shapes, B: int, Lq: int, gen: torch.Generator, dev):
+def msda_inputs(kind: str, shapes, B: int, Lq: int, gen: torch.Generator, dev,
+                heads: int = H, dh: int = DH, points: int = P):
+    """value, loc, attn for Lq queries over the pyramid `shapes`. normal:
+    taps in [0, 1]; wild: in [-0.4, 1.4]; border: on rows 0 and T_l - 1, one
+    row inside them, and beyond them; pile: every tap of a (b, h) on three
+    rows of each level, rows T_l // 2 and T_l // 2 + 1 (three taps in four)
+    and the clamped last row T_l - 1 (one in four)."""
     L = len(shapes)
     S = sum(shapes)
-    value = torch.randn(B, S, H, DH, generator=gen, device=dev)
-    attn = torch.rand(B, Lq, H, L, P, generator=gen, device=dev) + 1e-3
+    value = torch.randn(B, S, heads, dh, generator=gen, device=dev)
+    size = (B, Lq, heads, L, points)
+    attn = torch.rand(size, generator=gen, device=dev) + 1e-3
     attn = attn / attn.sum(dim=(3, 4), keepdim=True)
+    t = torch.tensor(shapes, dtype=torch.float32, device=dev)[:, None]
     if kind == "border":
-        loc = torch.empty(B, Lq, H, L, P, device=dev)
+        loc = torch.empty(size, device=dev)
         for l, T in enumerate(shapes):
             special = torch.tensor([0.5 / T, (T - 0.5) / T, 1.5 / T,
                                     (T - 1.5) / T, 0.0, 1.0, -0.3, 1.3],
                                    device=dev)
-            pick = torch.randint(0, len(special), (B, Lq, H, P),
+            pick = torch.randint(0, len(special), (B, Lq, heads, points),
                                  generator=gen, device=dev)
             loc[..., l, :] = special[pick]
+    elif kind == "pile":
+        mid = (torch.div(t, 2, rounding_mode="floor") + 0.5
+               + 0.99 * torch.rand(size, generator=gen, device=dev)) / t
+        last = torch.rand(size, generator=gen, device=dev) < 0.25
+        loc = torch.where(last, torch.full_like(mid, 1.3), mid)
     else:
         lo, hi = (-0.4, 1.4) if kind == "wild" else (0.0, 1.0)
-        loc = lo + (hi - lo) * torch.rand(B, Lq, H, L, P, generator=gen,
-                                          device=dev)
+        loc = lo + (hi - lo) * torch.rand(size, generator=gen, device=dev)
     return value, loc, attn
 
 
@@ -379,70 +489,157 @@ def check_backward(tag: str, got, want) -> float:
     return worst
 
 
-def phase_kernel_vs_plain(dev) -> dict:
-    from gvl_tpu_torch.ops import ms_deform_attn_1d_cuda, ms_deform_attn_1d_ref
+def dense_cases(gen: torch.Generator, dev, backward: bool):
+    """Every (tag, shapes, inputs) phases 3 and 8 check: all tap classes at
+    the main paths' shapes (the backward at its train batches), normal and
+    pile taps at DENSE_GEOMETRIES."""
+    for label, (shapes, fwd_B, bwd_B, Lq) in DENSE_CASES.items():
+        B = bwd_B if backward else fwd_B
+        if B is None:
+            continue
+        for kind in DENSE_KINDS:
+            yield (f"{label} B={B} Lq={Lq} {kind}", shapes,
+                   msda_inputs(kind, shapes, B, Lq, gen, dev))
+    for shapes, B, Lq, heads, dh, points in DENSE_GEOMETRIES:
+        for kind in ("normal", "pile"):
+            yield (f"B={B} S={sum(shapes)} Lq={Lq} H={heads} Dh={dh} "
+                   f"K={len(shapes) * points} {kind}", shapes,
+                   msda_inputs(kind, shapes, B, Lq, gen, dev, heads, dh,
+                               points))
+
+
+def library_fwd(value, rows0, rows1, w0, w1):
+    """The yardstick of the forward kernels: one F.embedding_bag over the
+    taps' rows, its inputs prepared here, outside the timed call."""
+    from gvl_tpu_torch.ops.ms_deform_attn import embedding_bag_inputs
+    table, idx, w = embedding_bag_inputs(value, rows0, rows1, w0, w1)
+    return lambda: F.embedding_bag(idx, table, mode="sum",
+                                   per_sample_weights=w)
+
+
+def library_bwd(value, rows0, rows1, w0, w1, grad_out):
+    """The yardstick of the backward kernels: the autograd backward of that
+    call, the gradients of the table (grad_value) and of the weights (the
+    per-tap dot products), its graph kept between calls."""
+    from gvl_tpu_torch.ops.ms_deform_attn import embedding_bag_inputs
+    table, idx, w = embedding_bag_inputs(value, rows0, rows1, w0, w1)
+    table, w = table.detach().requires_grad_(), w.detach().requires_grad_()
+    out = F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
+    go = grad_out.reshape(out.shape)
+    return lambda: torch.autograd.grad(out, (table, w), go, retain_graph=True)
+
+
+def phase_kernel_vs_plain(dev, old) -> dict:
+    from gvl_tpu_torch.ops import (ms_deform_attn_1d_cuda,
+                                   ms_deform_attn_1d_ref, prep_taps)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
+    for tag, shapes, (value, loc, attn) in dense_cases(gen, dev, False):
+        worst = max(worst, check_forward(
+            f"kernel {tag}", ms_deform_attn_1d_cuda(value, shapes, loc, attn),
+            ms_deform_attn_1d_ref(value, shapes, loc, attn)))
     times = {}
     for label, (shapes, B, _, Lq) in DENSE_CASES.items():
-        for kind in ("normal", "wild", "border"):
-            value, loc, attn = msda_inputs(kind, shapes, B, Lq, gen, dev)
-            worst = max(worst, check_forward(
-                f"kernel {label} B={B} Lq={Lq} {kind}",
-                ms_deform_attn_1d_cuda(value, shapes, loc, attn),
-                ms_deform_attn_1d_ref(value, shapes, loc, attn)))
         value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
+        want = ms_deform_attn_1d_ref(value, shapes, loc, attn)
+
         def kernel():
             return ms_deform_attn_1d_cuda(value, shapes, loc, attn)
-        k_ms, c_ms = device_median_ms(kernel, 50), cuda_median_ms(kernel, 50)
-        p_ms = device_median_ms(
-            lambda: ms_deform_attn_1d_ref(value, shapes, loc, attn), 50)
-        times[label] = (k_ms, p_ms, c_ms)
+        library = library_fwd(value, *prep_taps(shapes, loc, attn))
+        lib_err = (library().view(want.shape) - want).abs().max().item()
+        tm = dict(ms=device_median_ms(kernel, 50),
+                  call_ms=cuda_median_ms(kernel, 50),
+                  plain_ms=device_median_ms(lambda: ms_deform_attn_1d_ref(
+                      value, shapes, loc, attn), 50),
+                  library_ms=device_median_ms(library, 50), old_ms=None)
+        msg = ""
+        if old is not None:
+            old_err = (old.fwd(value, shapes, loc, attn) - want).abs().max()
+            tm["old_ms"] = device_median_ms(
+                lambda: old.fwd(value, shapes, loc, attn), 50)
+            msg = (f", the old form {tm['old_ms']!r} ms (max abs err "
+                   f"{old_err.item()!r})")
+        times[label] = tm
         log("kernel", f"{label} B={B} S={sum(shapes)} Lq={Lq} H={H} "
-                      f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms on "
-                      f"the device ({c_ms!r} ms per call from an idle "
-                      f"device, the host's share included), plain {p_ms!r} "
-                      f"ms (medians of 50)")
+                      f"Dh={DH} K={len(shapes) * P}: kernel {tm['ms']!r} ms "
+                      f"on the device ({tm['call_ms']!r} ms per call from an "
+                      f"idle device, the host's share included), plain "
+                      f"{tm['plain_ms']!r} ms, embedding_bag "
+                      f"{tm['library_ms']!r} ms (max abs err {lib_err!r})"
+                      f"{msg} (medians of 50)")
     return dict(max_abs_err=worst, times=times)
 
 
 # ---------------------------------------------------------------- phase 8
-def phase_bwd_kernel_vs_plain(dev) -> dict:
+def phase_bwd_kernel_vs_plain(dev, old) -> dict:
     """The backward kernel against its plain version, same inputs."""
     from gvl_tpu_torch.ops import (ms_deform_attn_1d_bwd_cuda,
-                                   ms_deform_attn_1d_bwd_ref)
+                                   ms_deform_attn_1d_bwd_ref, prep_taps)
+    from gvl_tpu_torch.ops.ms_deform_attn import bwd_plan
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     worst = 0.0
+    for tag, shapes, (value, loc, attn) in dense_cases(gen, dev, True):
+        B, Lq = loc.shape[:2]
+        grad_out = torch.randn(B, Lq, value.shape[2] * value.shape[3],
+                               generator=gen, device=dev)
+        got = ms_deform_attn_1d_bwd_cuda(grad_out, value, shapes, loc, attn)
+        want = ms_deform_attn_1d_bwd_ref(grad_out, value, shapes, loc, attn)
+        worst = max(worst, check_backward(f"bwd {tag}", got, want))
+        no_value = ms_deform_attn_1d_bwd_cuda(
+            grad_out, value, shapes, loc, attn, need_value=False)
+        check(no_value[0] is None and torch.equal(no_value[1], got[1])
+              and torch.equal(no_value[2], got[2]),
+              "backward kernel without grad_value")
+        # grad_value the same, bit for bit, in every run
+        check(all(torch.equal(ms_deform_attn_1d_bwd_cuda(
+            grad_out, value, shapes, loc, attn)[0], got[0])
+            for _ in range(N_REPEATS)),
+            f"grad_value differs between runs at {tag}")
+        plan = bwd_plan(B, sum(shapes), value.shape[2], value.shape[3], Lq,
+                        loc.shape[3] * loc.shape[4])
+        log("bwd", f"{tag}: {plan}; grad_value bit-identical over "
+                   f"{N_REPEATS} repeats")
     times = {}
     for label, (shapes, _, B, Lq) in DENSE_CASES.items():
         if B is None:
             continue
-        for kind in ("normal", "wild", "border"):
-            value, loc, attn = msda_inputs(kind, shapes, B, Lq, gen, dev)
-            grad_out = torch.randn(B, Lq, H * DH, generator=gen, device=dev)
-            got = ms_deform_attn_1d_bwd_cuda(grad_out, value, shapes, loc, attn)
-            want = ms_deform_attn_1d_bwd_ref(grad_out, value, shapes, loc, attn)
-            worst = max(worst, check_backward(
-                f"bwd {label} B={B} Lq={Lq} {kind}", got, want))
-            no_value = ms_deform_attn_1d_bwd_cuda(
-                grad_out, value, shapes, loc, attn, need_value=False)
-            check(no_value[0] is None and torch.equal(no_value[1], got[1])
-                  and torch.equal(no_value[2], got[2]),
-                  "backward kernel without grad_value")
         value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
         grad_out = torch.randn(B, Lq, H * DH, generator=gen, device=dev)
-        def kernel():
+        want = ms_deform_attn_1d_bwd_ref(grad_out, value, shapes, loc, attn)
+
+        def kernel(need_value=True):
             return ms_deform_attn_1d_bwd_cuda(grad_out, value, shapes, loc,
-                                              attn)
-        k_ms, c_ms = device_median_ms(kernel, 50), cuda_median_ms(kernel, 50)
-        p_ms = device_median_ms(lambda: ms_deform_attn_1d_bwd_ref(
-            grad_out, value, shapes, loc, attn), 50)
-        times[label] = (k_ms, p_ms, c_ms)
+                                              attn, need_value=need_value)
+        library = library_bwd(value, *prep_taps(shapes, loc, attn), grad_out)
+        lib_err = (library()[0].view(value.shape) - want[0]).abs().max()
+        tm = dict(ms=device_median_ms(kernel, 50),
+                  call_ms=cuda_median_ms(kernel, 50),
+                  no_value_ms=device_median_ms(lambda: kernel(False), 50),
+                  zeros_ms=device_median_ms(
+                      lambda: torch.zeros_like(value), 50),
+                  plain_ms=device_median_ms(lambda: ms_deform_attn_1d_bwd_ref(
+                      grad_out, value, shapes, loc, attn), 50),
+                  library_ms=device_median_ms(library, 50), old_ms=None,
+                  split_ms=kernel_split_ms(kernel))
+        msg = ""
+        if old is not None:
+            old_err = (old.bwd(grad_out, value, shapes, loc, attn)[0]
+                       - want[0]).abs().max()
+            tm["old_ms"] = device_median_ms(
+                lambda: old.bwd(grad_out, value, shapes, loc, attn), 50)
+            msg = (f", the old form {tm['old_ms']!r} ms (grad_value max abs "
+                   f"err {old_err.item()!r})")
+        times[label] = tm
         log("bwd", f"{label} B={B} S={sum(shapes)} Lq={Lq} H={H} "
-                   f"Dh={DH} K={len(shapes) * P}: kernel {k_ms!r} ms on the "
-                   f"device, zeroing grad_value included ({c_ms!r} ms per "
-                   f"call from an idle device, the host's share included), "
-                   f"plain {p_ms!r} ms (medians of 50)")
+                   f"Dh={DH} K={len(shapes) * P}: kernel {tm['ms']!r} ms on "
+                   f"the device ({tm['call_ms']!r} ms per call from an idle "
+                   f"device, the host's share included; "
+                   f"{tm['no_value_ms']!r} ms without grad_value; "
+                   f"zeros_like(value) alone {tm['zeros_ms']!r} ms), plain "
+                   f"{tm['plain_ms']!r} ms, embedding_bag's backward "
+                   f"{tm['library_ms']!r} ms (grad_value max abs err "
+                   f"{lib_err.item()!r}){msg} (medians of 50); by "
+                   f"torch.profiler, ms a call: {tm['split_ms']!r}")
     return dict(max_abs_err=worst, times=times)
 
 
@@ -452,9 +649,7 @@ def phase_bwd_kernel_vs_plain(dev) -> dict:
 BANDED_KINDS = {"local": False, "wide": True, "border": True, "pile": True,
                 "top": False}
 FULL_MARGIN = max(LONG.shapes)       # every band is its whole padded level
-# the tiny long-video model of the CPU tests: 300 frames, three levels, none
-# a multiple of 128 and two not of 8; K = 12 taps does not divide a block
-TINY_SHAPES = (300, 150, 75)
+# TINY_SHAPES: K = 12 taps does not divide a block
 # (level lengths, batch, heads, head width): the long-video encoder, then
 # short tiles and short levels, then rows of half and of twice the width
 BANDED_GEOMETRIES = ((LONG.shapes, None, H, DH), (TINY_SHAPES, 2, H, DH),
@@ -522,7 +717,8 @@ def phase_banded_kernel_vs_plain(dev) -> dict:
     from gvl_tpu_torch.ops import (ms_deform_attn_1d_banded_cuda,
                                    ms_deform_attn_1d_banded_ref,
                                    ms_deform_attn_1d_cuda,
-                                   ms_deform_attn_1d_ref)
+                                   ms_deform_attn_1d_ref, prep_taps)
+    from gvl_tpu_torch.ops.ms_deform_attn_banded import banded_rows
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     shapes = LONG.shapes
     worst = 0.0
@@ -551,27 +747,34 @@ def phase_banded_kernel_vs_plain(dev) -> dict:
         def kernel():
             return ms_deform_attn_1d_banded_cuda(value, shapes, loc, attn,
                                                  LV_MARGIN)
+        g0, g1, w0, w1 = prep_taps(shapes, loc, attn)
+        library = library_fwd(
+            value, *banded_rows(shapes, g0, g1, LV_MARGIN), w0, w1)
         times[b] = dict(
             ms=device_median_ms(kernel, 50), call_ms=cuda_median_ms(kernel, 50),
             plain_ms=device_median_ms(lambda: ms_deform_attn_1d_banded_ref(
                 value, shapes, loc, attn, LV_MARGIN), 20),
             dense_kernel_ms=device_median_ms(lambda: ms_deform_attn_1d_cuda(
-                value, shapes, loc, attn), 50))
+                value, shapes, loc, attn), 50),
+            library_ms=device_median_ms(library, 50))
         log("banded", f"B={b} S=Lq={sum(shapes)} H={H} Dh={DH} "
                       f"K={len(shapes) * P} margin={LV_MARGIN}, local taps: "
                       f"kernel {times[b]['ms']!r} ms on the device "
                       f"({times[b]['call_ms']!r} ms per call from an idle "
                       f"device, the host's share included), plain "
                       f"{times[b]['plain_ms']!r} ms, the dense kernel on the "
-                      f"same inputs {times[b]['dense_kernel_ms']!r} ms "
-                      f"(medians of 50 / 50 / 20 / 50)")
+                      f"same inputs {times[b]['dense_kernel_ms']!r} ms, "
+                      f"embedding_bag on the band-clamped taps "
+                      f"{times[b]['library_ms']!r} ms (medians of 50 / 50 / "
+                      f"20 / 50 / 50)")
     return dict(max_abs_err=worst, times=times)
 
 
 def phase_banded_bwd_kernel_vs_plain(dev) -> dict:
     from gvl_tpu_torch.ops import (ms_deform_attn_1d_banded_bwd_cuda,
                                    ms_deform_attn_1d_banded_bwd_ref,
-                                   ms_deform_attn_1d_bwd_cuda)
+                                   ms_deform_attn_1d_bwd_cuda, prep_taps)
+    from gvl_tpu_torch.ops.ms_deform_attn_banded import banded_rows
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     shapes = LONG.shapes
     worst = 0.0
@@ -600,13 +803,17 @@ def phase_banded_bwd_kernel_vs_plain(dev) -> dict:
             return ms_deform_attn_1d_banded_bwd_cuda(
                 grad_out, value, shapes, loc, attn, LV_MARGIN,
                 need_value=need_value)
+        g0, g1, w0, w1 = prep_taps(shapes, loc, attn)
+        library = library_bwd(
+            value, *banded_rows(shapes, g0, g1, LV_MARGIN), w0, w1, grad_out)
         times[b] = dict(
             ms=device_median_ms(kernel, 50), call_ms=cuda_median_ms(kernel, 50),
             no_value_ms=device_median_ms(lambda: kernel(False), 50),
             plain_ms=device_median_ms(lambda: ms_deform_attn_1d_banded_bwd_ref(
                 grad_out, value, shapes, loc, attn, LV_MARGIN), 20),
             dense_kernel_ms=device_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
-                grad_out, value, shapes, loc, attn), 50))
+                grad_out, value, shapes, loc, attn), 50),
+            library_ms=device_median_ms(library, 50))
         log("bbwd", f"B={b} S=Lq={sum(shapes)} H={H} Dh={DH} "
                     f"K={len(shapes) * P} margin={LV_MARGIN}, local taps: "
                     f"kernel {times[b]['ms']!r} ms on the device, zeroing "
@@ -615,8 +822,10 @@ def phase_banded_bwd_kernel_vs_plain(dev) -> dict:
                     f"{times[b]['no_value_ms']!r} ms without grad_value), "
                     f"plain {times[b]['plain_ms']!r} ms, the dense backward "
                     f"kernel on the same inputs "
-                    f"{times[b]['dense_kernel_ms']!r} ms (medians of 50 / 50 "
-                    f"/ 50 / 20 / 50)")
+                    f"{times[b]['dense_kernel_ms']!r} ms, embedding_bag's "
+                    f"backward on the band-clamped taps "
+                    f"{times[b]['library_ms']!r} ms (medians of 50 / 50 / 50 "
+                    f"/ 20 / 50 / 50)")
     return dict(max_abs_err=worst, times=times)
 
 
@@ -1098,19 +1307,27 @@ def phase_train_profile(w: Workload, state, step, weights, batches,
                       out_dir / f"{w.name}_train_step_ops.txt")
 
 
-def msda_bound(B: int, S: int, Lq: int, backward: bool) -> dict:
-    """The least time the card could take for one call at these sizes with
-    H, Dh and K=16: each input read once and each output written once at the
-    memory rate, against 2 FMAs per tap and channel (forward) or 4 (backward:
-    two dot products, two scatter-adds) at the f32 rate. The banded kernels
-    move the same bytes and do the same FMAs as the dense ones at Lq == S."""
+# work -> (floats moved as multiples of value, out and the taps; FMAs per
+# tap and channel). fwd: value, loc, attn in, out out. bwd: value, grad_out,
+# loc, attn in, grad_value, grad_loc, grad_attn out; two dot products and
+# two scatter-adds. Its value kernel: grad_out, loc, attn in, grad_value out,
+# the scatter-adds; its dot kernel: value, grad_out, loc, attn in, grad_loc,
+# grad_attn out, the dot products.
+BOUND_WORK = {"fwd": ((1, 1, 2), 2), "bwd": ((2, 1, 4), 4),
+              "bwd_value": ((1, 1, 2), 2), "bwd_dot": ((1, 1, 4), 2)}
+
+
+def msda_bound(B: int, S: int, Lq: int, work: str) -> dict:
+    """The least time the card could take for one call (or one of the
+    backward's two CUDA kernels, BOUND_WORK) at these sizes with H, Dh and
+    K=16: each input read once and each output written once at the memory
+    rate, against the FMAs at the f32 rate. The banded kernels move the same
+    bytes and do the same FMAs as the dense ones at Lq == S."""
+    (n_value, n_out, n_taps), fmas = BOUND_WORK[work]
     K = 4 * P
     value, out, taps = B * S * H * DH, B * Lq * H * DH, B * Lq * H * K
-    floats = value + out + 2 * taps       # value, loc, attn in; out out
-    if backward:
-        # value, grad_out, loc, attn in; grad_value, grad_loc, grad_attn out
-        floats = 2 * value + out + 4 * taps
-    flops = taps * DH * (8 if backward else 4)
+    floats = n_value * value + n_out * out + n_taps * taps
+    flops = 2 * fmas * taps * DH
     t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
     t_flops = flops / F32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_flops),
@@ -1118,33 +1335,52 @@ def msda_bound(B: int, S: int, Lq: int, backward: bool) -> dict:
                 bytes=4 * floats, flops=flops)
 
 
+def split_row(B: int, S: int, Lq: int, split_ms: dict) -> dict:
+    """The backward's two CUDA kernels, value and dot, each with its time
+    by torch.profiler (split_ms: kernel name -> ms) and its own bound."""
+    out = {}
+    for part in ("value", "dot"):
+        bd = msda_bound(B, S, Lq, f"bwd_{part}")
+        ms = [v for k, v in split_ms.items() if f"_{part}_kernel" in k]
+        out[part] = dict(ms=ms[0] if len(ms) == 1 else None,
+                         bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+    return out
+
+
 def dense_row(name, source, replaces, launches, kv, backward) -> dict:
     """A dense kernel's entry of the kernels line: the required keys at the
-    flagship encoder shape, its other shapes beside them. library_ms is
-    null: no single PyTorch call computes either function (F.grid_sample
-    would take one call per level and a weighted sum after them)."""
+    flagship encoder shape, its other shapes beside them, each with the
+    library call's time (embedding_bag, forward or backward) and, with
+    --old-forms, the earlier commit's kernel's (old_ms); the backward's with
+    each of its two CUDA kernels' time and bound (split)."""
     by_shape = {}
     for label, (shapes, fwd_B, bwd_B, Lq) in DENSE_CASES.items():
         B = bwd_B if backward else fwd_B
         if B is None:
             continue
-        bd = msda_bound(B, sum(shapes), Lq, backward)
-        k_ms, p_ms, c_ms = kv["times"][label]
-        by_shape[label] = {"B": B, "S": sum(shapes), "Lq": Lq, "ms": k_ms,
-                           "plain_ms": p_ms, "call_ms": c_ms,
-                           "bound_ms": bd["bound_ms"],
-                           "bound_by": bd["bound_by"], "bytes": bd["bytes"],
-                           "flops": bd["flops"]}
+        bd = msda_bound(B, sum(shapes), Lq, "bwd" if backward else "fwd")
+        tm = kv["times"][label]
+        by_shape[label] = dict(tm, B=B, S=sum(shapes), Lq=Lq,
+                               bound_ms=bd["bound_ms"],
+                               bound_by=bd["bound_by"], bytes=bd["bytes"],
+                               flops=bd["flops"])
+        if backward:
+            by_shape[label]["split"] = split_row(B, sum(shapes), Lq,
+                                                 tm["split_ms"])
+            log("bound", f"{name} {label} by CUDA kernel: "
+                         f"{by_shape[label]['split']!r}")
         log("bound", f"{name} {label}: {bd['bytes']} bytes, {bd['flops']} "
                      f"flop -> {bd['bound_ms']!r} ms, bound by "
-                     f"{bd['bound_by']}; kernel {k_ms!r} ms")
+                     f"{bd['bound_by']}; kernel {tm['ms']!r} ms, "
+                     f"embedding_bag {tm['library_ms']!r} ms, old form "
+                     f"{tm['old_ms']!r} ms")
     enc = by_shape["encoder"]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches.values()), "max_abs_err": kv["max_abs_err"],
         "ms": enc["ms"], "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
-        "library_ms": None,
+        "library_ms": enc["library_ms"], "old_ms": enc["old_ms"],
         "shape": "flagship encoder B=16 S=188 Lq=188 H=8 Dh=64 K=16",
         "launches_by_path": launches, "by_shape": by_shape}
 
@@ -1152,12 +1388,12 @@ def dense_row(name, source, replaces, launches, kv, backward) -> dict:
 def banded_row(name, source, replaces, launches, kv, backward) -> dict:
     """A banded kernel's entry: the required keys at the shape its main path
     gives it (forward: the eval step's B=8; backward: the train step's B=4),
-    the other batch beside them. library_ms is null, as for the dense
-    kernels."""
+    the other batch beside them; library_ms is embedding_bag's on the
+    band-clamped taps."""
     S = sum(LONG.shapes)
     by_batch = {}
     for b, tm in kv["times"].items():
-        bd = msda_bound(b, S, S, backward)
+        bd = msda_bound(b, S, S, "bwd" if backward else "fwd")
         by_batch[b] = dict(tm, bound_ms=bd["bound_ms"],
                            bound_by=bd["bound_by"], bytes=bd["bytes"],
                            flops=bd["flops"])
@@ -1171,7 +1407,7 @@ def banded_row(name, source, replaces, launches, kv, backward) -> dict:
         "launches": sum(launches.values()), "max_abs_err": kv["max_abs_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": None,
+        "library_ms": main["library_ms"],
         "shape": f"long-video encoder B={B} S={S} Lq={S} H=8 Dh=64 K=16 "
                  f"margin={LV_MARGIN}",
         "dense_kernel_ms": main["dense_kernel_ms"],
@@ -1187,13 +1423,18 @@ def main() -> None:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3, 8, 12, "
                          "13); prints no result line")
+    ap.add_argument("--old-forms", type=pathlib.Path, metavar="DIR",
+                    help="also time the dense kernels of an earlier commit, "
+                         "whose gvl_tpu_torch package DIR holds (phases 3, "
+                         "8)")
     args = ap.parse_args()
     name = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
-    kv = {"fwd": phase_kernel_vs_plain(dev),
-          "bwd": phase_bwd_kernel_vs_plain(dev),
+    old = OldDense(args.old_forms) if args.old_forms else None
+    kv = {"fwd": phase_kernel_vs_plain(dev, old),
+          "bwd": phase_bwd_kernel_vs_plain(dev, old),
           "banded_fwd": phase_banded_kernel_vs_plain(dev),
           "banded_bwd": phase_banded_bwd_kernel_vs_plain(dev)}
     if args.kernels_only:

@@ -1,6 +1,6 @@
-// What the banded forward and backward kernels share: the tiling of the
-// queries, the band table, the tap of a (query, level, point), the band
-// start of a tile, and the layout of a value row over the lanes of a warp.
+// What the banded forward and backward kernels share beyond
+// ms_deform_attn_common.cuh: the tiling of the queries, the band table, the
+// band start of a tile and the clamp of a tap's rows to it.
 //
 // Queries are tokens (one per value row). The queries of each level are cut
 // into tiles of kTileQ consecutive queries from the level's start; the
@@ -12,27 +12,19 @@
 // level with zero rows to Tp; no tap is read from them (s <= every i0 of the
 // tile, so the clamp only lowers a row, and a tap row is at most T_l - 1),
 // so Tp enters only through BS and the upper limit of s.
-//
-// A value row of one head is Dh contiguous floats. Half a warp covers 64 of
-// them in one 16-byte access per lane, so one warp instruction reaches both
-// rows of a tap: lanes 0-15 the lower row, lanes 16-31 the upper one. Dh up
-// to 128 takes two such accesses (kMaxVec), Dh must be a multiple of 4.
 
 #pragma once
 
 #include <climits>
-#include <cuda_runtime.h>
+
+#include "ms_deform_attn_common.cuh"
 
 namespace msda_banded {
 
-constexpr int kMaxLevels = 8;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+using namespace msda;
+
 constexpr int kTileQ = 128;  // queries per tile: part of the function, as is
                              // the rounding of the band start to 8 rows
-constexpr int kMaxVec = 2;   // 16-byte accesses per lane and row: Dh <= 128
-constexpr long long kSharedOptIn = 48 * 1024;    // dynamic, without opting in
-constexpr long long kSharedLimit = 232448;       // a block's most on sm_90
 
 struct Geometry {
   int T[kMaxLevels];                  // level lengths
@@ -101,13 +93,9 @@ inline cudaError_t plan_launch(const Geometry& gm, int B, int H, int L,
                                long long shared, long long needed,
                                KernelT kernel, int* blocks) {
   const long long n = static_cast<long long>(B) * H * gm.tile0[L];
-  if (n > INT_MAX || shared < needed || shared > kSharedLimit)
-    return cudaErrorInvalidValue;
+  if (n > INT_MAX || shared < needed) return cudaErrorInvalidValue;
   *blocks = static_cast<int>(n);
-  if (shared <= kSharedOptIn) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(shared));
+  return allow_shared(kernel, shared);
 }
 
 // The tile of a block. Blocks are handed out in the order of blockIdx.x, so
@@ -126,46 +114,6 @@ __device__ inline Tile tile_of_block(const Geometry& gm, int L, int H) {
   t.q_first = gm.start[t.lq] + (tile - gm.tile0[t.lq]) * kTileQ;
   t.nq = min(kTileQ, gm.start[t.lq] + gm.T[t.lq] - t.q_first);
   return t;
-}
-
-struct Tap {
-  float x_raw;  // loc * T - 0.5, before the tap clamp
-  float f;      // weight of the upper row
-  int i0;       // lower row, level-local
-};
-
-// The tap of a sampling location into a level of T rows, as in
-// ms_deform_attn_fwd.cu. __fmul_rn/__fsub_rn keep nvcc from contracting into
-// an FMA, so the tap position, and with it the band start, rounds exactly as
-// the plain version's does.
-__device__ inline Tap tap_at(float loc, float Tf) {
-  Tap t;
-  t.x_raw = __fsub_rn(__fmul_rn(loc, Tf), 0.5f);
-  const float x = fminf(fmaxf(t.x_raw, 0.f), Tf - 1.f);
-  const float fl = floorf(x);
-  t.f = x - fl;
-  t.i0 = static_cast<int>(fl);
-  return t;
-}
-
-// Which taps of the tile a thread prepares in phase A: point k of the
-// queries q0, q0 + q_step, ... The first (kThreads / K) * K threads are
-// live; consecutive threads hold consecutive (q, k), so their loads of loc
-// and attn are contiguous.
-struct TapOwner {
-  bool live;
-  int k, l;         // (level, point) index and its level
-  int q0, q_step;
-};
-
-__device__ inline TapOwner tap_owner(int K, int P) {
-  TapOwner o;
-  o.q_step = kThreads / K;
-  o.k = threadIdx.x % K;
-  o.l = o.k / P;
-  o.q0 = threadIdx.x / K;
-  o.live = o.q0 < o.q_step;
-  return o;
 }
 
 // Lowers s_band[l] to i0. Every lane of the warp calls it together; a lane
@@ -211,17 +159,6 @@ __device__ inline void clamp_rows_to_band(int2* s_row, const int* s_band,
         make_int2((first + min(max(i0, s), hi)) * scale,
                   (first + min(max(min(i0 + 1, T - 1), s), hi)) * scale);
   }
-}
-
-__device__ inline float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ inline void fma4(float4& acc, float w, float4 v) {
-  acc.x += w * v.x;
-  acc.y += w * v.y;
-  acc.z += w * v.z;
-  acc.w += w * v.w;
 }
 
 }  // namespace msda_banded

@@ -69,58 +69,11 @@ using namespace msda_banded;
 
 namespace {
 
-// Sums part[t] over the 16 lanes of each half warp, for the 16 values of t
-// together: afterwards lane i of a half holds the sum of part[i]. Step by
-// step a lane hands the half of its values that its partner keeps to the
-// partner and adds what it gets to the half it keeps.
-__device__ inline float reduce16(float (&part)[16], int lane) {
-#pragma unroll
-  for (int width = 8; width >= 1; width /= 2) {
-    const bool upper = lane & width;
-#pragma unroll
-    for (int t = 0; t < width; ++t) {
-      const float send = upper ? part[t] : part[t + width];
-      const float keep = upper ? part[t + width] : part[t];
-      part[t] = keep + __shfl_xor_sync(0xffffffffu, send, width);
-    }
-  }
-  return part[0];
-}
-
 // One tap row's share of grad_value: w * dOut[q] goes to the row.
 struct Hit {
   int q;      // query of the tile
   float w;    // attn * (1 - f) or attn * f
 };
-
-// Exclusive prefix sum of s_n[0 .. n) in place, by the whole block; s_warp
-// holds kWarps ints. Each thread sums a run of consecutive elements, the
-// runs' totals are scanned by shuffles within a warp and through s_warp
-// across warps. Every thread calls it; it synchronises before it returns.
-__device__ inline void block_exclusive_scan(int* s_n, int n, int* s_warp) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int per = (n + kThreads - 1) / kThreads;
-  const int lo = min(n, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(n, lo + per);
-  int total = 0;
-  for (int i = lo; i < hi; ++i) total += s_n[i];
-  int incl = total;
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int up = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  int run = incl - total;
-  for (int w = 0; w < warp; ++w) run += s_warp[w];
-  for (int i = lo; i < hi; ++i) {
-    const int c = s_n[i];
-    s_n[i] = run;
-    run += c;
-  }
-  __syncthreads();
-}
 
 template <int NV>
 __global__ void __launch_bounds__(kThreads)

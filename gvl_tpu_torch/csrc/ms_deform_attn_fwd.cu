@@ -11,97 +11,146 @@
 //   i0  = floor(x), f = x - i0, i1 = min(i0 + 1, T_l - 1)
 //   out = sum_{l,p} attn * ((1 - f) * V[start_l + i0] + f * V[start_l + i1])
 //
-// What bounds it: memory and launches, not FLOPs. At the flagship encoder
-// shape (B=16, S=Lq=188, H=8, Dh=64, L=P=4) one call reads ~6 MB of value
-// rows and ~3 MB of loc/attn and does ~50 MFLOP.
+// What bounds it: instructions per gathered row, not the bytes. At the
+// flagship encoder shape (B=16, S=Lq=188, H=8, Dh=64, L=P=4) one call reads
+// 6.2 MB of value and 3.1 MB of loc/attn and writes 6.2 MB, but it gathers
+// 770 K rows of 256 B (197 MB) from L1/L2. The first form of this kernel
+// (one lane per channel; every lane computed all 16 taps once per channel it
+// held, with a 64-bit address and a 4-byte load per row; run-time L and P,
+// so the tap loop was not unrolled) was bound by its instruction count, as
+// the banded forward's first form was.
 //
-// Design: one warp per (b, q, h); lanes walk the Dh channels, so each tap row
-// is one coalesced read of Dh floats. Every lane computes the tap scalars
-// itself (loc/attn reads are warp-broadcast). No shared memory, no tensor
-// cores, no atomics: each output element is written once.
+// Design: one warp per (b, q, h), no shared memory and no barrier. Lanes i
+// and i + 16 load loc and attn of tap i (16 contiguous floats, one access)
+// and prepare the tap once; the lower half keeps the lower row's offset and
+// weight, the upper half the upper row's. Then, tap by tap, two shuffles
+// hand a row and its weight to each half and half a warp reads the row in
+// 16-byte loads (ms_deform_attn_common.cuh), so one instruction fetches both
+// rows of a tap. With K = 16, the case of every model, the tap loop is
+// unrolled at compile time so that the row loads are in flight before they
+// are summed; other K run in chunks of 16 taps. The halves' sums meet in one
+// shuffle, and the lower half stores the output row in 16-byte stores. The
+// taps are summed in another order than the plain version's (lower rows and
+// upper rows apart); the results agree to a few ulp. No atomics: each output
+// element is written once.
 //
-// Layouts (all contiguous f32): value (B, S, H, Dh); loc, attn
-// (B, Lq, H, L, P); out (B, Lq, H * Dh).
+// Layouts (all contiguous f32, value and out 16-byte aligned): value
+// (B, S, H, Dh); loc, attn (B, Lq, H, L, P); out (B, Lq, H * Dh). Dh is a
+// multiple of 4, at most 128.
 
-#include <cuda_runtime.h>
+#include <climits>
+
+#include "ms_deform_attn_common.cuh"
+
+using namespace msda;
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kFwdWarps = 8;   // (b, q, h) per block
 
-struct Levels {
-  int T[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__global__ void msda_fwd_kernel(const float* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const float* __restrict__ attn,
-                                float* __restrict__ out, int B, int S, int H,
-                                int Dh, int Lq, int L, int P, Levels lv) {
-  const int warp = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+// kK16: K = L * P = 16, known at compile time.
+template <int NV, bool kK16>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+msda_fwd_kernel(const float* __restrict__ value,
+                const float* __restrict__ loc,
+                const float* __restrict__ attn, float* __restrict__ out,
+                int B, int S, int H, int Dh, int Lq, int L, int P,
+                Levels lv) {
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kFwdWarps + threadIdx.x / 32;
+  if (warp >= static_cast<long long>(B) * Lq * H) return;  // whole warps
   const int lane = threadIdx.x % 32;
-  if (warp >= B * Lq * H) return;
-  const int h = warp % H;
-  const int b = warp / (Lq * H);
+  const int h = static_cast<int>(warp % H);
+  const int b = static_cast<int>(warp / (static_cast<long long>(Lq) * H));
+  const int K = kK16 ? 16 : L * P;
+  const RowLane me = row_lane();
+  const int row = H * Dh;  // stride of a value row
+  const float* v_bh =
+      value + static_cast<long long>(b) * S * row + h * Dh + me.c0;
+  const float* loc_q = loc + warp * K;
+  const float* attn_q = attn + warp * K;
 
-  const long long tap_base = static_cast<long long>(warp) * L * P;
-  const float* v_b = value + static_cast<long long>(b) * S * H * Dh +
-                     static_cast<long long>(h) * Dh;
-  const long long row = static_cast<long long>(H) * Dh;  // stride of one s
-  float* o = out + static_cast<long long>(warp) * Dh;
-
-  for (int c = lane; c < Dh; c += 32) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int T = lv.T[l];
-      const float Tf = static_cast<float>(T);
-      for (int p = 0; p < P; ++p) {
-        const long long k = tap_base + l * P + p;
-        // __fmul_rn/__fsub_rn keep nvcc from contracting into an FMA, so the
-        // tap position rounds exactly as the plain version's does
-        float x = __fsub_rn(__fmul_rn(loc[k], Tf), 0.5f);
-        x = fminf(fmaxf(x, 0.f), Tf - 1.f);
-        const float fl = floorf(x);
-        const float f = x - fl;
-        const int i0 = static_cast<int>(fl);
-        const int i1 = min(i0 + 1, T - 1);
-        const float a = attn[k];
-        const float w0 = a * (1.f - f);
-        const float w1 = a * f;
-        const float v0 = v_b[(lv.start[l] + i0) * row + c];
-        const float v1 = v_b[(lv.start[l] + i1) * row + c];
-        acc += w0 * v0 + w1 * v1;
+  float4 acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    // lane i and lane i + 16 prepare tap k0 + i: the lower half its lower
+    // row, the upper half its upper row, each as an offset and a weight
+    const int k = k0 + lane % 16;
+    int off = 0;
+    float w = 0.f;
+    if (kK16 || k < K) {
+      const int l = k / P;
+      const int T = pick(lv.T, l);
+      const Tap t = tap_at(__ldg(loc_q + k), static_cast<float>(T));
+      const float a = __ldg(attn_q + k);
+      off = (pick(lv.start, l) + (me.half ? min(t.i0 + 1, T - 1) : t.i0)) *
+            row;
+      w = me.half ? a * t.f : a * (1.f - t.f);
+    }
+    const int n = kK16 ? 16 : min(16, K - k0);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (kK16 || i < n) {
+        const int src = (lane & 16) | i;
+        const int o = __shfl_sync(kFull, off, src);
+        const float wi = __shfl_sync(kFull, w, src);
+        float4 r[NV];
+        load_row<NV>(r, v_bh + o, me.c0, Dh);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) fma4(acc[v], wi, r[v]);
       }
     }
-    o[c] = acc;
   }
+  float* o = out + warp * Dh + me.c0;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    add_halves(acc[v]);
+    if (me.half == 0 && me.c0 + 64 * v < Dh)
+      *reinterpret_cast<float4*>(o + 64 * v) = acc[v];
+  }
+}
+
+template <int NV, bool kK16>
+cudaError_t launch(const float* value, const float* loc, const float* attn,
+                   float* out, int B, int S, int H, int Dh, int Lq, int L,
+                   int P, const Levels& lv, cudaStream_t stream) {
+  const long long warps = static_cast<long long>(B) * Lq * H;
+  const long long blocks = (warps + kFwdWarps - 1) / kFwdWarps;
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  msda_fwd_kernel<NV, kK16><<<static_cast<int>(blocks), kFwdWarps * 32, 0,
+                              stream>>>(value, loc, attn, out, B, S, H, Dh,
+                                        Lq, L, P, lv);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. `level_T` is a host array of L level lengths.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches on `stream` and returns the CUDA error of the launch (0 =
+// launched); refuses sizes the kernel does not take.
 extern "C" int msda_fwd_f32(const float* value, const float* loc,
                             const float* attn, float* out, int B, int S,
                             int H, int Dh, int Lq, int L, int P,
                             const int* level_T, void* stream) {
-  if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  if (P < 1 || Dh < 4 || Dh % 4 != 0 || Dh > 64 * kMaxVec ||
+      static_cast<long long>(S) * H * Dh > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.T[l] = level_T[l];
-    lv.start[l] = start;
-    start += level_T[l];
-  }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = static_cast<long long>(B) * Lq * H;
-  if (warps == 0) return static_cast<int>(cudaSuccess);
-  const int blocks =
-      static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  msda_fwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = make_levels(L, S, level_T, &lv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool k16 = L * P == 16;
+  if (Dh <= 64)
+    err = k16 ? launch<1, true>(value, loc, attn, out, B, S, H, Dh, Lq, L, P,
+                                lv, st)
+              : launch<1, false>(value, loc, attn, out, B, S, H, Dh, Lq, L,
+                                 P, lv, st);
+  else
+    err = k16 ? launch<2, true>(value, loc, attn, out, B, S, H, Dh, Lq, L, P,
+                                lv, st)
+              : launch<2, false>(value, loc, attn, out, B, S, H, Dh, Lq, L,
+                                 P, lv, st);
+  return static_cast<int>(err);
 }

@@ -24,7 +24,8 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = _ROOT / "build" / "kernels"
 SOURCES = ("ms_deform_attn_fwd.cu", "ms_deform_attn_bwd.cu",
            "ms_deform_attn_banded_fwd.cu", "ms_deform_attn_banded_bwd.cu")
-HEADERS = ("ms_deform_attn_banded.cuh",)      # included by the sources
+HEADERS = ("ms_deform_attn_common.cuh",       # included by the sources
+           "ms_deform_attn_banded.cuh")
 # --threads 0: the sources compile side by side, one job per core
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--threads", "0")
@@ -75,7 +76,7 @@ def library() -> ctypes.CDLL:
                                  ctypes.POINTER(ctypes.c_int), p]
     lib.msda_fwd_f32.restype = i
     lib.msda_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                 ctypes.POINTER(ctypes.c_int), p]
+                                 ctypes.POINTER(ctypes.c_int), i, i, i, p]
     lib.msda_bwd_f32.restype = i
     ints = ctypes.POINTER(ctypes.c_int)
     lib.msda_banded_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i,

@@ -17,6 +17,10 @@ in the backward (the port of ::_bwd_kernel_full, with the derivative of the
 tap preparation folded in). On a CPU tensor it runs the plain version
 `ms_deform_attn_1d_ref`, differentiated by autograd.
 `ms_deform_attn_1d_bwd_ref` is the backward kernel's plain version.
+`bwd_plan` is the host side of a backward launch (its blocks and shared
+memory), computed from sizes alone so that it is tested without a card.
+`ms_deform_attn_1d_embedding_bag` computes the forward by one library
+call, the yardstick the kernels are timed against.
 
 Gradient of loc at the clamp: zero where the clamp is active and on its two
 bounds (x = 0 and x = T_l - 1 exactly), in the kernel, in its plain version
@@ -26,7 +30,8 @@ and under autograd of `ms_deform_attn_1d_ref` alike.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -106,6 +111,44 @@ def ms_deform_attn_1d_ref(value: torch.Tensor, temporal_shapes: Sequence[int],
     return weighted_tap_sum(value, *prep_taps(temporal_shapes, loc, attn))
 
 
+def embedding_bag_inputs(value: torch.Tensor, g0: torch.Tensor,
+                         g1: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The arguments of one `F.embedding_bag(idx, table, mode="sum",
+    per_sample_weights=w)` that computes `weighted_tap_sum`: value's rows as
+    the table (B*S*H, Dh), a view; one bag per (b, q, h) of its 2K rows
+    (b*S + g)*H + h, the lower rows first; the lerp-folded weights."""
+    B, S, H, Dh = value.shape
+    Lq = g0.shape[1]
+    dev = value.device
+    first = (torch.arange(B, device=dev) * S)[:, None, None, None, None]
+    head = torch.arange(H, device=dev)[None, None, :, None, None]
+
+    def bags(x):
+        return x.reshape(B * Lq * H, -1)
+
+    idx = torch.cat([bags((first + g) * H + head) for g in (g0, g1)], dim=1)
+    w = torch.cat([bags(w0), bags(w1)], dim=1).to(value.dtype)
+    return value.reshape(B * S * H, Dh), idx, w
+
+
+def ms_deform_attn_1d_embedding_bag(value: torch.Tensor,
+                                    temporal_shapes: Sequence[int],
+                                    loc: torch.Tensor,
+                                    attn: torch.Tensor) -> torch.Tensor:
+    """The dense op as one library call: `prep_taps`, then `F.embedding_bag`
+    over the taps' rows of value, no copy of value. Its autograd backward
+    gives grad_value and the per-tap dot products (the gradient of the
+    weights). The yardstick `chip_smoke.py` times beside the kernels; no
+    main path calls it."""
+    table, idx, w = embedding_bag_inputs(
+        value, *prep_taps(temporal_shapes, loc, attn))
+    out = torch.nn.functional.embedding_bag(idx, table, mode="sum",
+                                            per_sample_weights=w)
+    B, Lq, H = loc.shape[:3]
+    return out.reshape(B, Lq, H * value.shape[3])
+
+
 def ms_deform_attn_1d_sampled_values(value: torch.Tensor,
                                      temporal_shapes: Sequence[int],
                                      loc: torch.Tensor) -> torch.Tensor:
@@ -165,7 +208,67 @@ def ms_deform_attn_1d_bwd_ref(grad_out: torch.Tensor, value: torch.Tensor,
         return tap_grads(grad_out, value, g0, g1, f, x_raw, t, attn)
 
 
+# limits of the CUDA kernels (csrc/ms_deform_attn_common.cuh)
+KERNEL_THREADS = 512          # a block of the banded and value kernels
+KERNEL_WARPS = KERNEL_THREADS // 32
+KERNEL_MAX_DH = 128           # two 16-byte accesses per lane and row
+KERNEL_MAX_TAPS = KERNEL_THREADS   # taps per query: one thread per tap at least
+MAX_SHARED_BYTES = 232448     # the most shared memory a block may take, sm_90
+# The backward's value kernel (csrc/ms_deform_attn_bwd.cu) gives a block
+# a (b, h) and a range of at most BWD_RANGE_ROWS value rows; it sorts the
+# taps of a chunk of queries at a time, in shared memory of 32 bytes per tap
+# and 4 per float of dOut, at most BWD_CHUNK_BYTES, and KERNEL_WARPS + 1
+# counters per row. Its dot kernel takes BWD_DOT_WARPS (b, q, h) a block.
+BWD_RANGE_ROWS = 256
+BWD_CHUNK_BYTES = 160 * 1024
+BWD_DOT_WARPS = 8
+
+
+def check_aligned(**tensors) -> None:
+    """Raises unless each tensor given (None skips) starts on 16 bytes: the
+    kernels read its rows in 16-byte pieces. Reads the data pointer only."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"ms_deform_attn kernel: {name} is not 16-byte "
+                             "aligned; its rows are read in 16-byte pieces")
+
+
 def check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
+    """Raises on what the CUDA kernels do not take: shapes that do not match,
+    sizes past the kernels' limits, rows that do not start on 16 bytes, and
+    tensors that are not contiguous float32 on one CUDA device."""
+    if value.dim() != 4 or loc.dim() != 5 or attn.shape != loc.shape:
+        raise ValueError("ms_deform_attn kernel: want value (B,S,H,Dh) and "
+                         f"loc, attn (B,Lq,H,L,P); got {tuple(value.shape)}, "
+                         f"{tuple(loc.shape)}, {tuple(attn.shape)}")
+    B, S, H, Dh = value.shape
+    if loc.shape[0] != B or loc.shape[2] != H:
+        raise ValueError(f"ms_deform_attn kernel: loc {tuple(loc.shape)} does "
+                         f"not match value {tuple(value.shape)}")
+    L, P = loc.shape[3], loc.shape[4]
+    if L != len(temporal_shapes) or not 1 <= L <= 8:
+        raise ValueError(f"ms_deform_attn kernel: {L} levels in loc, "
+                         f"{len(temporal_shapes)} temporal shapes (1..8 taken)")
+    if sum(int(t) for t in temporal_shapes) != S:
+        raise ValueError(f"ms_deform_attn kernel: shapes {temporal_shapes} do "
+                         f"not sum to S={S}")
+    if Dh < 4 or Dh % 4 or Dh > KERNEL_MAX_DH:
+        raise ValueError(
+            f"ms_deform_attn kernel: head width {Dh}; the kernels read rows "
+            f"in 16-byte pieces and take multiples of 4 up to {KERNEL_MAX_DH}")
+    if L * P > KERNEL_MAX_TAPS:
+        raise ValueError(
+            f"ms_deform_attn kernel: {L} levels x {P} points; at most "
+            f"{KERNEL_MAX_TAPS} taps per query, one per thread of a block")
+    if max(S, loc.shape[1]) * H * Dh > 2 ** 31 - 1:
+        raise ValueError(
+            f"ms_deform_attn kernel: a batch element of {max(S, loc.shape[1])}"
+            f" x {H} x {Dh} floats is past the 32-bit row offsets")
+    if grad_out is not None and grad_out.shape != (
+            B, loc.shape[1], H * value.shape[3]):
+        raise ValueError(f"ms_deform_attn kernel: grad_out "
+                         f"{tuple(grad_out.shape)} is not (B, Lq, H*Dh)")
+    check_aligned(value=value, grad_out=grad_out)
     tensors = [("value", value), ("loc", loc), ("attn", attn)]
     if grad_out is not None:
         tensors.append(("grad_out", grad_out))
@@ -177,27 +280,44 @@ def check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
                             "the kernel takes float32")
         if not t.is_contiguous():
             raise ValueError(f"ms_deform_attn kernel: {name} is not contiguous")
-    if value.dim() != 4 or loc.dim() != 5 or attn.shape != loc.shape:
-        raise ValueError("ms_deform_attn kernel: want value (B,S,H,Dh) and "
-                         f"loc, attn (B,Lq,H,L,P); got {tuple(value.shape)}, "
-                         f"{tuple(loc.shape)}, {tuple(attn.shape)}")
-    B, S, H, _ = value.shape
-    if loc.shape[0] != B or loc.shape[2] != H:
-        raise ValueError(f"ms_deform_attn kernel: loc {tuple(loc.shape)} does "
-                         f"not match value {tuple(value.shape)}")
-    L = loc.shape[3]
-    if L != len(temporal_shapes) or not 1 <= L <= 8:
-        raise ValueError(f"ms_deform_attn kernel: {L} levels in loc, "
-                         f"{len(temporal_shapes)} temporal shapes (1..8 taken)")
-    if sum(int(t) for t in temporal_shapes) != S:
-        raise ValueError(f"ms_deform_attn kernel: shapes {temporal_shapes} do "
-                         f"not sum to S={S}")
     if len({t.device for _, t in tensors}) != 1:
         raise ValueError("ms_deform_attn kernel: inputs on different devices")
-    if grad_out is not None and grad_out.shape != (
-            B, loc.shape[1], H * value.shape[3]):
-        raise ValueError(f"ms_deform_attn kernel: grad_out "
-                         f"{tuple(grad_out.shape)} is not (B, Lq, H*Dh)")
+
+
+class BwdPlan(NamedTuple):
+    """The host side of a launch of the backward kernels."""
+    chunk: int               # queries a value block sorts at once
+    rows: int                # value rows of a value block
+    value_blocks: int        # with grad_value
+    dot_blocks: int
+    shared: int              # dynamic shared memory of a value block, bytes
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_plan(B: int, S: int, H: int, Dh: int, Lq: int, K: int) -> BwdPlan:
+    """The blocks of the backward kernels: one dot block per BWD_DOT_WARPS
+    (b, q, h), and with grad_value one value block per (b, h) and range of
+    rows, which walks all Lq queries a chunk at a time and stores its rows
+    of grad_value whole. Kept per set of sizes: the model asks for the same
+    plan at every layer and step. Raises ValueError on sizes the kernels do
+    not take."""
+    n_rr = -(-S // BWD_RANGE_ROWS)
+    rows = -(-S // n_rr)
+    chunk = min(max(1, Lq), max(1, BWD_CHUNK_BYTES // (32 * K + 4 * Dh)))
+    plan = BwdPlan(chunk=chunk, rows=rows, value_blocks=B * H * n_rr,
+                   dot_blocks=-(-B * Lq * H // BWD_DOT_WARPS),
+                   shared=(32 * K + 4 * Dh) * chunk
+                   + 4 * (KERNEL_WARPS + 1) * rows)
+    if max(plan.value_blocks, plan.dot_blocks) > 2 ** 31 - 1:
+        raise ValueError(f"ms_deform_attn backward kernel: "
+                         f"{max(plan.value_blocks, plan.dot_blocks)} blocks, "
+                         "past the grid's 2^31 - 1")
+    return plan
+
+
+def _level_array(temporal_shapes: Sequence[int]) -> ctypes.Array:
+    return (ctypes.c_int * len(temporal_shapes))(
+        *(int(t) for t in temporal_shapes))
 
 
 def ms_deform_attn_1d_cuda(value: torch.Tensor, temporal_shapes: Sequence[int],
@@ -210,12 +330,11 @@ def ms_deform_attn_1d_cuda(value: torch.Tensor, temporal_shapes: Sequence[int],
     B, S, H, Dh = value.shape
     _, Lq, _, L, P = loc.shape
     out = torch.empty((B, Lq, H * Dh), dtype=torch.float32, device=value.device)
-    shapes = (ctypes.c_int * L)(*(int(t) for t in temporal_shapes))
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().msda_fwd_f32(
             value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            B, S, H, Dh, Lq, L, P, shapes, stream)
+            B, S, H, Dh, Lq, L, P, _level_array(temporal_shapes), stream)
     if err != 0:
         raise RuntimeError(f"ms_deform_attn kernel launch failed: CUDA error {err}")
     ms_deform_attn_1d.launches += 1
@@ -227,7 +346,7 @@ def ms_deform_attn_1d_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
                                loc: torch.Tensor, attn: torch.Tensor,
                                need_value: bool = True
                                ) -> Tuple[torch.Tensor, ...]:
-    """Launch the backward CUDA kernel on the current stream and return
+    """Launch the backward CUDA kernels on the current stream and return
     (grad_value, grad_loc, grad_attn); grad_value is None, and nothing is
     scattered, with need_value=False. float32 contiguous CUDA tensors only;
     raises on anything else, and if the launch is refused."""
@@ -236,18 +355,19 @@ def ms_deform_attn_1d_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
     check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out)
     B, S, H, Dh = value.shape
     _, Lq, _, L, P = loc.shape
-    # the kernel adds into grad_value with atomics: zeroed, on this stream
-    grad_value = torch.zeros_like(value) if need_value else None
+    plan = bwd_plan(B, S, H, Dh, Lq, L * P)
+    # the value kernel stores every row of grad_value
+    grad_value = torch.empty_like(value) if need_value else None
     grad_loc = torch.empty_like(loc)
     grad_attn = torch.empty_like(attn)
-    shapes = (ctypes.c_int * L)(*(int(t) for t in temporal_shapes))
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = library().msda_bwd_f32(
             grad_out.data_ptr(), value.data_ptr(), loc.data_ptr(),
             attn.data_ptr(), grad_value.data_ptr() if need_value else None,
             grad_loc.data_ptr(), grad_attn.data_ptr(),
-            B, S, H, Dh, Lq, L, P, shapes, stream)
+            B, S, H, Dh, Lq, L, P, _level_array(temporal_shapes), plan.chunk,
+            plan.rows, plan.shared if need_value else 0, stream)
     if err != 0:
         raise RuntimeError("ms_deform_attn backward kernel launch failed: "
                            f"CUDA error {err}")

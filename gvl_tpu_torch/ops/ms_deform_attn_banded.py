@@ -46,17 +46,16 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from gvl_tpu_torch.ops.ms_deform_attn import (check_kernel_inputs,
+# KERNEL_*, MAX_SHARED_BYTES: limits of the CUDA kernels
+from gvl_tpu_torch.ops.ms_deform_attn import (KERNEL_MAX_DH, KERNEL_THREADS,
+                                              MAX_SHARED_BYTES, check_aligned,
+                                              check_kernel_inputs,
                                               level_tensor, prep_taps,
                                               tap_grads, tap_parts,
                                               weighted_tap_sum)
 
 TILE_Q = 128     # queries per tile; kTileQ in csrc/ms_deform_attn_banded.cuh
 _ROW_ALIGN = 8   # level lengths and band starts are multiples of this
-# limits of the CUDA kernels (csrc/ms_deform_attn_banded.cuh)
-KERNEL_THREADS = 512          # a block; one thread per (level, point) at least
-KERNEL_MAX_DH = 128           # two 16-byte accesses per lane and row
-MAX_SHARED_BYTES = 232448     # the most shared memory a block may take, sm_90
 
 
 def _round_up(x: int, m: int) -> int:
@@ -243,11 +242,7 @@ def _plan_for(value: torch.Tensor, temporal_shapes: Sequence[int],
     _, _, H, Dh = value.shape
     plan = kernel_plan(tuple(int(t) for t in temporal_shapes), int(margin),
                        H, loc.shape[4], Dh)
-    for name, t in (("value", value), ("grad_out", grad_out)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"banded ms_deform_attn kernel: {name} is not "
-                             "16-byte aligned; its rows are read in 16-byte "
-                             "pieces")
+    check_aligned(value=value, grad_out=grad_out)
     return plan
 
 
