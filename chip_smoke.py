@@ -21,21 +21,36 @@ exits non-zero:
      shapes beside the library call that computes the same sum
      (F.embedding_bag on prepared taps) and, with --old-forms, the earlier
      kernel.
-  4. main path: the flagship ActivityNet dense-captioning model (widths of
-     cfgs/anet_tsp_msvg_dvc.yml: hidden 512, 8 heads, 2+2 layers, 4 levels,
-     30 queries, vocab 8517; random weights from a seed) evaluated by
+  4. main path: the flagship ActivityNet model as cfgs/anet_tsp_msvg_dvc.yml
+     publishes it (hidden 512, 8 heads, 2+2 layers, 4 levels, 30 queries,
+     vocab 8517; the contrastive text side on: attention word pool,
+     layer-dependent text features, one sentence layer with the cosine
+     position table, projections to 128; a frozen offline RoBERTa at
+     roberta-base's widths and depth, hidden 768, 12 layers; grounding eval
+     on; random weights from a seed) evaluated by
      gvl_tpu_torch.eval.evaluate.EvalRunner.run over 3 batches of 16
-     synthetic videos; checks the kernel launch count, finite outputs and the
-     DVC JSON.
+     synthetic videos with ActivityNet event counts, 5-20 word sentences
+     and one video of 37 sentences (G = 30 slots, so its last 7 are
+     grounded in a second text pass); checks the kernel launch count,
+     finite outputs, the DVC JSON, both grounding JSONs (one key per GT
+     sentence) and the eval losses.
   5. kernel path vs plain path: one batch through the model with the kernel
-     and with the plain op; trunk outputs to 1e-4, greedy tokens >= 99%.
+     and with the plain op; trunk outputs (event embeddings included) to
+     1e-4, greedy tokens >= 99%; through the eval step, the grounding boxes
+     (in lengths of their video) and cl_scores of both decoder layers to
+     1e-4 and each eval loss to 1e-4 relative.
   6. time: eval clips/s at B=16 for both paths: windows of back-to-back
-     eval steps, each window timed whole by CUDA events, the paths taken in
-     turns; the per-round difference of the two paths.
-  7. (with --profile DIR only) where one eval step's time goes: host
-     enqueue vs device finish, trunk vs caption decode, torch.profiler's
-     device time and op count per step and its top device ops; writes the
-     op table and a Chrome trace into DIR.
+     eval steps (tokenization, text pass, losses and grounding included),
+     each window timed whole by CUDA events, the paths taken in turns; the
+     per-round difference of the two paths.
+  7. (with --profile DIR only) where one eval step's time goes: host time
+     until the step returns vs device finish, trunk, text pass and caption
+     decode, torch.profiler's device time and op count per step and its top
+     device ops, the split of the step into its parts (device timeline and
+     host clock, the matchers' waits included); the text encoder alone on the step's 480 x 32 tokens (CUDA
+     events and torch.profiler) beside its FLOP bound and as a share of the
+     step's device time and ops; writes the op tables and a Chrome trace
+     into DIR.
   8. backward kernel vs plain: the backward CUDA kernels against their
      plain PyTorch version at the same shapes and classes (the long-video
      decoder at B=4, as the train step runs it) with a seeded output
@@ -46,16 +61,20 @@ exits non-zero:
      --old-forms, the earlier kernel; the time of each of its two CUDA
      kernels (torch.profiler) beside that kernel's own bound. Runs right
      after phase 3.
-  9. train main path: build_model on the card, create_train_state,
-     make_train_step, 5 steps on 2 alternating synthetic batches (B=16, 30
-     GT slots with ActivityNet event counts, caption length 30, Adam at
-     5e-5, clip 100, dropout on); checks the loss keys, finite losses, 4
+  9. train main path: build_model on the card, the frozen text encoder,
+     create_train_state, make_train_step, 5 steps on 2 alternating
+     synthetic batches (B=16, 30 GT slots with ActivityNet event counts and
+     their sentences, caption length 30, the contrastive weight 0.1 of
+     epoch 2, so its loss and the matcher's contrastive cost are live, Adam
+     at 5e-5, clip 100, dropout on); checks the loss keys, finite losses, 4
      forward + 4 backward kernel launches per step, a finite gradient on
-     every parameter, and that the parameters moved.
+     every parameter, that the parameters moved and the text encoder did
+     not.
  10. kernel path vs plain path, gradients: one batch's loss and gradients
      with dropout off, through the kernels and through the plain op; total
-     loss to 1e-4 relative, each named gradient to 1e-3 x its max abs
-     (+ 1e-8 for gradients that are zero but for rounding). Runs before
+     loss and the contrastive losses to 1e-4 relative, each named gradient
+     (the text side's included) to 1e-3 x its max abs (+ 1e-8 for
+     gradients that are zero but for rounding). Runs before
      phase 9, on the seeded weights: the gradient of a sampling location
      jumps where a tap crosses a value row, the 3e-6 between the paths'
      activations moves a few taps of a step across one, and a single such
@@ -64,11 +83,12 @@ exits non-zero:
      the verdict is the same in every run; after train steps, whose float
      atomics land in a different order every time, it is not.
  11. train time: median of 10 CUDA-event-timed steps after 3 warm-up steps,
-     steps/s and clips/s; the split into trunk forward, criterion (with the
-     matcher's copy to the host and its solve, host clock), teacher forcing,
-     backward, optimizer; peak device memory. With --profile DIR also
-     torch.profiler's device time and op count per train step and its top
-     device ops; the op table goes into DIR.
+     steps/s and clips/s; the split into trunk forward, text pass,
+     criterion (with the matcher's copy to the host and its solve, host
+     clock), teacher forcing, backward, optimizer; peak device memory. With
+     --profile DIR also torch.profiler's device time and op count per train
+     step and its top device ops, and the text encoder alone as in phase 7;
+     the op tables go into DIR.
  12. banded kernel vs plain: the banded forward CUDA kernel against its
      plain PyTorch version at the long-video encoder shape of the eval step
      (YouMakeup widths: B=8, levels 800+400+200+100 = S 1500, H=8, Dh=64,
@@ -92,7 +112,10 @@ exits non-zero:
      is enqueued behind a kernel that spins while the host prepares it; the
      time per call from an idle device, the host's share included, is
      logged beside it.
- 14. long-video eval main path: the YouMakeup-shaped model (widths of
+ 14. long-video eval main path: first, the YouMakeup-shaped model built with
+     msda_impl='ref' launches the dense kernel 4 times and the banded one
+     never in one forward (the JAX package's 'ref' is the exact dense op at
+     every S); then the model as configured (widths of
      cfgs/ym_i3d_msvg_dvc.yml as tools/bench_longvideo.py builds them:
      hidden 512, 8 heads, 2+2 layers, 100 queries, vocab 1247, 1024-d
      features, 800 frames; contrastive off) through EvalRunner.run over 3
@@ -154,6 +177,10 @@ LOSS_TOL, GRAD_TOL, GRAD_FLOOR = 1e-4, 1e-3, 1e-8
 TRAIN_LOSS_KEYS = {f"{k}{sfx}" for k in (
     "loss_ce", "loss_counter", "loss_bbox", "loss_giou", "loss_self_iou",
     "cardinality_error", "loss_caption") for sfx in ("", "_0")} | {"total_loss"}
+CL_LOSS_KEYS = {"contrastive_loss", "contrastive_loss_0"}
+GROUNDING_KEYS = {"timestamp", "score", "cl_score", "sentence"}
+GROUNDING_TOL = 1e-4    # phase 5: boxes (in video lengths) and cl_scores
+LONG_VIDEO_SENTENCES = 37   # phase 4: one flagship video has more than G
 # NVIDIA H100 SXM data sheet: device memory rate, f32 rate outside the
 # tensor cores
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
@@ -163,7 +190,7 @@ DVC_KEYS = {"timestamp", "raw_box", "label", "proposal_score", "sentence",
             "pred_event_count"}
 
 # __graft_entry__._flagship_cfg(tiny=False), contrastive off
-FLAGSHIP = dict(
+FLAGSHIP_DVC = dict(
     hidden_dim=512, nheads=8, enc_layers=2, dec_layers=2,
     transformer_ff_dim=512, num_feature_levels=4, num_queries=30,
     feature_dim=512, frame_embedding_num=100, vocab_size=8517,
@@ -180,11 +207,30 @@ FLAGSHIP = dict(
     transformer_dropout_prob=0.1, drop_prob=0.5, optimizer_type="adam",
     weight_decay=0.0, lr=5e-5, grad_clip=100.0, epoch=30,
     learning_strategy="multi_step")
+# cfgs/anet_tsp_msvg_dvc.yml as published: the contrastive text side on, a
+# frozen text encoder, grounding eval on; the offline RoBERTa at roberta-base's
+# widths and depth (hidden 768, 12 layers, 12 heads, FFN 3072; its embedding
+# table has the hash tokenizer's 5000 rows, not 50265)
+FLAGSHIP = dict(
+    FLAGSHIP_DVC, enable_contrastive=True, enable_cross_video_cl=True,
+    enable_layer_diff_text_feature=True, enable_word_context_modeling=True,
+    word_context_modeling_type="attention_pool",
+    enable_sentence_context_modeling=True, enable_sentence_pos_embedding=True,
+    sentence_pos_embedding_type="cosine", sentence_modeling_layer_num=1,
+    contrastive_hidden_size=128, contrastive_loss_temperature=0.1,
+    set_cost_cl=2.0, cl_schedule_time=[0, 2], cl_schedule_val=[0, 0.1],
+    eval_enable_grounding=True, eval_set_cost_cl=1.0, eval_set_cost_class=0.0,
+    text_encoder_learning_strategy="frozen", max_text_input_len=32,
+    gt_proposal_sample_num=30, eval_batch_size=16,
+    load_pretrained_language_model_from_config="offline",
+    offline_text_encoder_hidden=768, offline_text_encoder_layers=12, seed=777)
+CL_EPOCH = 2        # the contrastive weight's schedule value from this epoch
 # cfgs/ym_i3d_msvg_dvc.yml at the shapes of tools/bench_longvideo.py
 # (YouMakeup: 800 frames of 1024-d i3d features, 100 queries, vocab 1247),
-# contrastive off; its loss coefficients are the flagship's
+# contrastive off (its config trains the text encoder, which the port does
+# not yet); its loss coefficients are the flagship's
 LONGVIDEO = dict(
-    FLAGSHIP, num_queries=100, feature_dim=1024, frame_embedding_num=800,
+    FLAGSHIP_DVC, num_queries=100, feature_dim=1024, frame_embedding_num=800,
     vocab_size=1247, lr=1e-4, weight_decay=1e-4, epoch=25)
 
 
@@ -201,6 +247,11 @@ class Workload:
     gt_counts: tuple         # (lo, hi) events per video; None: ActivityNet's
     duration: tuple          # seconds, (lo, hi)
     n_rounds: int            # phase 6: paired rounds of N_WINDOW steps
+
+    @property
+    def contrastive(self) -> bool:
+        """The text side runs: text encoder, grounding, contrastive loss."""
+        return bool(self.cfg.get("enable_contrastive", False))
 
     @property
     def banded(self) -> bool:
@@ -842,18 +893,99 @@ class WordTranslator:
         return " ".join(out) + "." if out else ""
 
 
-def synthetic_batches(w: Workload, n: int, seed: int):
+WORDS = ("a man woman person group people ball dog horse car the on in of "
+         "with and then is are runs walks jumps talks plays throws catches "
+         "holds shows camera table water field street stage front back "
+         "slowly quickly again together while after before").split()
+
+
+def sentences(rs, n: int):
+    """n seeded sentences of 5-20 words."""
+    return [" ".join(rs.choice(WORDS, rs.randint(5, 21))) for _ in range(n)]
+
+
+def event_counts(w: Workload, rs, B: int):
+    """Events per video: uniform in w.gt_counts, or drawn from the
+    ActivityNet count frequencies."""
+    from gvl_tpu_torch.train.criterion import COUNTER_CLASS_RATE
+    if w.gt_counts is None:
+        probs = np.asarray(COUNTER_CLASS_RATE[:w.max_gt + 1], np.float64)
+        return np.maximum(rs.choice(len(probs), size=B,
+                                    p=probs / probs.sum()), 1)
+    return rs.randint(w.gt_counts[0], w.gt_counts[1] + 1, B)
+
+
+def gt_fields(w: Workload, rs, counts) -> dict:
+    """GT boxes, labels and mask in G = w.max_gt slots (the first
+    min(count, G) valid) and the videos' sentences (all of them, also past
+    G)."""
+    B, G = len(counts), w.max_gt
+    centre = rs.uniform(0.2, 0.8, (B, G))
+    length = rs.uniform(0.05, 0.4, (B, G))
+    return dict(
+        gt_boxes=np.stack([centre, length], -1).astype(np.float32),
+        gt_labels=np.zeros((B, G), np.int32),
+        gt_mask=np.arange(G)[None, :] < np.minimum(counts, G)[:, None],
+        captions_raw=[sentences(rs, int(c)) for c in counts])
+
+
+def synthetic_batches(w: Workload, n: int, seed: int, long_video: bool = True):
+    """Eval batches of w.eval_B videos, one padded video in eight; with the
+    contrastive side on also GT events and sentences (ActivityNet counts),
+    and, with long_video, one video of the first batch with
+    LONG_VIDEO_SENTENCES sentences (more than the G slots)."""
     rs = np.random.RandomState(seed)
     B, T = w.eval_B, w.cfg["frame_embedding_num"]
     for i in range(n):
         mask = np.ones((B, T), bool)
         for b in range(0, B, 8):          # one padded video in eight
             mask[b, rs.randint(T // 2, T):] = False
-        yield dict(keys=[f"v_{i:02d}{b:02d}" for b in range(B)],
-                   video_feats=rs.randn(B, T, w.cfg["feature_dim"]).astype(
-                       np.float32),
-                   video_mask=mask,
-                   duration=rs.uniform(*w.duration, B).astype(np.float32))
+        batch = dict(keys=[f"v_{i:02d}{b:02d}" for b in range(B)],
+                     video_feats=rs.randn(B, T, w.cfg["feature_dim"]).astype(
+                         np.float32),
+                     video_mask=mask,
+                     duration=rs.uniform(*w.duration, B).astype(np.float32))
+        if w.contrastive:
+            counts = event_counts(w, rs, B)
+            if long_video and i == 0:
+                counts[3] = LONG_VIDEO_SENTENCES
+            batch.update(gt_fields(w, rs, counts))
+        yield batch
+
+
+def load_text(w: Workload, dev):
+    """The frozen offline RoBERTa of a contrastive workload, seeded; None
+    without the text side."""
+    from gvl_tpu_torch.models.text_encoder import load_text_encoder
+    if not w.contrastive:
+        return None
+    cfg = types.SimpleNamespace(**w.cfg)
+    return load_text_encoder(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(cfg.seed))
+
+
+def check_grounding(tag, batches, g_json, aux_json) -> int:
+    """One key per GT sentence, also past G, in both grounding JSONs, with
+    its sentence and a finite box inside the video."""
+    n = 0
+    for batch in batches:
+        for b, vid in enumerate(batch["keys"]):
+            dur = float(batch["duration"][b])
+            for i, sent in enumerate(batch["captions_raw"][b]):
+                n += 1
+                for res in (g_json, aux_json):
+                    key = f"{vid[2:] if len(vid) > 11 else vid}-{i}"
+                    check(key in res["results"], f"{tag}: no grounding {key}")
+                    it = res["results"][key][0]
+                    check(set(it) == GROUNDING_KEYS and it["sentence"] == sent,
+                          f"{tag}: grounding item {key}")
+                    nums = it["timestamp"] + [it["score"], it["cl_score"]]
+                    check(all(math.isfinite(x) for x in nums)
+                          and 0.0 <= it["timestamp"][0] <= it["timestamp"][1]
+                          <= dur + 1e-3, f"{tag}: grounding {key} {it}")
+    check(len(g_json["results"]) == len(aux_json["results"]) == n,
+          f"{tag}: {len(g_json['results'])} grounding keys for {n} sentences")
+    return n
 
 
 def phase_main_path(w: Workload, dev):
@@ -862,24 +994,31 @@ def phase_main_path(w: Workload, dev):
     tag = w.tag + "main"
     cfg = types.SimpleNamespace(**w.cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    model = build_model(cfg, device=dev, generator=gen)
+    text = load_text(w, dev)
+    model = build_model(cfg, text_hidden_dim=text.hidden_size if text else 768,
+                        device=dev, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
-    runner = EvalRunner(cfg, model, WordTranslator())
+    n_text = sum(p.numel() for p in text.parameters()) if text else 0
+    runner = EvalRunner(cfg, model, WordTranslator(), text)
     B = w.eval_B
+    batches = list(synthetic_batches(w, N_BATCHES, SEED))
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         t0 = time.perf_counter()
-        path, out_json = runner.run(synthetic_batches(w, N_BATCHES, SEED),
-                                    f"{tmp}/dvc.json")
+        path, out_json, g_json, aux_json, losses = runner.run(
+            batches, f"{tmp}/dvc.json")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
         with open(path) as f:
             reranked = json.load(f)
+        with open(path + ".grounding.json") as f:
+            check(json.load(f) == g_json, "grounding JSON on disk")
     want = want_counts(w, N_BATCHES, train=False)
-    log(tag, f"{w.name} model {n_params} params; EvalRunner.run over "
-             f"{N_BATCHES} batches of {B}: {wall:.3f} s wall (first batch "
-             f"included); kernel launches {launches} (want {want})")
+    log(tag, f"{w.name} model {n_params} params, text encoder {n_text}; "
+             f"EvalRunner.run over {N_BATCHES} batches of {B}: {wall:.3f} s "
+             f"wall (first batch included); kernel launches {launches} (want "
+             f"{want})")
     check(launches == want, f"kernel launches {launches} != {want}")
     res = out_json["results"]
     check(len(res) == B * N_BATCHES, f"{len(res)} videos in the DVC JSON")
@@ -899,6 +1038,14 @@ def phase_main_path(w: Workload, dev):
     log(tag, f"DVC JSON: {len(res)} videos, {n_items} events, {n_sent} "
              f"with a sentence; reranked JSON: "
              f"{sum(len(v) for v in reranked['results'].values())} events")
+    if w.contrastive:
+        n = check_grounding(tag, batches, g_json, aux_json)
+        check(CL_LOSS_KEYS <= set(losses)
+              and all(math.isfinite(v) for v in losses.values()),
+              f"eval losses {losses}")
+        log(tag, f"grounding and aux grounding JSONs: {n} keys, one per GT "
+                 f"sentence ({LONG_VIDEO_SENTENCES} in one video, G = "
+                 f"{w.max_gt}); eval losses {dict(losses)!r}")
     return cfg, model, runner, launches
 
 
@@ -914,6 +1061,7 @@ def phase_paths_agree(w: Workload, cfg, model, runner):
     dur = torch.from_numpy(batch["duration"]).to(dev)
     shapes = pyramid_shapes(cfg.frame_embedding_num, cfg.num_feature_levels)
     check(tuple(shapes) == w.shapes, f"pyramid {shapes} != {w.shapes}")
+    _, _, arrs = runner._prepare(batch)
     outs = {}
     with torch.inference_mode():
         for impl in ("kernel", "ref"):
@@ -922,11 +1070,15 @@ def phase_paths_agree(w: Workload, cfg, model, runner):
             seq, lps = model.caption_sample(
                 cfg.dec_layers - 1, out["hs"][-1], out["layer_refs"][-1],
                 out["memory"], out["mask_flat"], shapes, out["valid_ratios"])
-            outs[impl] = (out, seq)
+            step = runner._to_host(runner._eval_step(arrs)[0]) \
+                if w.contrastive else None
+            outs[impl] = (out, seq, step)
     set_msda_impl(model, "kernel")
     torch.cuda.synchronize()
-    (ko, kseq), (po, pseq) = outs["kernel"], outs["ref"]
-    for key in ("pred_logits", "pred_boxes", "memory", "hs"):
+    (ko, kseq, kstep), (po, pseq, pstep) = outs["kernel"], outs["ref"]
+    keys = ("pred_logits", "pred_boxes", "memory", "hs") + (
+        ("event_embed",) if w.contrastive else ())
+    for key in keys:
         check(bool(torch.isfinite(ko[key]).all()), f"{key} not finite")
         err = (ko[key] - po[key]).abs().max().item()
         log(tag, f"{key} {tuple(ko[key].shape)}: max abs diff {err!r}")
@@ -935,24 +1087,51 @@ def phase_paths_agree(w: Workload, cfg, model, runner):
     log(tag, f"greedy tokens {tuple(kseq.shape)}: {share!r} of positions "
              f"equal")
     check(share >= TOKEN_AGREEMENT, f"token agreement {share}")
+    if not w.contrastive:
+        return
+    # grounding through the eval step: boxes in lengths of their video
+    for which in ("grounding", "grounding_aux"):
+        kg, pg = kstep[which], pstep[which]
+        box = float(np.abs((kg["boxes"] - pg["boxes"])
+                           / batch["duration"][:, None, None]).max())
+        cls = float(np.abs(kg["cl_scores"] - pg["cl_scores"]).max())
+        log(tag, f"{which} {kg['boxes'].shape}: boxes max abs diff {box!r} "
+                 f"of the video's length, cl_scores {cls!r}")
+        check(box <= GROUNDING_TOL and cls <= GROUNDING_TOL,
+              f"{which} kernel vs plain path: boxes {box}, cl_scores {cls}")
+    worst, worst_k = 0.0, ""
+    for k, v in pstep["losses"].items():
+        rel = abs(float(kstep["losses"][k]) - float(v)) / max(abs(float(v)),
+                                                              1e-6)
+        check(math.isfinite(rel) and rel <= LOSS_TOL,
+              f"eval loss {k}: kernel {kstep['losses'][k]} vs plain {v}")
+        if rel > worst:
+            worst, worst_k = rel, k
+    log(tag, f"{len(pstep['losses'])} eval losses: worst relative diff "
+             f"{worst!r} ({worst_k}); contrastive_loss kernel "
+             f"{float(kstep['losses']['contrastive_loss'])!r}, plain "
+             f"{float(pstep['losses']['contrastive_loss'])!r}")
 
 
 # ---------------------------------------------------------------- phase 6
 def phase_time(w: Workload, model, runner):
     """Eval step time of both paths. A step is what EvalRunner.run does for
-    a batch, less the JSON assembly: the eval step and the copy of its
-    results to the host. Each window of N_WINDOW back-to-back steps is timed
+    a batch, less the JSON assembly: tokenization, the eval step and the
+    copy of its results to the host (with the text side: the text encoder,
+    the eval losses and the grounding of the batch's G sentence slots; the
+    batch has no video with more sentences than G). Each window of
+    N_WINDOW back-to-back steps is timed
     whole by one pair of CUDA events; each round times one window per path,
     in alternating order."""
     from gvl_tpu_torch.models.layers import set_msda_impl
     tag = w.tag + "time"
     B, n_rounds = w.eval_B, w.n_rounds
-    batch = next(synthetic_batches(w, 1, SEED + 2))
+    batch = next(synthetic_batches(w, 1, SEED + 2, long_video=False))
     win = {"kernel": [], "ref": []}
 
     def window():
         for _ in range(N_WINDOW):
-            runner._to_host(runner._eval_step(batch))
+            runner._to_host(runner._eval_step(runner._prepare(batch)[2])[0])
 
     with torch.inference_mode():
         for impl in ("kernel", "ref"):
@@ -987,11 +1166,13 @@ def phase_time(w: Workload, model, runner):
 
 
 # ---------------------------------------------------------------- phase 7
-def summarise_profile(tag: str, prof, what: str, path: pathlib.Path) -> None:
+def summarise_profile(tag: str, prof, what: str, path: pathlib.Path,
+                      top_n: int = 8) -> tuple:
     """Device busy time, device op count and the top device ops of a
     torch.profiler run over N_PROFILED steps; the op table goes to `path`.
     Annotation spans that the profiler mirrors onto the device track (the
-    optimizer's step) are no device work and are left out."""
+    optimizer's step) are no device work and are left out. Returns (busy
+    ms, ops) per step."""
     from torch.autograd import DeviceType
     avgs = prof.key_averages()
     device_ops = [e for e in avgs if e.device_type == DeviceType.CUDA
@@ -1004,30 +1185,84 @@ def summarise_profile(tag: str, prof, what: str, path: pathlib.Path) -> None:
              f"{busy_ms / N_PROFILED!r} ms per step, "
              f"{n_ops / N_PROFILED!r} device ops per step")
     top = sorted(device_ops, key=lambda e: -e.self_device_time_total)
-    for e in top[:8] + [e for e in top[8:] if "msda_" in e.key]:
+    for e in top[:top_n] + [e for e in top[top_n:] if "msda_" in e.key]:
         ms = e.self_device_time_total / 1e3
         log(tag, f"  {ms / N_PROFILED!r} ms/step ({ms / busy_ms:.1%}), "
                  f"{e.count / N_PROFILED!r} calls/step: {e.key[:90]}")
     log(tag, f"op table in {path}")
+    return busy_ms / N_PROFILED, n_ops / N_PROFILED
+
+
+def text_bound(text, N: int, L: int) -> dict:
+    """The least time of one text-encoder call on N sequences of L tokens:
+    its weights, token ids and mask read once and its output written once
+    at the memory rate, against its multiply-adds (Q, K, V and output
+    projections, the FFN, the attention's two products) at the f32 rate."""
+    s = text.text_encoder.spec
+    H, F, n_layers = s.hidden_size, s.intermediate_size, s.num_layers
+    macs = n_layers * N * L * (4 * H * H + 2 * H * F + 2 * L * H)
+    flops = 2 * macs
+    nbytes = 4 * (sum(p.numel() for p in text.parameters())
+                  + 2 * N * L + N * L * H)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_flops), flops=flops, bytes=nbytes,
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+
+
+def profile_text_encoder(tag: str, text, ids, tmask, step_busy: float,
+                         step_ops: float, out_dir: pathlib.Path) -> dict:
+    """The text encoder alone on one step's (B x G, L) tokens: CUDA-event
+    median of N_PROFILED calls on an idle device, and torch.profiler's
+    device time and op count per call, beside its FLOP bound and as a share
+    of the step's device busy time and op count."""
+    from torch.profiler import ProfilerActivity, profile
+    N, L = ids.shape
+
+    def call():
+        return text(ids, tmask)
+
+    with torch.inference_mode():
+        ms = cuda_median_ms(call, N_PROFILED)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(N_PROFILED):
+                call()
+            torch.cuda.synchronize()
+    busy, ops = summarise_profile(tag, prof, "text encoder calls",
+                                  out_dir / "text_encoder_ops.txt", top_n=4)
+    bd = text_bound(text, N, L)
+    log(tag, f"text encoder on {N} x {L} tokens: {ms!r} ms a call (CUDA "
+             f"events), device busy {busy!r} ms in {ops!r} ops; bound "
+             f"{bd['bound_ms']!r} ms ({bd['flops']:.4g} flop at "
+             f"{F32_FLOP_PER_S:.3g}/s, {bd['bytes']:.4g} bytes; bound by "
+             f"{bd['bound_by']}): {bd['bound_ms'] / busy:.1%} of the bound "
+             f"rate; {busy / step_busy:.1%} of the step's device busy time, "
+             f"{ops / step_ops:.1%} of its device ops")
+    return dict(ms=ms, busy_ms=busy, ops=ops, **bd)
 
 
 def phase_profile(w: Workload, cfg, model, runner,
                   out_dir: pathlib.Path) -> None:
-    """Where one eval step's time goes, kernel path. Host: seconds to
-    enqueue a step, then to wait for the device. CUDA events: trunk and
-    caption decode. torch.profiler over N_PROFILED steps: device busy time,
-    device op count, top device ops; the table goes to out_dir, and for the
-    flagship the trace too."""
+    """Where one eval step's time goes, kernel path. Host: seconds until the
+    eval step returns (with the text side this includes the matchers'
+    waits for the device), then to wait for the device. CUDA events: trunk,
+    text pass and caption decode. torch.profiler over N_PROFILED steps:
+    device busy time, device op count, top device ops; the table goes to
+    out_dir, and for the flagship the trace too. The split of the step into
+    its parts (`eval_split`). With the text side, the text encoder alone
+    (`profile_text_encoder`)."""
     from torch.profiler import ProfilerActivity, profile
     from gvl_tpu_torch.models.transformer import pyramid_shapes
     tag = w.tag + "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    batch = next(synthetic_batches(w, 1, SEED + 3))
+    batch = next(synthetic_batches(w, 1, SEED + 3, long_video=False))
+    _, _, arrs = runner._prepare(batch)
     dev = runner.device
     feats, mask, dur = (torch.from_numpy(batch[k]).to(dev) for k in
                         ("video_feats", "video_mask", "duration"))
     shapes = pyramid_shapes(cfg.frame_embedding_num, cfg.num_feature_levels)
     enqueue, wait = [], []
+    text_ms = None
     with torch.inference_mode():
         out = model(feats, mask, dur)
 
@@ -1038,10 +1273,16 @@ def phase_profile(w: Workload, cfg, model, runner,
 
         trunk_ms = cuda_median_ms(lambda: model(feats, mask, dur), N_PROFILED)
         decode_ms = cuda_median_ms(decode, N_PROFILED)
+        if w.contrastive:
+            ids, tmask, gmask = (torch.from_numpy(arrs[k]).to(dev) for k in
+                                 ("text_ids", "text_mask", "gt_mask"))
+            text_ms = cuda_median_ms(lambda: runner._text(
+                ids, tmask, gmask, out["memory"], out["mask_flat"]),
+                N_PROFILED)
         for _ in range(N_PROFILED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            runner._eval_step(batch)
+            runner._eval_step(arrs)
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             enqueue.append((t1 - t0) * 1e3)
@@ -1049,9 +1290,10 @@ def phase_profile(w: Workload, cfg, model, runner,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(N_PROFILED):
-                runner._eval_step(batch)
+                runner._eval_step(arrs)
             torch.cuda.synchronize()
     log(tag, f"{w.name} eval step B={w.eval_B}: trunk {trunk_ms!r} ms, "
+             f"text pass (text encoder, encode_text) {text_ms!r} ms, "
              f"caption decode {decode_ms!r} ms (CUDA-event medians of "
              f"{N_PROFILED})")
     log(tag, f"host enqueue per step {statistics.median(enqueue)!r} ms "
@@ -1060,29 +1302,93 @@ def phase_profile(w: Workload, cfg, model, runner,
              f"{N_PROFILED})")
     if w is ANET:
         prof.export_chrome_trace(str(out_dir / "anet_eval_step_trace.json"))
-    summarise_profile(tag, prof, f"{w.name} eval steps",
-                      out_dir / f"{w.name}_eval_step_ops.txt")
+    busy, ops = summarise_profile(tag, prof, f"{w.name} eval steps",
+                                  out_dir / f"{w.name}_eval_step_ops.txt")
+    eval_split(tag, runner, arrs)
+    if w.contrastive:
+        B, G, L = arrs["text_ids"].shape
+        profile_text_encoder(tag, runner.text_encoder,
+                             ids.reshape(B * G, L).long(),
+                             tmask.reshape(B * G, L), busy, ops, out_dir)
+
+
+def eval_split(tag: str, runner, arrs) -> None:
+    """Where the eval step's time goes, part by part: one CUDA event and one
+    host time at the end of each part, taken where the step calls it (the
+    trunk, the text pass, the decode, detection, the eval losses with their
+    matcher, grounding, then the copy of the results to the host); medians
+    of N_PROFILED steps. A part's host time includes its waits for the
+    device (the matchers' copies)."""
+    import gvl_tpu_torch.eval.evaluate as evaluate
+    model = runner.model
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev, time.perf_counter()))
+
+    def marked(fn, name):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            mark(name)
+            return out
+        return wrapper
+
+    orig = {k: getattr(evaluate, k) for k in (
+        "detection_outputs", "compute_criterion", "grounding_outputs")}
+    names = {"detection_outputs": "detection", "compute_criterion": "losses",
+             "grounding_outputs": "grounding"}
+    for k, fn in orig.items():
+        setattr(evaluate, k, marked(fn, names[k]))
+    model.forward = marked(model.forward, "trunk")
+    model.caption_sample = marked(model.caption_sample, "decode")
+    runner._text = marked(runner._text, "text")
+    dev_ms, host_ms = {}, {}
+    try:
+        with torch.inference_mode():
+            for _ in range(N_PROFILED):
+                del marks[:]
+                torch.cuda.synchronize()
+                mark("start")
+                runner._to_host(runner._eval_step(arrs)[0])
+                mark("to_host")
+                torch.cuda.synchronize()
+                step_dev, step_host = {}, {}
+                for (_, e0, h0), (name, e1, h1) in zip(marks, marks[1:]):
+                    step_dev[name] = step_dev.get(name, 0.0) + \
+                        e0.elapsed_time(e1)
+                    step_host[name] = step_host.get(name, 0.0) + \
+                        (h1 - h0) * 1e3
+                for name in step_dev:
+                    dev_ms.setdefault(name, []).append(step_dev[name])
+                    host_ms.setdefault(name, []).append(step_host[name])
+    finally:
+        del model.forward, model.caption_sample, runner._text
+        for k, fn in orig.items():
+            setattr(evaluate, k, fn)
+    med = statistics.median
+    log(tag, f"eval step split, medians of {N_PROFILED} steps, device "
+             "timeline (CUDA events) / host (host clock), ms: "
+             + "; ".join(f"{k} {med(dev_ms[k])!r} / {med(host_ms[k])!r}"
+                         for k in dev_ms))
 
 
 # ---------------------------------------------------------------- phase 9
-def train_batch(w: Workload, seed: int) -> dict:
+def train_batch(w: Workload, seed: int, text=None) -> dict:
     """A synthetic train batch in the form of the JAX package's train-step
     bench (bench.py build_train_bench): every GT box (0.5, 0.3). Event
     counts: uniform in w.gt_counts, or drawn from the ActivityNet count
-    frequencies."""
-    from gvl_tpu_torch.train.criterion import COUNTER_CLASS_RATE
+    frequencies. With the text encoder, the videos' sentences (5-20 words
+    each) and their tokens."""
+    from gvl_tpu_torch.train.state import add_text_inputs
     rs = np.random.RandomState(seed)
     B, G, Lc = w.train_B, w.max_gt, w.cfg["max_caption_len"]
     T, D = w.cfg["frame_embedding_num"], w.cfg["feature_dim"]
-    if w.gt_counts is None:
-        probs = np.asarray(COUNTER_CLASS_RATE[:G + 1], np.float64)
-        counts = np.maximum(
-            rs.choice(len(probs), size=B, p=probs / probs.sum()), 1)
-    else:
-        counts = rs.randint(w.gt_counts[0], w.gt_counts[1] + 1, B)
+    counts = event_counts(w, rs, B)
     captions = rs.randint(1, w.cfg["vocab_size"], (B, G, Lc)).astype(np.int32)
     captions[..., 0] = 0
-    return dict(
+    batch = dict(
         video_feats=rs.randn(B, T, D).astype(np.float32),
         video_mask=np.ones((B, T), bool),
         duration=rs.uniform(*w.duration, (B,)).astype(np.float32),
@@ -1091,44 +1397,61 @@ def train_batch(w: Workload, seed: int) -> dict:
         gt_labels=np.zeros((B, G), np.int32),
         gt_mask=np.arange(G)[None, :] < counts[:, None],
         captions=captions, caption_mask=np.ones((B, G, Lc), bool))
+    if text is not None:
+        batch["captions_raw"] = [sentences(rs, int(c)) for c in counts]
+        add_text_inputs(batch, text, types.SimpleNamespace(**w.cfg))
+    return batch
 
 
 def build_train(w: Workload, dev):
-    """The model on the card with seeded weights, its train state and step,
-    the loss weights and two seeded batches."""
+    """The model on the card with seeded weights, its train state and step
+    (with the frozen text encoder when the text side is on), the loss
+    weights (the contrastive weight the schedule gives at CL_EPOCH) and two
+    seeded batches."""
     from gvl_tpu_torch.models.gvl import build_model
-    from gvl_tpu_torch.train.criterion import LossSpec, make_weight_dict
+    from gvl_tpu_torch.train.criterion import (LossSpec, cl_weight_at_epoch,
+                                               make_weight_dict)
     from gvl_tpu_torch.train.state import (StepStatics, create_train_state,
                                            make_train_step)
     cfg = types.SimpleNamespace(**w.cfg)
     torch.manual_seed(SEED)               # the dropout draws
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    model = build_model(cfg, generator=gen)          # no device: the card
+    text = load_text(w, dev)
+    model = build_model(cfg, text_hidden_dim=text.hidden_size if text
+                        else 768, generator=gen)  # no device: the card
     check(next(model.parameters()).device == dev, "build_model's default "
           f"device is {next(model.parameters()).device}, not {dev}")
     statics = StepStatics(
-        spec=LossSpec.from_config(cfg), enable_contrastive=False,
+        spec=LossSpec.from_config(cfg), enable_contrastive=w.contrastive,
         caption_loss=True, two_stage=False, train_text_encoder=False,
         disable_mid_caption_heads=False, enable_pos_emb_for_captioner=False,
         temporal_shapes=w.shapes)
-    state = create_train_state(cfg, model, STEPS_PER_EPOCH, statics)
-    step = make_train_step(model, cfg, statics)
+    state = create_train_state(cfg, model, STEPS_PER_EPOCH, statics, text)
+    step = make_train_step(model, cfg, statics, text)
     weights = make_weight_dict(cfg)
-    batches = [train_batch(w, SEED), train_batch(w, SEED + 1)]
+    if w.contrastive:
+        for k in weights:
+            if k.startswith("contrastive_loss"):
+                weights[k] = cl_weight_at_epoch(cfg, CL_EPOCH)
+        check(weights["contrastive_loss"] > 0, "contrastive weight")
+    batches = [train_batch(w, SEED, text), train_batch(w, SEED + 1, text)]
     return model, state, step, weights, batches
 
 
 def phase_train_main_path(w: Workload, model, state, step, weights,
                           batches) -> dict:
     tag = w.tag + "train"
+    loss_keys = TRAIN_LOSS_KEYS | (CL_LOSS_KEYS if w.contrastive else set())
+    text0 = ({k: v.clone() for k, v in state.text_encoder.state_dict().items()}
+             if w.contrastive else {})
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     reset_counts()
     t0 = time.perf_counter()
     for i in range(N_TRAIN_STEPS):
         losses = {k: float(v) for k, v in
                   step(state, batches[i % 2], weights).items()}
-        check(set(losses) == TRAIN_LOSS_KEYS,
-              f"loss keys {sorted(set(losses) ^ TRAIN_LOSS_KEYS)} differ")
+        check(set(losses) == loss_keys,
+              f"loss keys {sorted(set(losses) ^ loss_keys)} differ")
         check(all(math.isfinite(v) for v in losses.values()),
               f"step {i}: non-finite loss in {losses}")
         want = want_counts(w, i + 1, train=True)
@@ -1136,7 +1459,8 @@ def phase_train_main_path(w: Workload, model, state, step, weights,
               f"step {i}: launches {read_counts()}, want {want}")
         log(tag, f"step {i}: total {losses['total_loss']!r}, caption "
                  f"{losses['loss_caption']!r}, giou {losses['loss_giou']!r}"
-                 f", ce {losses['loss_ce']!r}")
+                 f", ce {losses['loss_ce']!r}, contrastive "
+                 f"{losses.get('contrastive_loss')!r}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1149,6 +1473,9 @@ def phase_train_main_path(w: Workload, model, state, step, weights,
                 for n, p in model.named_parameters())
     check(moved > 0.9 * n_params, f"only {moved} of {n_params} tensors moved")
     check(state.step == N_TRAIN_STEPS, f"state.step {state.step}")
+    for k, v in text0.items():
+        check(torch.equal(state.text_encoder.state_dict()[k], v),
+              f"the frozen text encoder's {k} moved")
     log(tag, f"{w.name}: {N_TRAIN_STEPS} steps at B={w.train_B}, "
              f"G={w.max_gt}: {wall:.3f} s wall (first step included); "
              f"launches {launches} (per step "
@@ -1171,16 +1498,29 @@ def phase_train_paths_agree(w: Workload, model, step, weights, batch) -> None:
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
         total.backward()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-        res[impl] = (total.detach().item(), grads)
+        res[impl] = ({k: v.detach().item() for k, v in losses.items()},
+                     total.detach().item(), grads)
     set_msda_impl(model, "kernel")
     model.zero_grad(set_to_none=True)
-    (kt, kg), (pt, pg) = res["kernel"], res["ref"]
+    (kl, kt, kg), (pl, pt, pg) = res["kernel"], res["ref"]
     rel = abs(kt - pt) / abs(pt)
     log(tag, f"total loss kernel path {kt!r}, plain path {pt!r}: "
              f"relative difference {rel!r}")
     check(rel <= LOSS_TOL, f"total loss differs by {rel} > {LOSS_TOL}")
+    for k in sorted(CL_LOSS_KEYS & set(pl)):
+        rel = abs(kl[k] - pl[k]) / abs(pl[k])
+        log(tag, f"{k} kernel path {kl[k]!r}, plain path {pl[k]!r}: "
+                 f"relative difference {rel!r}")
+        check(rel <= LOSS_TOL, f"{k} differs by {rel} > {LOSS_TOL}")
+    text_side = ("contrastive_projection", "word_context_model",
+                 "sentence_context_model")
+    worst_text, worst_text_name = 0.0, ""
     worst, worst_name = 0.0, ""
     for n, g in pg.items():
+        if n.startswith(text_side) and g.abs().max().item() > GRAD_FLOOR:
+            err = (kg[n] - g).abs().max().item() / g.abs().max().item()
+            if err >= worst_text:
+                worst_text, worst_text_name = err, n
         scale = g.abs().max().item()
         err = (kg[n] - g).abs().max().item()
         check(math.isfinite(err), f"{n}: gradient not finite")
@@ -1191,6 +1531,11 @@ def phase_train_paths_agree(w: Workload, model, step, weights, batch) -> None:
               f"{scale} + {GRAD_FLOOR}")
     log(tag, f"{len(pg)} named gradients: worst max abs diff / own max "
              f"abs {worst!r} ({worst_name})")
+    if w.contrastive:
+        n_text = sum(n.startswith(text_side) for n in pg)
+        check(n_text > 0 and worst_text_name, "text-side gradients")
+        log(tag, f"{n_text} of them on the text side: worst {worst_text!r} "
+                 f"({worst_text_name})")
 
 
 # --------------------------------------------------------------- phase 11
@@ -1214,14 +1559,16 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
              f"{peak / 2 ** 30!r} GiB")
 
     # the split: one CUDA event and one host time at the end of each part,
-    # taken where the step calls the part: the trunk (model.forward), the
+    # taken where the step calls the part: the trunk (model.forward), with
+    # the text side the text pass (the text encoder, then encode_text), the
     # criterion, teacher forcing (up to the last caption_train_nll), backward
     # (up to the gradient clip), optimizer (the rest: clip, Adam, schedule).
     # The matcher is timed on the host after a synchronise, so that its copy
     # does not count the wait for the trunk
     import gvl_tpu_torch.train.state as train_state
     model = state.model
-    parts = ("trunk", "criterion", "captions", "backward", "optimizer")
+    parts = ("trunk",) + (("text",) if w.contrastive else ()) + (
+        "criterion", "captions", "backward", "optimizer")
     dev_ms = {k: [] for k in parts}
     host_ms = {k: [] for k in parts}
     lap_ms = {"copy": [], "solve": []}
@@ -1262,6 +1609,8 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
     train_state.clip_global_norm = marked(orig[1], "backward", before=True)
     model.forward = marked(model.forward, "trunk")
     model.caption_train_nll = marked(model.caption_train_nll, "captions")
+    if w.contrastive:
+        model.encode_text = marked(model.encode_text, "text")
     try:
         for i in range(N_TRAIN_SPLIT):
             del marks[:]
@@ -1277,6 +1626,8 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
                 host_ms[name].append((h1 - h0) * 1e3)
     finally:
         del model.forward, model.caption_train_nll
+        if w.contrastive:
+            del model.encode_text
         criterion.batched_lap = orig_lap
         train_state.compute_criterion, train_state.clip_global_norm = orig
     med = statistics.median
@@ -1303,8 +1654,45 @@ def phase_train_profile(w: Workload, state, step, weights, batches,
         for i in range(N_PROFILED):
             step(state, batches[i % 2], weights)
         torch.cuda.synchronize()
-    summarise_profile(tag, prof, f"{w.name} train steps",
-                      out_dir / f"{w.name}_train_step_ops.txt")
+    busy, ops = summarise_profile(tag, prof, f"{w.name} train steps",
+                                  out_dir / f"{w.name}_train_step_ops.txt")
+    if w.contrastive:
+        dev = next(state.model.parameters()).device
+        B, G, L = batches[0]["text_ids"].shape
+        profile_text_encoder(
+            tag, state.text_encoder,
+            torch.from_numpy(batches[0]["text_ids"]).to(dev).reshape(
+                B * G, L).long(),
+            torch.from_numpy(batches[0]["text_mask"]).to(dev).reshape(
+                B * G, L), busy, ops, out_dir)
+
+
+def phase_msda_ref_route(dev) -> None:
+    """The long-video model built with msda_impl='ref' (the JAX package's
+    exact dense op at every S) runs the dense kernel in its encoder, not
+    the banded one: launch counts of one forward at B=1."""
+    from gvl_tpu_torch.models.gvl import build_model
+    cfg = types.SimpleNamespace(**dict(LONG.cfg, msda_impl="ref"))
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    rs = np.random.RandomState(SEED)
+    T = cfg.frame_embedding_num
+    feats = torch.from_numpy(rs.randn(1, T, cfg.feature_dim).astype(
+        np.float32)).to(dev)
+    reset_counts()
+    with torch.inference_mode():
+        out = model(feats, torch.ones(1, T, dtype=torch.bool, device=dev),
+                    torch.full((1,), 150.0, device=dev))
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = {"fwd": cfg.enc_layers + cfg.dec_layers, "bwd": 0,
+            "banded_fwd": 0, "banded_bwd": 0}
+    log("lvref", f"long-video model, msda_impl='ref', S={sum(LONG.shapes)}: "
+                 f"one forward launched {got} (want {want}); memory finite "
+                 f"{bool(torch.isfinite(out['memory']).all())}")
+    check(got == want and bool(torch.isfinite(out["memory"]).all()),
+          f"msda_impl='ref' route: launches {got}")
+    reset_counts()
 
 
 # work -> (floats moved as multiples of value, out and the taps; FMAs per
@@ -1441,6 +1829,8 @@ def main() -> None:
         return
     launches = {}
     for w in (ANET, LONG):
+        if w is LONG:
+            phase_msda_ref_route(dev)
         cfg, model, runner, launches[f"{w.name}_eval"] = phase_main_path(w, dev)
         phase_paths_agree(w, cfg, model, runner)
         med = phase_time(w, model, runner)

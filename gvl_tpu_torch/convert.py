@@ -3,9 +3,12 @@
 The inverse of gvl_tpu.train.checkpoint.import_pytorch_state_dict, with its
 conventions (checkpoint.py:127-131): Dense kernel (in, out) -> Linear weight
 (out, in); Conv kernel (k, in, out) -> Conv1d weight (out, in, k); flax MHA
-query/key/value kernels (C, H, Dh) -> in_proj_weight (3C, C); LSTM ih/hh
-kernels transposed. Takes numpy, so it runs wherever the JAX parameters can
-be saved as arrays (e.g. an .npz of the flattened tree).
+query/key/value kernels (C, H, Dh) -> in_proj_weight (3C, C), or for the
+BERT-style sentence block separate query/key/value weights (C, C); LSTM
+ih/hh kernels transposed. `flax_roberta_to_state_dict` maps the HF Flax
+RoBERTa tree of the text encoder onto HF `RobertaModel` names under
+`text_encoder.`. Takes numpy, so it runs wherever the JAX parameters can be
+saved as arrays (e.g. an .npz of the flattened tree).
 """
 
 from __future__ import annotations
@@ -119,6 +122,9 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
         for sub in ("ctx2att", "h2att", "alpha_net"):
             dense(f"{fp}/dsa/{sub}", f"{tp}.core.{sub}")
 
+    if arch.enable_contrastive:
+        _text_side(arch, take, dense, norm, sd)
+
     unmapped = sorted(set(src) - read)
     if unmapped:
         raise KeyError(f"flax parameters with no place in the port: {unmapped}")
@@ -126,16 +132,108 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
             for k, v in sd.items()}
 
 
+def _text_side(arch: GVLArch, take, dense, norm, sd) -> None:
+    """The contrastive projections (shared: one flax module, every port
+    index), word and sentence context and the background embedding
+    (gvl.py:272-313; checkpoint.py:270-321)."""
+    def proj(fp: str, tp: str):
+        if arch.enable_multilayer_projection:
+            for j in range(2):
+                dense(f"{fp}/layers_{j}", f"{tp}.layers.{j}")
+        else:
+            dense(fp, tp)
+
+    own = arch.disable_cl_proj_layer_share_weight
+    for i in range(arch.dec_layers):
+        proj(f"cl_proj_event_{i if own else 0}",
+             f"contrastive_projection_event.{i}")
+    for i in range(1 + int(arch.enable_sentence_context_modeling)):
+        proj(f"cl_proj_text_{i if own else 0}",
+             f"contrastive_projection_text.{i}")
+    if arch.enable_e2t_cl:
+        sd["background_embed"] = take("background_embed")
+    if arch.enable_word_context_modeling and \
+            arch.word_context_modeling_type == "attention_pool":
+        dense("word_context/w1", "word_context_model.w1")
+        dense("word_context/w2", "word_context_model.w2")
+    if not arch.enable_sentence_context_modeling:
+        return
+    D = arch.text_hidden_dim
+    fp, top = "sentence_context", "sentence_context_model"
+
+    def bert_attn(fa: str, ta: str):
+        for n in ("query", "key", "value"):
+            sd[f"{ta}.self.{n}.weight"] = \
+                take(f"{fa}/{n}/kernel").reshape(D, D).T
+            sd[f"{ta}.self.{n}.bias"] = take(f"{fa}/{n}/bias").reshape(D)
+        sd[f"{ta}.output.dense.weight"] = \
+            take(f"{fa}/out/kernel").reshape(D, D).T
+        sd[f"{ta}.output.dense.bias"] = take(f"{fa}/out/bias")
+
+    for i in range(arch.sentence_modeling_layer_num):
+        tp = f"{top}.transformer_block.layer.{i}"
+        bert_attn(f"{fp}/self_attn_{i}", f"{tp}.attention")
+        norm(f"{fp}/norm1_{i}", f"{tp}.attention.output.LayerNorm")
+        if arch.enable_cross_model_fusion:
+            bert_attn(f"{fp}/cross_attn_{i}", f"{tp}.crossattention")
+            norm(f"{fp}/norm_cross_{i}",
+                 f"{tp}.crossattention.output.LayerNorm")
+        dense(f"{fp}/ffn1_{i}", f"{tp}.intermediate.dense")
+        dense(f"{fp}/ffn2_{i}", f"{tp}.output.dense")
+        norm(f"{fp}/norm2_{i}", f"{tp}.output.LayerNorm")
+    if arch.enable_cross_model_fusion:
+        dense(f"{fp}/memory_projection", f"{top}.memory_projection")
+    if arch.enable_sentence_pos_embedding and \
+            arch.sentence_pos_embedding_type != "cosine":
+        sd[f"{top}.pos_table.weight"] = take(f"{fp}/pos_table")
+
+
+def flax_roberta_to_state_dict(params_np: Mapping,
+                               prefix: str = "text_encoder."
+                               ) -> Dict[str, torch.Tensor]:
+    """Map an HF `FlaxRobertaModel` parameter tree (leaves numpy or
+    array-likes) onto HF `RobertaModel` state_dict names under `prefix`, the
+    names of gvl_tpu_torch.models.text_encoder.TextEncoder. The pooler,
+    which the encoder never runs, is mapped too. Raises if a flax parameter
+    is left unmapped."""
+    if "params" in params_np and isinstance(params_np["params"], Mapping):
+        params_np = params_np["params"]
+    src = _flatten(params_np)
+    sd: Dict[str, np.ndarray] = {}
+    for key, v in src.items():
+        *path, leaf = key.split("/")
+        if leaf == "embedding":
+            sd[".".join(path) + ".weight"] = v
+        elif leaf == "kernel":
+            sd[".".join(path) + ".weight"] = v.T
+        elif leaf == "scale":
+            sd[".".join(path) + ".weight"] = v
+        elif leaf == "bias":
+            sd[".".join(path) + ".bias"] = v
+        else:
+            raise KeyError(f"flax RoBERTa parameter {key} has no place in the "
+                           "port")
+        if path[0] not in ("embeddings", "encoder", "pooler"):
+            raise KeyError(f"flax RoBERTa parameter {key} has no place in the "
+                           "port")
+    return {prefix + k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in sd.items()}
+
+
 def jax_grads_to_named(grads_np: Mapping, arch: GVLArch
                        ) -> Dict[str, torch.Tensor]:
     """Map a gradient tree of the flax parameters onto the names of
     GVLModel(arch).named_parameters(), by the mapping of the parameters
-    themselves. A shared caption head is one module in both packages, so its
-    gradient appears once, under `caption_head.0.*`, as named_parameters()
-    lists it."""
+    themselves. A shared caption head or contrastive projection is one
+    module in both packages, so its gradient appears once, under index 0,
+    as named_parameters() lists it."""
     named = jax_params_to_state_dict(grads_np, arch)
+    shared = []
     if arch.share_caption_head:
-        named = {k: v for k, v in named.items()
-                 if not (k.startswith("caption_head.")
-                         and not k.startswith("caption_head.0."))}
-    return named
+        shared.append("caption_head.")
+    if arch.enable_contrastive and not arch.disable_cl_proj_layer_share_weight:
+        shared += ["contrastive_projection_event.",
+                   "contrastive_projection_text."]
+    return {k: v for k, v in named.items()
+            if not any(k.startswith(p) and not k.startswith(p + "0.")
+                       for p in shared)}

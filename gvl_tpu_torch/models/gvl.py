@@ -1,13 +1,15 @@
 """The GVL model in query mode: PDVC-style deformable-transformer event
 detector with iterative box refinement and the LSTM-DSA caption head.
 
-Port of gvl_tpu/models/gvl.py for the dense-captioning eval path and the
-train step (trunk in train mode, teacher-forced captions). Not ported yet,
-and refused by `build_model`: contrastive projections and the text side,
-caption heads other than 'standard', MLP class heads, heads shared across
-decoder layers (no box refinement), and beam search. Two-stage / proposal
-queries are refused by the EvalRunner. Parameter names follow the reference pdvc/pdvc.py
-state_dict.
+Port of gvl_tpu/models/gvl.py for the dense-captioning eval path, the
+train step (trunk in train mode, teacher-forced captions) and the
+contrastive text head (event projections in the trunk, `encode_text`). Not
+ported yet, and refused by `build_model`: caption heads other than
+'standard', MLP class heads, heads shared across decoder layers (no box
+refinement), and beam search. Two-stage / proposal queries are refused by
+the EvalRunner. Parameter names follow the reference pdvc/pdvc.py
+state_dict. The text encoder itself lives beside the model
+(gvl_tpu_torch/models/text_encoder.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,11 +19,14 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gvl_tpu_torch.models.base_encoder import BasePyramidEncoder
 from gvl_tpu_torch.models.captioner import LSTMDSACaptioner
 from gvl_tpu_torch.models.layers import MLP, init_params
+from gvl_tpu_torch.models.text import (SentenceContextBlock, bert_head_count,
+                                       pool_words)
 from gvl_tpu_torch.models.transformer import (DeformableTransformer,
                                               expand_reference_for_levels,
                                               flatten_levels)
@@ -58,13 +63,28 @@ class GVLArch:
     cap_num_feature_levels: int = 4
     enable_pos_emb_for_captioner: bool = False
     enable_contrastive: bool = True
+    contrastive_hidden_size: int = 128
+    enable_multilayer_projection: bool = False
+    disable_cl_proj_layer_share_weight: bool = False
+    enable_e2t_cl: bool = False
+    text_hidden_dim: int = 768
+    enable_word_context_modeling: bool = True
+    word_context_modeling_type: str = "attention_pool"
+    enable_sentence_context_modeling: bool = False
+    enable_sentence_pos_embedding: bool = False
+    sentence_pos_embedding_type: str = "cosine"
+    max_pos_num: int = 500
+    sentence_modeling_layer_num: int = 1
+    enable_cross_model_fusion: bool = False
+    enable_layer_diff_text_feature: bool = False
     feature_dim: int = 500
+    msda_impl: str = "pallas"     # 'ref': the dense kernel at every S
     msda_band_margin: int = 32
     dropout: float = 0.1          # transformer_dropout_prob
     drop_prob: float = 0.5        # caption head, on the cell output
 
     @classmethod
-    def from_config(cls, cfg: Any) -> "GVLArch":
+    def from_config(cls, cfg: Any, text_hidden_dim: int = 768) -> "GVLArch":
         def get(name, default):
             return getattr(cfg, name, default)
 
@@ -92,7 +112,32 @@ class GVLArch:
             enable_pos_emb_for_captioner=bool(
                 get("enable_pos_emb_for_captioner", False)),
             enable_contrastive=bool(get("enable_contrastive", False)),
+            contrastive_hidden_size=int(get("contrastive_hidden_size", 128)),
+            enable_multilayer_projection=bool(
+                get("enable_multilayer_projection", False)),
+            disable_cl_proj_layer_share_weight=bool(
+                get("disable_cl_proj_layer_share_weight", False)),
+            enable_e2t_cl=bool(get("enable_e2t_cl", False)),
+            text_hidden_dim=int(text_hidden_dim),
+            enable_word_context_modeling=bool(
+                get("enable_word_context_modeling", False)),
+            word_context_modeling_type=get("word_context_modeling_type",
+                                           "attention_pool"),
+            enable_sentence_context_modeling=bool(
+                get("enable_sentence_context_modeling", False)),
+            enable_sentence_pos_embedding=bool(
+                get("enable_sentence_pos_embedding", False)),
+            sentence_pos_embedding_type=get("sentence_pos_embedding_type",
+                                            "cosine"),
+            max_pos_num=int(get("max_pos_num", 500)),
+            sentence_modeling_layer_num=int(
+                get("sentence_modeling_layer_num", 1)),
+            enable_cross_model_fusion=bool(
+                get("enable_cross_model_fusion", False)),
+            enable_layer_diff_text_feature=bool(
+                get("enable_layer_diff_text_feature", False)),
             feature_dim=cfg.feature_dim,
+            msda_impl=get("msda_impl", "pallas"),
             msda_band_margin=int(get("msda_band_margin", 32)),
             dropout=float(get("transformer_dropout_prob", 0.1)),
             drop_prob=float(get("drop_prob", 0.5)),
@@ -100,11 +145,8 @@ class GVLArch:
 
 
 def _check_ported(a: GVLArch) -> None:
-    if a.enable_contrastive:
-        raise NotImplementedError(
-            "the contrastive text side is not ported yet (ROADMAP Queue 1); "
-            "evaluate with enable_contrastive=False (eval.py "
-            "--eval_disable_contrastive)")
+    if a.msda_impl not in ("pallas", "ref"):
+        raise ValueError(f"unknown msda_impl: {a.msda_impl}")
     if a.caption_decoder_type != "standard":
         raise NotImplementedError(
             f"caption head '{a.caption_decoder_type}' is not ported yet; "
@@ -117,8 +159,9 @@ def _check_ported(a: GVLArch) -> None:
 
 
 class GVLModel(nn.Module):
-    """Trunk (`forward`), greedy caption decode (`caption_sample`) and
-    teacher forcing (`caption_train`, `caption_train_nll`). Dropout is live
+    """Trunk (`forward`), text head (`encode_text`), greedy caption decode
+    (`caption_sample`) and teacher forcing (`caption_train`,
+    `caption_train_nll`). Dropout is live
     under `.train()` only; its draws come from the device's default
     generator, which the caller seeds (`torch.manual_seed`).
 
@@ -133,10 +176,13 @@ class GVLModel(nn.Module):
         num_pred = a.dec_layers
         self.base_encoder = BasePyramidEncoder(
             a.num_feature_levels, a.hidden_dim, a.feature_dim, device=device)
+        # the banded encoder route is the 'pallas' one (layers.py:149-151);
+        # 'ref' runs the exact dense op at every S, as a margin of 0 does
+        band_margin = a.msda_band_margin if a.msda_impl == "pallas" else 0
         self.transformer = DeformableTransformer(
             a.hidden_dim, a.ff_dim, a.enc_layers, a.dec_layers,
             a.num_feature_levels, a.nheads, a.enc_n_points, a.dec_n_points,
-            a.msda_band_margin, a.dropout, device=device)
+            band_margin, a.dropout, device=device)
         self.query_embed = nn.Embedding(a.num_queries, a.hidden_dim * 2,
                                         device=device)
 
@@ -163,8 +209,55 @@ class GVLModel(nn.Module):
         else:
             self.caption_head = nn.ModuleList(captioner(i)
                                               for i in range(num_pred))
+        if a.enable_contrastive:
+            self._init_text_side(device)
+
+    def _init_text_side(self, device) -> None:
+        """Contrastive projections (shared across layers unless
+        disable_cl_proj_layer_share_weight), word and sentence context and
+        the background embedding (gvl.py:272-313)."""
+        a = self.arch
+        Dt, Dcl = a.text_hidden_dim, a.contrastive_hidden_size
+
+        def proj(d_in):
+            if a.enable_multilayer_projection:
+                return MLP(d_in, d_in, Dcl, 2, device=device)
+            return nn.Linear(d_in, Dcl, device=device)
+
+        n_event = a.dec_layers
+        n_text = 1 + int(a.enable_sentence_context_modeling)
+        if a.disable_cl_proj_layer_share_weight:
+            self.contrastive_projection_event = nn.ModuleList(
+                proj(a.hidden_dim) for _ in range(n_event))
+            self.contrastive_projection_text = nn.ModuleList(
+                proj(Dt) for _ in range(n_text))
+        else:
+            self.contrastive_projection_event = nn.ModuleList(
+                [proj(a.hidden_dim)] * n_event)
+            self.contrastive_projection_text = nn.ModuleList(
+                [proj(Dt)] * n_text)
+        self._pool_fn = None          # max / mean pooling have no parameters
+        if a.enable_word_context_modeling:
+            pool = pool_words(a.word_context_modeling_type, Dt, device=device)
+            if isinstance(pool, nn.Module):
+                self.word_context_model = pool
+            else:
+                self._pool_fn = pool
+        if a.enable_sentence_context_modeling:
+            self.sentence_context_model = SentenceContextBlock(
+                Dt, a.sentence_modeling_layer_num,
+                a.enable_sentence_pos_embedding,
+                a.sentence_pos_embedding_type, a.max_pos_num,
+                a.enable_cross_model_fusion, a.hidden_dim,
+                n_heads=bert_head_count(Dt), device=device)
+        if a.enable_e2t_cl:
+            self.background_embed = nn.Parameter(
+                torch.empty(1, Dcl, device=device))
 
     def flax_init_(self, generator: torch.Generator) -> None:
+        if self.arch.enable_contrastive and self.arch.enable_e2t_cl:
+            nn.init.normal_(self.background_embed, 0.0, 1.0,
+                            generator=generator)
         nn.init.normal_(self.query_embed.weight, 0.0, 1.0, generator=generator)
         focal = -math.log((1 - 0.01) / 0.01)
         for i, (ch, bh) in enumerate(zip(self.class_head, self.bbox_head)):
@@ -203,13 +296,15 @@ class GVLModel(nn.Module):
             ref_before_list.append(ref)
             ref = self._refine(self.bbox_head[lid](out), ref).detach()
 
-        logits, counts, coords = [], [], []
+        logits, counts, coords, event_embeds = [], [], [], []
         for lid, h in enumerate(hs_list):
             logits.append(self.class_head[lid](h))
             counts.append(self.count_head[lid](h.amax(dim=1)))
             coords.append(self._refine(self.bbox_head[lid](h),
                                        ref_before_list[lid]))
-        return {
+            if a.enable_contrastive:
+                event_embeds.append(self.contrastive_projection_event[lid](h))
+        out = {
             "hs": torch.stack(hs_list),                     # (Ld,B,Nq,C)
             "pred_logits": torch.stack(logits),             # (Ld,B,Nq,K)
             "pred_count": torch.stack(counts),              # (Ld,B,E+1)
@@ -221,6 +316,11 @@ class GVLModel(nn.Module):
             "query_mask": qmask,
             "query_pos": query_pos,
         }
+        if a.enable_contrastive:
+            out["event_embed"] = torch.stack(event_embeds)  # (Ld,B,Nq,Dcl)
+            if a.enable_e2t_cl:
+                out["background_embed"] = self.background_embed
+        return out
 
     @staticmethod
     def _refine(tmp, ref):
@@ -229,6 +329,38 @@ class GVLModel(nn.Module):
             return torch.sigmoid(tmp + inverse_sigmoid(ref))
         center = tmp[..., :1] + inverse_sigmoid(ref)
         return torch.sigmoid(torch.cat([center, tmp[..., 1:]], dim=-1))
+
+    # ------------------------------------------------------------- text side
+    def encode_text(self, word_embed, token_mask, sent_mask, memory=None,
+                    memory_mask=None) -> Dict[str, torch.Tensor]:
+        """Pool word features into sentence features and project them into
+        the contrastive space (gvl.py:438-471).
+
+        word_embed (B, G, Ltok, Dt), the text encoder's last hidden state;
+        token_mask (B, G, Ltok) bool; sent_mask (B, G) bool. Returns 'aux'
+        and 'final' (B, G, Dcl) with their unprojected 'aux_pre' and
+        'final_pre': decoder layers 0..Ld-2 match 'aux', the last 'final'.
+        Without enable_layer_diff_text_feature 'aux' is 'final'."""
+        a = self.arch
+        if a.enable_word_context_modeling:
+            pool = self._pool_fn or self.word_context_model
+            sent = pool(word_embed, token_mask)
+        else:
+            sent = word_embed[..., 0, :]            # the first (bos) token
+        aux_pre = aux = None
+        if a.enable_layer_diff_text_feature:
+            pooled = a.word_context_modeling_type == "attention_pool"
+            aux_pre = sent if pooled else F.gelu(sent)
+            aux = self.contrastive_projection_text[0](aux_pre)
+        final_pre = sent
+        if a.enable_sentence_context_modeling:
+            final_pre = self.sentence_context_model(sent, sent_mask, memory,
+                                                    memory_mask)
+        final = self.contrastive_projection_text[-1](final_pre)
+        if aux is None:
+            aux, aux_pre = final, final_pre
+        return {"aux": aux, "final": final, "aux_pre": aux_pre,
+                "final_pre": final_pre}
 
     # ------------------------------------------------------------ captioning
     def caption_train(self, layer_id: int, query, reference, memory,
@@ -260,13 +392,14 @@ class GVLModel(nn.Module):
             valid_ratios)
 
 
-def build_model(cfg: Any, device=None,
+def build_model(cfg: Any, text_hidden_dim: int = 768, device=None,
                 generator: torch.Generator = None) -> GVLModel:
     """GVLModel for `cfg`, in eval mode, on `device`: the current CUDA device
     when none is given (raising where there is none), so a CPU caller asks
-    for "cpu". With a generator, its parameters are drawn with the JAX
-    package's initializers; without one they are left uninitialised for
-    `load_state_dict`."""
+    for "cpu". text_hidden_dim is the text encoder's width (its
+    `hidden_size`), read only with enable_contrastive. With a generator,
+    its parameters are drawn with the JAX package's initializers; without
+    one they are left uninitialised for `load_state_dict`."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -274,7 +407,8 @@ def build_model(cfg: Any, device=None,
                 "device='cpu' to build the model on the CPU")
         device = torch.device("cuda", torch.cuda.current_device())
     with torch.device("meta"):
-        model = GVLModel(GVLArch.from_config(cfg), device="meta")
+        model = GVLModel(GVLArch.from_config(cfg, text_hidden_dim),
+                         device="meta")
     model = model.to_empty(device=device)
     if generator is not None:
         init_params(model, generator)

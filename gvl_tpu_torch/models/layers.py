@@ -116,6 +116,8 @@ class MSDeformAttn1D(nn.Module):
     Long-sequence self-attention (one query per memory token, S >= 512,
     band_margin > 0) runs `ms_deform_attn_1d_banded`, whose taps beyond the
     margin clamp to the band's edge; everything else `ms_deform_attn_1d`.
+    The model gives band_margin 0 under msda_impl 'ref', which the JAX
+    package runs as the exact dense op at every S (layers.py:149-151).
     Either is the CUDA kernel on a CUDA tensor and its plain version on a CPU
     tensor. Only `set_msda_impl`, which compares the two on the card, points
     the module at the plain versions.

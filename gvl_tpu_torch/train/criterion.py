@@ -1,12 +1,13 @@
 """Matching costs and detection losses over padded static shapes.
 
-Port of gvl_tpu/train/criterion.py without the contrastive (text) side:
-matches are a dense (B, G) int64 array `match_q` (the query assigned to each
-padded GT slot) and every loss masks by `gt_mask`. 'loss_self_iou' and
-'cardinality_error' are logged, not weighted (they are not in
-`make_weight_dict`). Not ported yet, raising NotImplementedError by name:
-`cl_match_matrix` / `contrastive_loss` (text side), the caption cost
-(`set_cost_caption > 0`), `match_layer_m2o` (SCST).
+Port of gvl_tpu/train/criterion.py: matches are a dense (B, G) int64 array
+`match_q` (the query assigned to each padded GT slot) and every loss masks
+by `gt_mask`. 'loss_self_iou' and 'cardinality_error' are logged, not
+weighted (they are not in `make_weight_dict`). The contrastive side is the
+matcher's cosine cost (`cl_match_matrix`, gated by the contrastive weight's
+schedule) and the InfoNCE `contrastive_loss`. Not ported yet, raising
+NotImplementedError by name: the caption cost (`set_cost_caption > 0`) and
+`match_layer_m2o` (SCST).
 """
 
 from __future__ import annotations
@@ -46,14 +47,19 @@ class LossSpec:
     focal_gamma: float = 2.0
     lloss_gau_mask: int = 1
     lloss_beta: float = 1.0
+    temperature: float = 0.1
+    enable_cross_video_cl: bool = True
+    enable_e2t_cl: bool = False
+    enable_bg_for_cl: bool = False
     matcher_impl: str = "jax"
     aux_loss: bool = True
 
     @classmethod
     def from_config(cls, cfg: Any) -> "LossSpec":
         d = cls()
+        names = {"temperature": "contrastive_loss_temperature"}
         return cls(**{f.name: type(getattr(d, f.name))(
-            getattr(cfg, f.name, getattr(d, f.name)))
+            getattr(cfg, names.get(f.name, f.name), getattr(d, f.name)))
             for f in dataclasses.fields(cls)})
 
 
@@ -62,24 +68,34 @@ def _not_ported(name: str, what: str):
                               "(ROADMAP Queue 1)")
 
 
-def cl_match_matrix(*args, **kwargs):
-    _not_ported("cl_match_matrix", "the contrastive text side")
-
-
-def contrastive_loss(*args, **kwargs):
-    _not_ported("contrastive_loss", "the contrastive text side")
-
-
 def match_layer_m2o(*args, **kwargs):
     _not_ported("match_layer_m2o", "the many-to-one SCST assignment")
 
 
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
 # --------------------------------------------------------------------- cost
 
+def cl_match_matrix(event_embed, text_embed, bg_embed=None) -> torch.Tensor:
+    """Per-video cosine similarity of Nq events and G texts, (B, Nq, G), with
+    a last column against the background embedding when one is given
+    (criterion.py:91-105)."""
+    e = _unit(event_embed)
+    mat = torch.einsum("bqd,bgd->bqg", e, _unit(text_embed))
+    if bg_embed is not None:
+        bg_col = torch.einsum("bqd,d->bq", e, _unit(bg_embed)[0])
+        mat = torch.cat([mat, bg_col[..., None]], dim=-1)
+    return mat
+
+
 def build_match_cost(pred_logits, pred_boxes, gt_boxes, gt_labels, gt_mask,
-                     spec: LossSpec) -> torch.Tensor:
+                     spec: LossSpec, cl_mat=None, cl_gate=1.0) -> torch.Tensor:
     """(B, Nq, G) matching cost; padded GT columns are constant 0
-    (criterion.py:108-135, without the contrastive term)."""
+    (criterion.py:108-135). With cl_mat and set_cost_cl > 0 the negative
+    cosine joins it, times cl_gate: the contrastive schedule's 0 or 1, so
+    that the epochs with a contrastive weight of 0 match without it."""
     p = torch.sigmoid(pred_logits)                      # (B, Nq, K)
     a, g = spec.cost_alpha, spec.cost_gamma
     pos = a * ((1 - p) ** g) * (-torch.log(p + 1e-8))
@@ -92,6 +108,9 @@ def build_match_cost(pred_logits, pred_boxes, gt_boxes, gt_labels, gt_mask,
                                        box_ops.box_cl_to_xy(gt_boxes))
     C = (spec.set_cost_bbox * cost_bbox + spec.set_cost_class * cost_class
          + spec.set_cost_giou * cost_giou)
+    if cl_mat is not None and spec.set_cost_cl > 0:
+        G = gt_boxes.shape[1]
+        C = C + (cl_gate * spec.set_cost_cl) * (-cl_mat[..., :G])
     return torch.where(gt_mask[:, None, :], C, torch.zeros_like(C))
 
 
@@ -197,19 +216,101 @@ def cardinality_error(pred_logits, gt_mask, row_mask=None):
     return err.mean()
 
 
+def _softmax_ce(logits, labels):
+    return (torch.logsumexp(logits, dim=-1)
+            - torch.gather(logits, 1, labels[:, None])[:, 0])
+
+
+def contrastive_loss(text_embed, event_embed, match_q, gt_mask,
+                     spec: LossSpec, bg_embed=None, row_mask=None):
+    """InfoNCE between matched (text, event) pairs (criterion.py:279-364).
+
+    text_embed (B, G, D) padded; event_embed (B, Nq, D); match_q (B, G).
+    Text to event: with enable_cross_video_cl every event of the batch is a
+    negative and the mean runs over all valid sentences; without it only the
+    video's own events are, and each video's mean weighs the same. With
+    enable_e2t_cl the event-to-text direction is averaged in: each event
+    against every valid text and the background embedding, an unmatched
+    event labelled background; enable_bg_for_cl averages it over all events,
+    otherwise over the matched ones. row_mask (B,) drops padded videos: their
+    events leave the negative pool (matched columns stay) and the per-video
+    means divide by the real rows."""
+    B, G, D = text_embed.shape
+    Nq = event_embed.shape[1]
+    dev = text_embed.device
+    tf = _unit(text_embed).reshape(B * G, D)
+    ef = _unit(event_embed).reshape(B * Nq, D)
+    logits = (tf @ ef.T) / spec.temperature              # (BG, BNq)
+
+    valid = gt_mask.reshape(B * G)
+    labels = (torch.arange(B, device=dev)[:, None] * Nq + match_q).reshape(-1)
+    cols = torch.arange(B * Nq, device=dev)
+    n_rows = float(B)
+    if row_mask is not None:
+        row_mask = row_mask.float()
+        n_rows = row_mask.sum().clamp(min=1.0)
+        ev_row = row_mask.bool().repeat_interleave(Nq)
+        keep = ev_row[None, :] | (cols[None, :] == labels[:, None])
+        logits = torch.where(keep, logits, -1e9)
+    if not spec.enable_cross_video_cl:
+        rows = torch.arange(B * G, device=dev)
+        own = (cols[None, :] // Nq) == (rows[:, None] // G)
+        logits = torch.where(own, logits, -1e9)
+
+    t2e_all = _softmax_ce(logits, labels)
+    validf = valid.float()
+    if spec.enable_cross_video_cl:
+        t2e = (t2e_all * validf).sum() / validf.sum().clamp(min=1)
+    else:
+        m = gt_mask.float()
+        per_video = ((t2e_all.reshape(B, G) * m).sum(-1)
+                     / m.sum(-1).clamp(min=1))
+        t2e = per_video.sum() / n_rows
+    if not spec.enable_e2t_cl:
+        return t2e
+
+    bg_logits = (ef @ _unit(bg_embed)[0]) / spec.temperature     # (BNq,)
+    col = torch.where(valid[:, None], logits, -1e9)
+    e2t_logits = torch.cat([col, bg_logits[None, :]], dim=0)     # (BG+1, BNq)
+    e_labels = torch.full((B * Nq,), B * G, dtype=torch.long, device=dev)
+    e_labels[labels[valid]] = torch.arange(B * G, device=dev)[valid]
+    matched = (e_labels != B * G).float()
+    e2t_all = _softmax_ce(e2t_logits.T, e_labels)
+    if spec.enable_bg_for_cl:
+        if row_mask is not None:
+            ev_rowf = row_mask.repeat_interleave(Nq)
+            e2t = (e2t_all * ev_rowf).sum() / ev_rowf.sum().clamp(min=1)
+        else:
+            e2t = e2t_all.mean()
+    elif spec.enable_cross_video_cl:
+        e2t = (e2t_all * matched).sum() / matched.sum().clamp(min=1)
+    else:
+        m = matched.reshape(B, Nq)
+        per_v = (e2t_all.reshape(B, Nq) * m).sum(-1) / (1e-5 + m.sum(-1))
+        e2t = per_v.sum() / n_rows
+    return 0.5 * (t2e + e2t)
+
+
 # ----------------------------------------------------------------- criterion
 
 def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
                       text_embeds_per_layer, spec: LossSpec,
-                      cap_costs=None, row_mask: Optional[torch.Tensor] = None
+                      cap_costs=None, row_mask: Optional[torch.Tensor] = None,
+                      cl_gate=1.0
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Match, then the detection losses of every decoder layer
-    (criterion.py:374-477). All layers' costs are stacked into one matcher
-    call, so a step pays one device-to-host copy. Returns (losses,
-    match_qs (Ld, B, G)); the last layer's keys are unsuffixed, the others
-    end in '_<i>'. row_mask (B,) bool drops whole videos from every term."""
-    if text_embeds_per_layer is not None:
-        _not_ported("compute_criterion", "the contrastive text side")
+    """Match, then the detection losses of every decoder layer and, with
+    text_embeds_per_layer (a (B, G, Dcl) text embedding per decoder layer),
+    its contrastive cost and loss (criterion.py:367-477). All layers' costs
+    are stacked into one matcher call, so a step pays one device-to-host
+    copy. Returns (losses, match_qs (Ld, B, G)); the last layer's keys are
+    unsuffixed, the others end in '_<i>'. row_mask (B,) bool drops whole
+    videos from every term; cl_gate scales the contrastive cost
+    (`build_match_cost`)."""
+    contrastive = text_embeds_per_layer is not None
+    if contrastive and "event_embed" not in outputs:
+        raise ValueError("compute_criterion: text embeddings given, but the "
+                         "outputs have no event_embed (enable_contrastive "
+                         "is off)")
     if cap_costs is not None or spec.set_cost_caption > 0:
         _not_ported("compute_criterion",
                     "the caption cost (cap_costs, set_cost_caption > 0)")
@@ -224,7 +325,11 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
         cost_all = torch.cat([
             build_match_cost(outputs["pred_logits"][l],
                              outputs["pred_boxes"][l], gt_boxes, gt_labels,
-                             gt_mask, spec) for l in range(Ld)])
+                             gt_mask, spec,
+                             cl_match_matrix(outputs["event_embed"][l],
+                                             text_embeds_per_layer[l])
+                             if contrastive else None, cl_gate)
+            for l in range(Ld)])
         match_qs = match_layer(cost_all, gt_mask.repeat(Ld, 1),
                                spec.matcher_impl).reshape(Ld, B, -1)
 
@@ -244,6 +349,11 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
         losses["loss_self_iou" + suffix] = self_iou
         losses["cardinality_error" + suffix] = cardinality_error(
             logits, gt_mask, row_maskf)
+        if contrastive:
+            losses["contrastive_loss" + suffix] = contrastive_loss(
+                text_embeds_per_layer[l], outputs["event_embed"][l],
+                match_qs[l], gt_mask, spec, outputs.get("background_embed"),
+                row_maskf)
     return losses, match_qs
 
 
@@ -262,3 +372,14 @@ def make_weight_dict(cfg: Any) -> Dict[str, float]:
         for i in range(cfg.dec_layers - 1):
             out.update({f"{k}_{i}": v for k, v in base.items()})
     return out
+
+
+def cl_weight_at_epoch(cfg: Any, epoch: int) -> float:
+    """The contrastive weight's piecewise-constant schedule: the value of the
+    last scheduled epoch <= epoch, 0 before the first (criterion.py:
+    494-505)."""
+    w = 0.0
+    for t, v in zip(list(cfg.cl_schedule_time), list(cfg.cl_schedule_val)):
+        if epoch >= t:
+            w = v
+    return w

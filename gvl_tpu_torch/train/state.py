@@ -1,17 +1,20 @@
 """Optimizers, learning-rate schedules and the train step.
 
-Port of gvl_tpu/train/state.py for the dense-captioning train step with the
-contrastive text side off: forward in train mode, set criterion, teacher-forced
-caption NLL, weighted loss sum, backward, global-norm gradient clip,
-optimizer and schedule step. The model, its optimizer and the batch live on
-the model's device; batches arrive as numpy arrays.
+Port of gvl_tpu/train/state.py for the dense-captioning train step:
+forward in train mode, the text branch when the contrastive side is on (the
+frozen text encoder without gradients, then `encode_text`), set criterion,
+teacher-forced caption NLL, weighted loss sum, backward, global-norm
+gradient clip, optimizer and schedule step. The model, the text encoder, the
+optimizer and the batch live on the model's device; batches arrive as numpy
+arrays.
 
 Dropout draws come from the default generator of the model's device: seed it
 (`torch.manual_seed`) before the first step for a repeatable run.
 
-Refused by name (NotImplementedError): `enable_contrastive`, `caption_rl`,
-`caption_cost`, `caption_gpt`, `two_stage`, `caption_bf16`, `text_bf16`,
-`train_text_encoder`, and scheduled sampling (`ss_prob > 0`).
+Refused by name (NotImplementedError): `caption_rl`, `caption_cost`,
+`caption_gpt`, `two_stage`, `caption_bf16`, `text_bf16`,
+`train_text_encoder` (a text encoder that trains), and scheduled sampling
+(`ss_prob > 0`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 
 from gvl_tpu_torch.models.captioner import prepare_dsa_reference
 from gvl_tpu_torch.models.gvl import GVLModel
+from gvl_tpu_torch.models.text_encoder import (TextEncoder,
+                                               effective_max_gt_events)
 from gvl_tpu_torch.models.transformer import pyramid_shapes
 from gvl_tpu_torch.train.criterion import LossSpec, compute_criterion
 
@@ -150,16 +155,31 @@ class StepStatics:
     caption_bf16: bool = False
 
 
-_NOT_PORTED = ("enable_contrastive", "caption_rl", "caption_cost",
-               "caption_gpt", "two_stage", "caption_bf16", "text_bf16",
-               "train_text_encoder")
+_NOT_PORTED = ("caption_rl", "caption_cost", "caption_gpt", "two_stage",
+               "caption_bf16", "text_bf16", "train_text_encoder")
 
 
-def _check_statics(statics: StepStatics) -> None:
+def _check_statics(statics: StepStatics, text_encoder) -> None:
     for name in _NOT_PORTED:
         if getattr(statics, name):
             raise NotImplementedError(
                 f"train step: {name} is not ported yet (ROADMAP Queue 1)")
+    if statics.enable_contrastive and text_encoder is None:
+        raise ValueError("train step: enable_contrastive needs the text "
+                         "encoder (models.text_encoder.load_text_encoder)")
+
+
+def add_text_inputs(batch: Dict, text_encoder: TextEncoder, cfg: Any) -> Dict:
+    """Tokenize batch['captions_raw'] into batch['text_ids'] and
+    batch['text_mask'] (B, G, max_text_input_len), in place; a no-op
+    without a text encoder (gvl_tpu/train/loop.py:80-87)."""
+    if text_encoder is not None:
+        ids, mask = text_encoder.tokenize(
+            batch["captions_raw"], effective_max_gt_events(cfg),
+            int(getattr(cfg, "max_text_input_len", 32)))
+        batch["text_ids"] = ids
+        batch["text_mask"] = mask
+    return batch
 
 
 def gather_matched(x: torch.Tensor, match_q: torch.Tensor) -> torch.Tensor:
@@ -169,42 +189,53 @@ def gather_matched(x: torch.Tensor, match_q: torch.Tensor) -> torch.Tensor:
 
 
 class TrainState:
-    """The model being trained, its optimizer and schedule, and the number
-    of updates taken."""
+    """The model being trained, its optimizer and schedule, the number of
+    updates taken, and the frozen text encoder beside the model (None with
+    the contrastive side off), which has no optimizer."""
 
     def __init__(self, model: GVLModel, optimizer: torch.optim.Optimizer,
-                 scheduler: torch.optim.lr_scheduler.LambdaLR, step: int = 0):
+                 scheduler: torch.optim.lr_scheduler.LambdaLR, step: int = 0,
+                 text_encoder: TextEncoder = None):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.step = step
+        self.text_encoder = text_encoder
 
 
 def create_train_state(cfg: Any, model: GVLModel, steps_per_epoch: int,
-                       statics: StepStatics) -> TrainState:
-    """Optimizer and schedule for `model`, on the model's device
+                       statics: StepStatics,
+                       text_encoder: TextEncoder = None) -> TrainState:
+    """Optimizer and schedule for `model`, on the model's device; the text
+    encoder (required with enable_contrastive) is held frozen
     (state.py:561-576)."""
-    _check_statics(statics)
+    _check_statics(statics, text_encoder)
     total_steps = int(getattr(cfg, "epoch", 30) * steps_per_epoch)
     opt, scheduler = build_optimizer(cfg, dict(model.named_parameters()),
                                      total_steps, steps_per_epoch)
-    return TrainState(model, opt, scheduler)
+    return TrainState(model, opt, scheduler, text_encoder=text_encoder)
 
 
-def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics):
+def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
+                    text_encoder: TextEncoder = None):
     """Build `step(state, batch, weights, ss_prob=0.0) -> losses`
     (state.py:180-552).
 
     batch: numpy arrays video_feats (B, T, D), video_mask (B, T), duration
     (B,), gt_boxes (B, G, 2), gt_labels (B, G), gt_mask (B, G), captions
-    (B, G, Lc), caption_mask (B, G, Lc); moved to the model's device inside.
-    weights: loss name -> float (`make_weight_dict`). The step puts the model
-    in train mode, computes the losses, backpropagates their weighted sum,
-    clips the global gradient norm at cfg.grad_clip, and steps the optimizer
-    and the schedule of `state`. Returns the losses (detached 0-d tensors on
-    the device) with 'total_loss'. `step.forward_losses(batch)` computes the
-    losses alone, in the model's current mode."""
-    _check_statics(statics)
+    (B, G, Lc), caption_mask (B, G, Lc), and with enable_contrastive
+    text_ids and text_mask (B, G, Ltok) (`add_text_inputs`); moved to the
+    model's device inside. weights: loss name -> float
+    (`make_weight_dict`, the contrastive weight from `cl_weight_at_epoch`);
+    the matcher's contrastive cost is on when weights['contrastive_loss'] >
+    0 (state.py:514-519). The step puts the model in train mode, computes
+    the losses, backpropagates their weighted sum, clips the global gradient
+    norm at cfg.grad_clip, and steps the optimizer and the schedule of
+    `state`. The text encoder runs under no_grad, in eval mode (no dropout,
+    as the JAX package's apply_fn). Returns the losses (detached 0-d
+    tensors on the device) with 'total_loss'. `step.forward_losses(batch,
+    cl_gate=1.0)` computes the losses alone, in the model's current mode."""
+    _check_statics(statics, text_encoder)
     st = statics
     Ld = model.arch.dec_layers
     grad_clip = float(getattr(cfg, "grad_clip", 100.0))
@@ -226,13 +257,29 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics):
                 [query, gather_matched(out["query_pos"], mq)], dim=-1)
         return query
 
-    def forward_losses(batch) -> Dict[str, torch.Tensor]:
+    def text_layers(db, out):
+        """The text branch (state.py:233-250): the frozen encoder without
+        gradients (the JAX package's stop_gradient), then encode_text;
+        decoder layers 0..Ld-2 take 'aux', the last 'final'."""
+        ids, tmask = db["text_ids"], db["text_mask"]
+        B, G, Ltok = ids.shape
+        with torch.no_grad():
+            word = text_encoder(ids.reshape(B * G, Ltok).long(),
+                                tmask.reshape(B * G, Ltok))
+        text_out = model.encode_text(
+            word.float().reshape(B, G, Ltok, -1), tmask.bool(), db["gt_mask"],
+            out["memory"], out["mask_flat"])
+        return [text_out["aux"]] * (Ld - 1) + [text_out["final"]]
+
+    def forward_losses(batch, cl_gate=1.0) -> Dict[str, torch.Tensor]:
         db = to_device(batch)
         shapes = pyramid_shapes(db["video_feats"].shape[1],
                                 len(st.temporal_shapes))
         out = model(db["video_feats"], db["video_mask"], db["duration"])
+        texts = text_layers(db, out) if st.enable_contrastive else None
         losses, match_qs = compute_criterion(
-            out, db["gt_boxes"], db["gt_labels"], db["gt_mask"], None, st.spec)
+            out, db["gt_boxes"], db["gt_labels"], db["gt_mask"], texts,
+            st.spec, cl_gate=cl_gate)
         if not st.caption_loss:
             return losses
 
@@ -281,7 +328,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics):
         # the model's, not the optimizer's: in a freeze mode the optimizer
         # holds the head only, and the clip below counts every gradient
         model.zero_grad(set_to_none=True)
-        losses = forward_losses(batch)
+        # the matcher's contrastive cost follows the contrastive weight's
+        # schedule (state.py:514-519)
+        cl_gate = float(weights.get("contrastive_loss", 0.0) > 0) \
+            if "contrastive_loss" in weights else 1.0
+        losses = forward_losses(batch, cl_gate)
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
         total.backward()
         clip_global_norm(model.parameters(), grad_clip)

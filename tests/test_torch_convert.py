@@ -39,3 +39,45 @@ def test_unmapped_jax_parameter_raises():
     extra = {"params": dict(params["params"], stray={"kernel": np.zeros(2)})}
     with pytest.raises(KeyError, match="stray"):
         jax_params_to_state_dict(extra, GVLArch.from_config(cfg))
+
+
+# the text side: shared projections (the flagship), projections per layer
+# with the background embedding, cross fusion, the learned position table
+TEXT_ROUND_TRIPS = {
+    "flagship": {},
+    "own_projections_e2t": dict(disable_cl_proj_layer_share_weight=True,
+                                enable_e2t_cl=True),
+    "cross_fusion": dict(enable_cross_model_fusion=True),
+    "learned_pos": dict(sentence_pos_embedding_type="learned"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TEXT_ROUND_TRIPS))
+def test_round_trip_with_the_text_side_on(case):
+    """JAX parameters with the contrastive text side -> the port's model
+    state_dict, with the text encoder's `text_encoder.*` tensors beside it,
+    as the reference PDVC state_dict holds them -> import_pytorch_state_dict:
+    nothing unused, nothing unfilled, every value equal."""
+    import torch
+
+    from gvl_tpu_torch.models.text_encoder import load_text_encoder
+    from tests.test_torch_text import DT, text_world
+    cfg, _, params, port, _, _ = text_world(**TEXT_ROUND_TRIPS[case])
+    cfg.update(dict(load_pretrained_language_model_from_config="offline",
+                    offline_text_encoder_hidden=DT,
+                    offline_text_encoder_layers=1))
+    text = load_text_encoder(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    tsd = text.state_dict()
+    assert tsd and all(k.startswith("text_encoder.") for k in tsd)
+    sd = {k: v.numpy() for k, v in {**port.state_dict(), **tsd}.items()}
+    assert any(k.startswith("sentence_context_model.") for k in sd)
+    new, unused, unfilled = import_pytorch_state_dict(
+        sd, params, n_heads=cfg.nheads, share_caption_head=True)
+    assert unused == []
+    assert unfilled == []
+    want = flax.traverse_util.flatten_dict(params["params"], sep="/")
+    got = flax.traverse_util.flatten_dict(new["params"], sep="/")
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)

@@ -219,8 +219,7 @@ def test_weight_dict_matches_jax():
     assert pc.make_weight_dict(cfg) == jc.make_weight_dict(cfg)
 
 
-@pytest.mark.parametrize("name", ["cl_match_matrix", "contrastive_loss",
-                                  "match_layer_m2o"])
+@pytest.mark.parametrize("name", ["match_layer_m2o"])
 def test_unported_criterion_parts_raise_by_name(name):
     with pytest.raises(NotImplementedError, match=name):
         getattr(pc, name)()
@@ -229,7 +228,8 @@ def test_unported_criterion_parts_raise_by_name(name):
 def test_criterion_refuses_text_embeds_and_caption_costs(crit):
     out, args, _, pspec, _, _ = crit
     outs = {k: t(v) for k, v in out.items()}
-    with pytest.raises(NotImplementedError, match="contrastive"):
+    # text embeddings need the trunk's event embeddings (contrastive on)
+    with pytest.raises(ValueError, match="event_embed"):
         pc.compute_criterion(outs, *map(t, args), [None, None], pspec)
     with pytest.raises(NotImplementedError, match="caption cost"):
         pc.compute_criterion(outs, *map(t, args), None, pspec, cap_costs=[0])

@@ -72,7 +72,7 @@ def runs(request, tmp_path_factory):
     port = build_model(cfg, device="cpu")
     port.load_state_dict(jax_params_to_state_dict(
         params, GVLArch.from_config(cfg)), strict=True)
-    got_path, got_json = EvalRunner(cfg, port, ds.translator).run(
+    got_path, got_json, *_ = EvalRunner(cfg, port, ds.translator).run(
         batcher, str(tmp / "port.json"))
     return len(ds), (want_path, want_json), (got_path, got_json)
 

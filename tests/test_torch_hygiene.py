@@ -1,5 +1,6 @@
-"""gvl_tpu_torch imports torch and never JAX, flax or gvl_tpu, and on a CPU
-tensor its deformable-attention wrapper launches no kernel."""
+"""gvl_tpu_torch imports torch and never JAX, flax, optax, transformers or
+gvl_tpu, and on a CPU tensor its deformable-attention wrapper launches no
+kernel."""
 
 import os
 import subprocess
@@ -19,7 +20,7 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "gvl_tpu"))
+                                            "transformers", "gvl_tpu"))
         assert not bad, bad
         import torch
         from gvl_tpu_torch.ops import ms_deform_attn_1d
@@ -47,7 +48,7 @@ def test_train_modules_import_without_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "gvl_tpu"))
+                                            "transformers", "gvl_tpu"))
         assert not bad, bad
         from gvl_tpu_torch.ops import (ms_deform_attn_1d,
                                        ms_deform_attn_1d_banded)
@@ -90,12 +91,32 @@ def test_build_model_defaults_to_the_card_and_raises_without_one():
 def test_model_options_not_ported_raise_by_name():
     import pytest
     from gvl_tpu_torch.models.gvl import build_model
-    for kw, match in ((dict(enable_contrastive=True), "contrastive"),
-                      (dict(caption_decoder_type="light"), "light"),
+    for kw, match in ((dict(caption_decoder_type="light"), "light"),
                       (dict(support_mlp_class_head=True), "MLP class heads"),
                       (dict(with_box_refine=0), "with_box_refine")):
         with pytest.raises(NotImplementedError, match=match):
             build_model(_tiny_namespace(**kw), device="cpu")
+
+
+def test_text_side_modules_import_without_jax():
+    """Each module of the contrastive text side, alone in a fresh process,
+    imports none of JAX, flax, optax, transformers or gvl_tpu."""
+    for mod in ("gvl_tpu_torch.models.text_encoder",
+                "gvl_tpu_torch.models.text", "gvl_tpu_torch.models.gvl",
+                "gvl_tpu_torch.eval.postprocess",
+                "gvl_tpu_torch.eval.evaluate", "gvl_tpu_torch.train.criterion",
+                "gvl_tpu_torch.convert"):
+        code = textwrap.dedent(f"""
+            import sys
+            import {mod}
+            bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu"))
+            assert not bad, bad
+        """)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (mod, proc.stderr)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -180,3 +180,39 @@ def test_detection_outputs_match_jax(world):
         np.testing.assert_array_equal(dp[k].numpy(), np.asarray(dj[k]))
     for k in ("scores", "boxes", "raw_boxes"):
         close(dp[k], dj[k], rtol=2e-4, atol=1e-4)
+
+
+def test_long_video_model_with_msda_impl_ref_matches_jax_ref():
+    """msda_impl='ref' at S = 525 >= 512: the JAX model runs the exact dense
+    op in its encoder, and so must the port (the dense kernel route, as
+    band_margin = 0 does), where it used to take the banded route. The
+    encoder's sampling offsets are scaled x40 (taps up to 160 rows away, the
+    band margin is 32), so the band clamp would show: the trunk must match
+    JAX 'ref' within 1e-4 absolute (rtol 2e-4; the scaled offsets put taps
+    at rows where an ulp of the tap position moves an output by 2e-5, the
+    module tolerance) and differ from the same weights under 'pallas', the
+    banded route, by more than 1e-3."""
+    cfg, model, params, _, _ = jax_world(frame_embedding_num=300,
+                                         msda_impl="ref")
+    assert sum(cfg.temporal_shapes()) >= 512 and cfg.msda_band_margin > 0
+    params = jax.tree_util.tree_map(np.asarray, params)
+    for i in range(cfg.enc_layers):
+        so = params["params"]["encoder"][f"layer_{i}"]["self_attn"][
+            "sampling_offsets"]
+        so["kernel"], so["bias"] = so["kernel"] * 40, so["bias"] * 40
+    sd = jax_params_to_state_dict(params, GVLArch.from_config(cfg))
+    feats, mask, duration = make_inputs(cfg)
+    want = model.apply(params, jnp.asarray(feats), jnp.asarray(mask),
+                       jnp.asarray(duration))
+    got = {}
+    for impl in ("ref", "pallas"):
+        cfg.msda_impl = impl
+        port = build_model(cfg, device="cpu")
+        port.load_state_dict(sd, strict=True)
+        with torch.inference_mode():
+            got[impl] = port(torch.from_numpy(feats), torch.from_numpy(mask),
+                             torch.from_numpy(duration))
+    for key in ("memory", "hs", "pred_boxes"):
+        close(got["ref"][key], want[key], rtol=2e-4, atol=1e-4)
+    assert float((got["pallas"]["memory"] - got["ref"]["memory"]).abs()
+                 .max()) > 1e-3
