@@ -39,6 +39,13 @@ exits non-zero:
      1e-4, greedy tokens >= 99%; through the eval step, the grounding boxes
      (in lengths of their video) and cl_scores of both decoder layers to
      1e-4 and each eval loss to 1e-4 relative.
+ 5a. (flagship) matching scores: one batch through EvalRunner.run with
+     eval_enable_matching_score and eval_matching_score_weight 1.0 on both
+     paths: every prediction's cl_score finite, non-zero and a cosine, the
+     reranked JSON written, the paths' cl_scores within 1e-4.
+ 5b. (flagship) the bf16-weight text pass (train_use_amp, eval_use_amp) on
+     an eval step's tokens equals an f32 pass over weights rounded by hand
+     (<= 1e-6); its difference from the f32 pass and both times logged.
   6. time: eval clips/s at B=16 for both paths: windows of back-to-back
      eval steps (tokenization, text pass, losses and grounding included),
      each window timed whole by CUDA events, the paths taken in turns; the
@@ -68,13 +75,16 @@ exits non-zero:
      epoch 2, so its loss and the matcher's contrastive cost are live, Adam
      at 5e-5, clip 100, dropout on); checks the loss keys, finite losses, 4
      forward + 4 backward kernel launches per step, a finite gradient on
-     every parameter, that the parameters moved and the text encoder did
-     not.
+     every parameter, that the parameters moved and the frozen text
+     encoder did not (a text encoder that trains, phase 15: a finite
+     gradient on each of its parameters, the pooler's exactly 0, and that
+     it moved).
  10. kernel path vs plain path, gradients: one batch's loss and gradients
      with dropout off, through the kernels and through the plain op; total
      loss and the contrastive losses to 1e-4 relative, each named gradient
-     (the text side's included) to 1e-3 x its max abs (+ 1e-8 for
-     gradients that are zero but for rounding). Runs before
+     (the text side's included, and a trained text encoder's) to 1e-3 x
+     its max abs (+ 1e-8 for gradients that are zero but for rounding).
+     Runs before
      phase 9, on the seeded weights: the gradient of a sampling location
      jumps where a tap crosses a value row, the 3e-6 between the paths'
      activations moves a few taps of a step across one, and a single such
@@ -85,10 +95,12 @@ exits non-zero:
  11. train time: median of 10 CUDA-event-timed steps after 3 warm-up steps,
      steps/s and clips/s; the split into trunk forward, text pass,
      criterion (with the matcher's copy to the host and its solve, host
-     clock), teacher forcing, backward, optimizer; peak device memory. With
+     clock), teacher forcing, backward, optimizer (with a text encoder that
+     trains also its backward and its optimizer); peak device memory. With
      --profile DIR also torch.profiler's device time and op count per train
-     step and its top device ops, and the text encoder alone as in phase 7;
-     the op tables go into DIR.
+     step and its top device ops, and the text encoder alone as in phase 7
+     (forward and backward when it trains, beside three times the forward's
+     FLOP bound); the op tables go into DIR.
  12. banded kernel vs plain: the banded forward CUDA kernel against its
      plain PyTorch version at the long-video encoder shape of the eval step
      (YouMakeup widths: B=8, levels 800+400+200+100 = S 1500, H=8, Dh=64,
@@ -115,15 +127,21 @@ exits non-zero:
  14. long-video eval main path: first, the YouMakeup-shaped model built with
      msda_impl='ref' launches the dense kernel 4 times and the banded one
      never in one forward (the JAX package's 'ref' is the exact dense op at
-     every S); then the model as configured (widths of
-     cfgs/ym_i3d_msvg_dvc.yml as tools/bench_longvideo.py builds them:
-     hidden 512, 8 heads, 2+2 layers, 100 queries, vocab 1247, 1024-d
-     features, 800 frames; contrastive off) through EvalRunner.run over 3
-     batches of 8 synthetic videos: 2 banded + 2 dense forward launches per
-     batch; then phases 5 and 6 on this model (6 with fewer rounds).
- 15. long-video train main path: 5 steps at B=4 (10 GT slots, 3-10 events
-     per video, captions of 30 tokens, Adam at 1e-4 with L2 1e-4): 2 launches
-     per step of each of the four kernels; then phases 10 and 11 on it.
+     every S); then the model as cfgs/ym_i3d_msvg_dvc.yml publishes it
+     (hidden 512, 8 heads, 2+2 layers, 100 queries, vocab 1247, 1024-d
+     features, 800 frames; the contrastive text side with
+     layer-independent text features, the offline RoBERTa at 768 x 12,
+     G = 64 sentence slots, grounding eval on) through EvalRunner.run over
+     3 batches of 8 synthetic videos with 3-10 events and one video of 70
+     sentences (its last 6 grounded in a second text pass): 2 banded + 2
+     dense forward launches per batch, both grounding JSONs; then phases 5
+     and 6 on this model (6 with fewer rounds).
+ 15. long-video train main path: 5 steps at B=4 (64 GT slots, 3-10 events
+     per video with their sentences, captions of 30 tokens, Adam at 1e-4
+     with L2 1e-4; the text encoder trained by its own Adam at 1e-5 with L2
+     1e-4 on its multi_step schedule, its gradients clipped by their own
+     norm): 2 launches per step of each of the four kernels, the text
+     encoder's checks of phase 9; then phases 10 and 11 on it.
 With --kernels-only the script stops after phases 1-3, 8, 12 and 13. With
 --profile DIR phases 7 and 11 also profile the long-video steps. The last
 two lines are the kernels' JSON summary (four kernels, each with the
@@ -180,7 +198,6 @@ TRAIN_LOSS_KEYS = {f"{k}{sfx}" for k in (
 CL_LOSS_KEYS = {"contrastive_loss", "contrastive_loss_0"}
 GROUNDING_KEYS = {"timestamp", "score", "cl_score", "sentence"}
 GROUNDING_TOL = 1e-4    # phase 5: boxes (in video lengths) and cl_scores
-LONG_VIDEO_SENTENCES = 37   # phase 4: one flagship video has more than G
 # NVIDIA H100 SXM data sheet: device memory rate, f32 rate outside the
 # tensor cores
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
@@ -223,15 +240,22 @@ FLAGSHIP = dict(
     text_encoder_learning_strategy="frozen", max_text_input_len=32,
     gt_proposal_sample_num=30, eval_batch_size=16,
     load_pretrained_language_model_from_config="offline",
-    offline_text_encoder_hidden=768, offline_text_encoder_layers=12, seed=777)
+    offline_text_encoder_hidden=768, offline_text_encoder_layers=12, seed=777,
+    ec_alpha=1.0)
 CL_EPOCH = 2        # the contrastive weight's schedule value from this epoch
-# cfgs/ym_i3d_msvg_dvc.yml at the shapes of tools/bench_longvideo.py
-# (YouMakeup: 800 frames of 1024-d i3d features, 100 queries, vocab 1247),
-# contrastive off (its config trains the text encoder, which the port does
-# not yet); its loss coefficients are the flagship's
+# cfgs/ym_i3d_msvg_dvc.yml as published, at the trunk widths it shares with
+# the flagship (YouMakeup: 800 frames of 1024-d i3d features, 100 queries,
+# vocab 1247): the contrastive text side with layer-independent text
+# features, grounding eval, G = min(gt_proposal_sample_num 300, 64) = 64
+# sentence slots, Adam with L2 1e-4, and the text encoder trained by an Adam
+# of its own on a multi_step schedule (1e-5, halved every 3 epochs from 8)
 LONGVIDEO = dict(
-    FLAGSHIP_DVC, num_queries=100, feature_dim=1024, frame_embedding_num=800,
-    vocab_size=1247, lr=1e-4, weight_decay=1e-4, epoch=25)
+    FLAGSHIP, num_queries=100, feature_dim=1024, frame_embedding_num=800,
+    vocab_size=1247, lr=1e-4, weight_decay=1e-4, epoch=25, ec_alpha=0.3,
+    enable_layer_diff_text_feature=False, gt_proposal_sample_num=300,
+    eval_batch_size=8, text_encoder_learning_strategy="multi_step",
+    text_encoder_lr=1e-5, text_encoder_lr_decay_start=8,
+    text_encoder_lr_decay_every=3, text_encoder_lr_decay_rate=0.5)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +271,14 @@ class Workload:
     gt_counts: tuple         # (lo, hi) events per video; None: ActivityNet's
     duration: tuple          # seconds, (lo, hi)
     n_rounds: int            # phase 6: paired rounds of N_WINDOW steps
+    long_sentences: int = 0  # phases 4, 14: one eval video has this many
+                             # sentences, more than max_gt
+
+    @property
+    def trains_text(self) -> bool:
+        """The text encoder trains (text_encoder_learning_strategy)."""
+        return self.contrastive and self.cfg.get(
+            "text_encoder_learning_strategy", "frozen") != "frozen"
 
     @property
     def contrastive(self) -> bool:
@@ -268,10 +300,10 @@ class Workload:
 
 ANET = Workload("anet", "", FLAGSHIP, (100, 50, 25, 13), eval_B=16,
                 train_B=16, max_gt=30, gt_counts=None, duration=(30, 200),
-                n_rounds=10)
+                n_rounds=10, long_sentences=37)
 LONG = Workload("longvideo", "lv", LONGVIDEO, (800, 400, 200, 100), eval_B=8,
-                train_B=4, max_gt=10, gt_counts=(3, 10), duration=(100, 300),
-                n_rounds=5)
+                train_B=4, max_gt=64, gt_counts=(3, 10), duration=(100, 300),
+                n_rounds=5, long_sentences=70)
 LV_MARGIN = 32               # msda_band_margin's default, as the model runs it
 
 
@@ -931,9 +963,9 @@ def gt_fields(w: Workload, rs, counts) -> dict:
 
 def synthetic_batches(w: Workload, n: int, seed: int, long_video: bool = True):
     """Eval batches of w.eval_B videos, one padded video in eight; with the
-    contrastive side on also GT events and sentences (ActivityNet counts),
-    and, with long_video, one video of the first batch with
-    LONG_VIDEO_SENTENCES sentences (more than the G slots)."""
+    contrastive side on also GT events and sentences (event counts as
+    `event_counts`), and, with long_video, one video of the first batch
+    with w.long_sentences sentences (more than the G slots)."""
     rs = np.random.RandomState(seed)
     B, T = w.eval_B, w.cfg["frame_embedding_num"]
     for i in range(n):
@@ -948,13 +980,13 @@ def synthetic_batches(w: Workload, n: int, seed: int, long_video: bool = True):
         if w.contrastive:
             counts = event_counts(w, rs, B)
             if long_video and i == 0:
-                counts[3] = LONG_VIDEO_SENTENCES
+                counts[3] = w.long_sentences
             batch.update(gt_fields(w, rs, counts))
         yield batch
 
 
 def load_text(w: Workload, dev):
-    """The frozen offline RoBERTa of a contrastive workload, seeded; None
+    """The offline RoBERTa of a contrastive workload, seeded, frozen; None
     without the text side."""
     from gvl_tpu_torch.models.text_encoder import load_text_encoder
     if not w.contrastive:
@@ -1044,7 +1076,7 @@ def phase_main_path(w: Workload, dev):
               and all(math.isfinite(v) for v in losses.values()),
               f"eval losses {losses}")
         log(tag, f"grounding and aux grounding JSONs: {n} keys, one per GT "
-                 f"sentence ({LONG_VIDEO_SENTENCES} in one video, G = "
+                 f"sentence ({w.long_sentences} in one video, G = "
                  f"{w.max_gt}); eval losses {dict(losses)!r}")
     return cfg, model, runner, launches
 
@@ -1111,6 +1143,96 @@ def phase_paths_agree(w: Workload, cfg, model, runner):
              f"{worst!r} ({worst_k}); contrastive_loss kernel "
              f"{float(kstep['losses']['contrastive_loss'])!r}, plain "
              f"{float(pstep['losses']['contrastive_loss'])!r}")
+
+
+# ------------------------------------------------------- phases 5a, 5b
+def phase_matching_scores(w: Workload, model, runner) -> None:
+    """One eval batch through EvalRunner.run with eval_enable_matching_score
+    and eval_matching_score_weight 1.0, kernel path and plain path: every
+    prediction's cl_score (its generated caption encoded again, against its
+    query's event embedding) finite, non-zero and a cosine; the reranked
+    JSON written; the paths' cl_scores within GROUNDING_TOL wherever their
+    captions agree, which they must in TOKEN_AGREEMENT of the predictions."""
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    from gvl_tpu_torch.models.layers import set_msda_impl
+    tag = w.tag + "match"
+    cfg = types.SimpleNamespace(**dict(w.cfg, eval_enable_matching_score=True,
+                                       eval_matching_score_weight=1.0))
+    match = EvalRunner(cfg, model, runner.translator, runner.text_encoder)
+    batch = next(synthetic_batches(w, 1, SEED + 4, long_video=False))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl in ("kernel", "ref"):
+            set_msda_impl(model, impl)
+            t0 = time.perf_counter()
+            path, out_json, *_ = match.run([batch], f"{tmp}/{impl}.json")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(path.endswith("_rerank_alpha%s_temp2.0.json" % cfg.ec_alpha)
+                  and os.path.exists(path), f"reranked JSON {path}")
+            with open(path) as f:
+                reranked = json.load(f)
+            res[impl] = out_json["results"]
+            scores = [p["cl_score"] for v in res[impl].values() for p in v]
+            check(len(scores) > 0 and all(
+                math.isfinite(x) and x != 0.0 and abs(x) <= 1.0 + 1e-5
+                for x in scores), f"{impl} path cl_scores {scores[:8]}")
+            n_kept = sum(map(len, reranked["results"].values()))
+            log(tag, f"{impl} path: EvalRunner.run with matching scores, "
+                     f"{w.eval_B} videos, {wall:.3f} s wall; {len(scores)} "
+                     f"cl_scores in [{min(scores)!r}, {max(scores)!r}]; "
+                     f"reranked JSON {n_kept} events")
+    set_msda_impl(model, "kernel")
+    n, same, worst = 0, 0, 0.0
+    for vid, items in res["kernel"].items():
+        plain = res["ref"][vid]
+        check(len(items) == len(plain), f"{vid}: {len(items)} vs "
+                                        f"{len(plain)} predictions")
+        for k, p in zip(items, plain):
+            n += 1
+            if (k["query_id"], k["sentence"]) == (p["query_id"],
+                                                   p["sentence"]):
+                same += 1
+                worst = max(worst, abs(k["cl_score"] - p["cl_score"]))
+    log(tag, f"kernel vs plain path: {same} of {n} predictions with the same "
+             f"query and caption, their cl_scores within {worst!r}")
+    check(same >= TOKEN_AGREEMENT * n and worst <= GROUNDING_TOL,
+          f"matching scores: {same} of {n} agree, worst {worst}")
+
+
+def phase_bf16_text(w: Workload, runner) -> None:
+    """The bf16-weight text pass (train_use_amp, eval_use_amp) on one eval
+    step's tokens equals an f32 pass over weights rounded to bfloat16 by
+    hand (max abs <= 1e-6); its difference from the f32 pass and the times
+    of both passes are logged."""
+    from gvl_tpu_torch.models.text_encoder import load_text_encoder
+    tag = w.tag + "bf16text"
+    text, dev = runner.text_encoder, runner.device
+    batch = next(synthetic_batches(w, 1, SEED + 3, long_video=False))
+    _, _, arrs = runner._prepare(batch)
+    B, G, L = arrs["text_ids"].shape
+    ids = torch.from_numpy(arrs["text_ids"]).to(dev).reshape(B * G, L).long()
+    tmask = torch.from_numpy(arrs["text_mask"]).to(dev).reshape(B * G, L)
+    rounded = load_text_encoder(types.SimpleNamespace(**w.cfg), device=dev)
+    rounded.load_state_dict({k: v.to(torch.bfloat16).float()
+                             for k, v in text.state_dict().items()})
+    with torch.inference_mode():
+        got = text(ids, tmask, bf16_weights=True)
+        f32 = text(ids, tmask)
+        by_hand = rounded(ids, tmask)
+        ms = {name: cuda_median_ms(fn, 3, warmup=1) for name, fn in (
+            ("bf16 weights", lambda: text(ids, tmask, bf16_weights=True)),
+            ("f32", lambda: text(ids, tmask)))}
+    err = (got - by_hand).abs().max().item()
+    diff = (got - f32).abs().max().item()
+    del rounded
+    log(tag, f"text encoder on {B * G} x {L} tokens over bf16-rounded "
+             f"weights: max abs diff {err!r} from an f32 pass over weights "
+             f"rounded by hand, {diff!r} from the f32 pass; "
+             f"{ms['bf16 weights']!r} ms a call, f32 {ms['f32']!r} ms")
+    check(bool(torch.isfinite(got).all()) and err <= 1e-6 and diff > 0,
+          f"bf16-weight text pass: {err} from the rounded weights, {diff} "
+          f"from f32")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1193,17 +1315,22 @@ def summarise_profile(tag: str, prof, what: str, path: pathlib.Path,
     return busy_ms / N_PROFILED, n_ops / N_PROFILED
 
 
-def text_bound(text, N: int, L: int) -> dict:
+def text_bound(text, N: int, L: int, backward: bool = False) -> dict:
     """The least time of one text-encoder call on N sequences of L tokens:
     its weights, token ids and mask read once and its output written once
     at the memory rate, against its multiply-adds (Q, K, V and output
-    projections, the FFN, the attention's two products) at the f32 rate."""
+    projections, the FFN, the attention's two products) at the f32 rate.
+    With backward, the call and its backward: three times the multiply-adds
+    (each product's two gradients), the output's gradient read and the
+    weights' gradients written once more."""
     s = text.text_encoder.spec
     H, F, n_layers = s.hidden_size, s.intermediate_size, s.num_layers
     macs = n_layers * N * L * (4 * H * H + 2 * H * F + 2 * L * H)
-    flops = 2 * macs
-    nbytes = 4 * (sum(p.numel() for p in text.parameters())
-                  + 2 * N * L + N * L * H)
+    flops = 2 * macs * (3 if backward else 1)
+    n_weights = sum(p.numel() for p in text.parameters())
+    nbytes = 4 * (n_weights + 2 * N * L + N * L * H)
+    if backward:
+        nbytes += 4 * (n_weights + N * L * H)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / F32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_flops), flops=flops, bytes=nbytes,
@@ -1211,28 +1338,43 @@ def text_bound(text, N: int, L: int) -> dict:
 
 
 def profile_text_encoder(tag: str, text, ids, tmask, step_busy: float,
-                         step_ops: float, out_dir: pathlib.Path) -> dict:
-    """The text encoder alone on one step's (B x G, L) tokens: CUDA-event
-    median of N_PROFILED calls on an idle device, and torch.profiler's
-    device time and op count per call, beside its FLOP bound and as a share
-    of the step's device busy time and op count."""
+                         step_ops: float, out_dir: pathlib.Path,
+                         backward: bool = False) -> dict:
+    """The text encoder alone on one step's (B x G, L) tokens (with
+    backward: its forward and backward against a seeded output gradient, as
+    a train step that trains it runs them): CUDA-event median of N_PROFILED
+    calls on an idle device, and torch.profiler's device time and op count
+    per call, beside its FLOP bound and as a share of the step's device busy
+    time and op count."""
     from torch.profiler import ProfilerActivity, profile
     N, L = ids.shape
+    what = "forward + backward" if backward else "forward"
+    if backward:
+        gout = torch.randn(N, L, text.hidden_size, device=ids.device,
+                           generator=torch.Generator(
+                               device=ids.device).manual_seed(SEED))
 
-    def call():
-        return text(ids, tmask)
+        def call():
+            text(ids, tmask).backward(gout)
+    else:
+        def call():
+            return text(ids, tmask)
 
-    with torch.inference_mode():
+    with torch.inference_mode(not backward):
         ms = cuda_median_ms(call, N_PROFILED)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(N_PROFILED):
                 call()
             torch.cuda.synchronize()
-    busy, ops = summarise_profile(tag, prof, "text encoder calls",
-                                  out_dir / "text_encoder_ops.txt", top_n=4)
-    bd = text_bound(text, N, L)
-    log(tag, f"text encoder on {N} x {L} tokens: {ms!r} ms a call (CUDA "
-             f"events), device busy {busy!r} ms in {ops!r} ops; bound "
+    if backward:
+        text.zero_grad(set_to_none=True)
+    busy, ops = summarise_profile(
+        tag, prof, f"text encoder {what} calls",
+        out_dir / f"text_encoder_{'train' if backward else 'eval'}_ops.txt",
+        top_n=4)
+    bd = text_bound(text, N, L, backward)
+    log(tag, f"text encoder {what} on {N} x {L} tokens: {ms!r} ms a call "
+             f"(CUDA events), device busy {busy!r} ms in {ops!r} ops; bound "
              f"{bd['bound_ms']!r} ms ({bd['flops']:.4g} flop at "
              f"{F32_FLOP_PER_S:.3g}/s, {bd['bytes']:.4g} bytes; bound by "
              f"{bd['bound_by']}): {bd['bound_ms'] / busy:.1%} of the bound "
@@ -1405,9 +1547,10 @@ def train_batch(w: Workload, seed: int, text=None) -> dict:
 
 def build_train(w: Workload, dev):
     """The model on the card with seeded weights, its train state and step
-    (with the frozen text encoder when the text side is on), the loss
-    weights (the contrastive weight the schedule gives at CL_EPOCH) and two
-    seeded batches."""
+    (with the text side on: the text encoder, frozen or trained as the
+    config's text_encoder_learning_strategy says), the loss weights (the
+    contrastive weight the schedule gives at CL_EPOCH) and two seeded
+    batches."""
     from gvl_tpu_torch.models.gvl import build_model
     from gvl_tpu_torch.train.criterion import (LossSpec, cl_weight_at_epoch,
                                                make_weight_dict)
@@ -1423,11 +1566,14 @@ def build_train(w: Workload, dev):
           f"device is {next(model.parameters()).device}, not {dev}")
     statics = StepStatics(
         spec=LossSpec.from_config(cfg), enable_contrastive=w.contrastive,
-        caption_loss=True, two_stage=False, train_text_encoder=False,
+        caption_loss=True, two_stage=False, train_text_encoder=w.trains_text,
         disable_mid_caption_heads=False, enable_pos_emb_for_captioner=False,
-        temporal_shapes=w.shapes)
+        temporal_shapes=w.shapes,
+        text_bf16=bool(getattr(cfg, "train_use_amp", False)))
     state = create_train_state(cfg, model, STEPS_PER_EPOCH, statics, text)
     step = make_train_step(model, cfg, statics, text)
+    check((state.text_optimizer is not None) == w.trains_text,
+          "the text encoder's optimizer")
     weights = make_weight_dict(cfg)
     if w.contrastive:
         for k in weights:
@@ -1473,20 +1619,53 @@ def phase_train_main_path(w: Workload, model, state, step, weights,
                 for n, p in model.named_parameters())
     check(moved > 0.9 * n_params, f"only {moved} of {n_params} tensors moved")
     check(state.step == N_TRAIN_STEPS, f"state.step {state.step}")
-    for k, v in text0.items():
-        check(torch.equal(state.text_encoder.state_dict()[k], v),
-              f"the frozen text encoder's {k} moved")
+    if w.trains_text:
+        text_moved = text_grads(tag, state.text_encoder, text0)
+    else:
+        for k, v in text0.items():
+            check(torch.equal(state.text_encoder.state_dict()[k], v),
+                  f"the frozen text encoder's {k} moved")
     log(tag, f"{w.name}: {N_TRAIN_STEPS} steps at B={w.train_B}, "
              f"G={w.max_gt}: {wall:.3f} s wall (first step included); "
              f"launches {launches} (per step "
              f"{want_counts(w, 1, train=True)}); {n_params} parameter "
              f"tensors with a finite gradient, {moved} moved; lr "
-             f"{state.optimizer.param_groups[0]['lr']!r}")
+             f"{state.optimizer.param_groups[0]['lr']!r}"
+        + (f"; text encoder: {text_moved} parameter tensors moved, lr "
+           f"{state.text_optimizer.param_groups[0]['lr']!r}"
+           if w.trains_text else ""))
     return launches
 
 
+def text_grads(tag: str, text, text0: dict) -> int:
+    """A trained text encoder after its steps: a finite gradient on every
+    parameter, the pooler's exactly 0 (no loss reaches it; the step gives
+    it zeros, which Adam's L2 term turns into a move), every parameter
+    moved but the pooler's bias (0 at the start, no L2 term) and the
+    attention's key biases (their gradient is 0 in exact arithmetic: they
+    shift every logit of a softmax alike). Returns the number of parameter
+    tensors that moved."""
+    n_moved = 0
+    for n, p in text.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"text encoder {n} has no finite gradient")
+        if ".pooler." in n:
+            check(not bool(p.grad.any()), f"pooler gradient {n} is not 0")
+        moved = not torch.equal(p.detach(), text0[n])
+        n_moved += moved
+        check(moved or n.endswith(("pooler.dense.bias",
+                                   "attention.self.key.bias")),
+              f"text encoder {n} did not move")
+    log(tag, f"text encoder: {n_moved} of "
+             f"{len(list(text.parameters()))} parameter tensors moved, every "
+             f"gradient finite, the pooler's exactly 0")
+    return n_moved
+
+
 # --------------------------------------------------------------- phase 10
-def phase_train_paths_agree(w: Workload, model, step, weights, batch) -> None:
+def phase_train_paths_agree(w: Workload, model, step, weights, batch,
+                            text=None) -> None:
+    """With a text encoder that trains (text), its named gradients too."""
     from gvl_tpu_torch.models.layers import set_msda_impl
     tag = w.tag + "tpaths"
     model.eval()                          # dropout off, gradients on
@@ -1494,15 +1673,23 @@ def phase_train_paths_agree(w: Workload, model, step, weights, batch) -> None:
     for impl in ("kernel", "ref"):
         set_msda_impl(model, impl)
         model.zero_grad(set_to_none=True)
+        if text is not None:
+            text.zero_grad(set_to_none=True)
         losses = step.forward_losses(batch)
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
         total.backward()
         grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        tgrads = {n: p.grad.clone() if p.grad is not None
+                  else torch.zeros_like(p)
+                  for n, p in (text.named_parameters() if text is not None
+                               else ())}
         res[impl] = ({k: v.detach().item() for k, v in losses.items()},
-                     total.detach().item(), grads)
+                     total.detach().item(), grads, tgrads)
     set_msda_impl(model, "kernel")
     model.zero_grad(set_to_none=True)
-    (kl, kt, kg), (pl, pt, pg) = res["kernel"], res["ref"]
+    if text is not None:
+        text.zero_grad(set_to_none=True)
+    (kl, kt, kg, ktg), (pl, pt, pg, ptg) = res["kernel"], res["ref"]
     rel = abs(kt - pt) / abs(pt)
     log(tag, f"total loss kernel path {kt!r}, plain path {pt!r}: "
              f"relative difference {rel!r}")
@@ -1536,6 +1723,24 @@ def phase_train_paths_agree(w: Workload, model, step, weights, batch) -> None:
         check(n_text > 0 and worst_text_name, "text-side gradients")
         log(tag, f"{n_text} of them on the text side: worst {worst_text!r} "
                  f"({worst_text_name})")
+    if text is None:
+        return
+    worst, worst_name, n_zero = 0.0, "", 0
+    for n, g in ptg.items():
+        scale = g.abs().max().item()
+        err = (ktg[n] - g).abs().max().item()
+        check(math.isfinite(err) and bool(torch.isfinite(ktg[n]).all()),
+              f"text encoder {n}: gradient not finite")
+        check(err <= GRAD_TOL * scale + GRAD_FLOOR,
+              f"text encoder {n}: kernel vs plain path gradient {err} > "
+              f"{GRAD_TOL} x {scale} + {GRAD_FLOOR}")
+        n_zero += scale == 0.0
+        if scale > GRAD_FLOOR and err / scale > worst:
+            worst, worst_name = err / scale, n
+    check(n_zero <= 2, f"{n_zero} text-encoder gradients are 0")
+    log(tag, f"{len(ptg)} text-encoder gradients: worst max abs diff / own "
+             f"max abs {worst!r} ({worst_name}); {n_zero} exactly 0 (the "
+             f"pooler, which no loss reaches)")
 
 
 # --------------------------------------------------------------- phase 11
@@ -1560,15 +1765,26 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
 
     # the split: one CUDA event and one host time at the end of each part,
     # taken where the step calls the part: the trunk (model.forward), with
-    # the text side the text pass (the text encoder, then encode_text), the
-    # criterion, teacher forcing (up to the last caption_train_nll), backward
-    # (up to the gradient clip), optimizer (the rest: clip, Adam, schedule).
-    # The matcher is timed on the host after a synchronise, so that its copy
-    # does not count the wait for the trunk
+    # the text side the text encoder and encode_text, the criterion, teacher
+    # forcing (up to the last caption_train_nll), backward (up to the
+    # gradient clip), optimizer (the rest: clip, Adam, schedule). With a text
+    # encoder that trains, backward ends where the gradient of the text
+    # encoder's output is complete, text_backward where its embeddings'
+    # gradient is accumulated (autograd runs the nodes made last first, so
+    # the trunk's backward mostly follows), trunk_backward at the first
+    # clip, optimizer (the model's clip and Adam) at the second, and
+    # text_optimizer (the text encoder's clip and Adam, both schedules) at
+    # the end. The matcher is timed on the host after a synchronise, so that
+    # its copy does not count the wait for the trunk
     import gvl_tpu_torch.train.state as train_state
-    model = state.model
-    parts = ("trunk",) + (("text",) if w.contrastive else ()) + (
-        "criterion", "captions", "backward", "optimizer")
+    model, text = state.model, state.text_encoder
+    trains = w.trains_text
+    parts = (("trunk",) + (("text_encoder", "text") if w.contrastive else ())
+             + ("criterion", "captions", "backward")
+             + (("text_backward", "trunk_backward") if trains else ())
+             + ("optimizer",) + (("text_optimizer",) if trains else ()))
+    clip_names = ["trunk_backward", "optimizer"] if trains else ["backward"]
+    n_clips = []
     dev_ms = {k: [] for k in parts}
     host_ms = {k: [] for k in parts}
     lap_ms = {"copy": [], "solve": []}
@@ -1589,6 +1805,22 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
             return out
         return wrapper
 
+    def text_forward(fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            mark("text_encoder")
+            if out.requires_grad:
+                out.register_hook(lambda g: mark("backward"))
+            return out
+        return wrapper
+
+    def clip_marked(fn):
+        def wrapper(*args, **kwargs):
+            mark(clip_names[len(n_clips)])
+            n_clips.append(1)
+            return fn(*args, **kwargs)
+        return wrapper
+
     orig_lap = criterion.batched_lap
 
     def timed_lap(cost, col_valid=None):
@@ -1606,18 +1838,24 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
     orig = (train_state.compute_criterion, train_state.clip_global_norm)
     criterion.batched_lap = timed_lap
     train_state.compute_criterion = marked(orig[0], "criterion")
-    train_state.clip_global_norm = marked(orig[1], "backward", before=True)
+    train_state.clip_global_norm = clip_marked(orig[1])
     model.forward = marked(model.forward, "trunk")
     model.caption_train_nll = marked(model.caption_train_nll, "captions")
+    hook = None
     if w.contrastive:
         model.encode_text = marked(model.encode_text, "text")
+        text.forward = text_forward(text.forward)
+    if trains:
+        hook = text.text_encoder.embeddings.word_embeddings.weight \
+            .register_post_accumulate_grad_hook(
+                lambda p: mark("text_backward"))
     try:
         for i in range(N_TRAIN_SPLIT):
-            del marks[:]
+            del marks[:], n_clips[:]
             torch.cuda.synchronize()
             mark("start")
             step(state, batches[i % 2], weights)
-            mark("optimizer")
+            mark(parts[-1])
             torch.cuda.synchronize()
             check([m[0] for m in marks[1:]] == list(parts),
                   f"split marks {[m[0] for m in marks]}")
@@ -1627,7 +1865,9 @@ def phase_train_time(w: Workload, state, step, weights, batches) -> dict:
     finally:
         del model.forward, model.caption_train_nll
         if w.contrastive:
-            del model.encode_text
+            del model.encode_text, text.forward
+        if hook is not None:
+            hook.remove()
         criterion.batched_lap = orig_lap
         train_state.compute_criterion, train_state.clip_global_norm = orig
     med = statistics.median
@@ -1664,7 +1904,7 @@ def phase_train_profile(w: Workload, state, step, weights, batches,
             torch.from_numpy(batches[0]["text_ids"]).to(dev).reshape(
                 B * G, L).long(),
             torch.from_numpy(batches[0]["text_mask"]).to(dev).reshape(
-                B * G, L), busy, ops, out_dir)
+                B * G, L), busy, ops, out_dir, backward=w.trains_text)
 
 
 def phase_msda_ref_route(dev) -> None:
@@ -1833,6 +2073,9 @@ def main() -> None:
             phase_msda_ref_route(dev)
         cfg, model, runner, launches[f"{w.name}_eval"] = phase_main_path(w, dev)
         phase_paths_agree(w, cfg, model, runner)
+        if w is ANET:
+            phase_matching_scores(w, model, runner)
+            phase_bf16_text(w, runner)
         med = phase_time(w, model, runner)
         log("time", f"{w.name} eval clips/s: kernel path "
                     f"{w.eval_B / med['kernel'] * 1e3!r}, plain path "
@@ -1842,7 +2085,8 @@ def main() -> None:
         del model, runner
         tmodel, state, step, weights, batches = build_train(w, dev)
         # phase 10 before phase 9: see the docstring
-        phase_train_paths_agree(w, tmodel, step, weights, batches[0])
+        phase_train_paths_agree(w, tmodel, step, weights, batches[0],
+                                state.text_encoder if w.trains_text else None)
         launches[f"{w.name}_train"] = phase_train_main_path(
             w, tmodel, state, step, weights, batches)
         phase_train_time(w, state, step, weights, batches)

@@ -7,8 +7,10 @@ query/key/value kernels (C, H, Dh) -> in_proj_weight (3C, C), or for the
 BERT-style sentence block separate query/key/value weights (C, C); LSTM
 ih/hh kernels transposed. `flax_roberta_to_state_dict` maps the HF Flax
 RoBERTa tree of the text encoder onto HF `RobertaModel` names under
-`text_encoder.`. Takes numpy, so it runs wherever the JAX parameters can be
-saved as arrays (e.g. an .npz of the flattened tree).
+`text_encoder.`, which are also the names of the text encoder's
+parameters, so it maps the tree's gradients too. Takes numpy, so it runs
+wherever the JAX parameters can be saved as arrays (e.g. an .npz of the
+flattened tree).
 """
 
 from __future__ import annotations
@@ -193,9 +195,10 @@ def flax_roberta_to_state_dict(params_np: Mapping,
                                ) -> Dict[str, torch.Tensor]:
     """Map an HF `FlaxRobertaModel` parameter tree (leaves numpy or
     array-likes) onto HF `RobertaModel` state_dict names under `prefix`, the
-    names of gvl_tpu_torch.models.text_encoder.TextEncoder. The pooler,
-    which the encoder never runs, is mapped too. Raises if a flax parameter
-    is left unmapped."""
+    names of gvl_tpu_torch.models.text_encoder.TextEncoder, which are those
+    of its named_parameters(): a tree of the same structure (gradients, Adam
+    moments) maps onto them alike. The pooler, which the encoder never runs,
+    is mapped too. Raises if a flax parameter is left unmapped."""
     if "params" in params_np and isinstance(params_np["params"], Mapping):
         params_np = params_np["params"]
     src = _flatten(params_np)

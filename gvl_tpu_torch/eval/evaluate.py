@@ -3,14 +3,20 @@ iterable, writes the reference's DVC result JSON, reranks it, and writes the
 grounding JSONs.
 
 Port of gvl_tpu/eval/evaluate.py (`_eval_step` for the standard caption
-head, `_grounding_chunk`, `run`, `_assemble`, `_assemble_grounding`,
-`save_dvc_json`, `reranking`), serial: one batch is computed, copied to the
-host and assembled before the next. With the contrastive side on, the text
-encoder and `encode_text` run on the batch's sentences, the eval losses take
-the text embeddings, and with eval_enable_grounding every GT sentence gets
-one event, also the sentences past the G slots (in G-sized chunks against
-the batch's saved trunk outputs). Not ported: matching scores, the bf16
-options, beam search, zero-shot TAL, the TAL JSON and the plot hooks.
+head, `_grounding_chunk`, `_matching_scores`, `run`, `_assemble`,
+`_assemble_grounding`, `save_dvc_json`, `reranking`), serial: one batch is
+computed, copied to the host and assembled before the next. With the
+contrastive side on, the text encoder and `encode_text` run on the batch's
+sentences (over bf16-rounded weights under eval_use_amp), the eval losses
+take the text embeddings, and with eval_enable_grounding every GT sentence
+gets one event, also the sentences past the G slots (in G-sized chunks
+against the batch's saved trunk outputs). With eval_enable_matching_score
+each ranked prediction's generated caption is encoded again and its cosine
+with its query's event embedding is its `cl_score`, which the reranking
+weighs by eval_matching_score_weight. As in the JAX package, the chunks past
+G and the matching-score pass use the f32 weights even under eval_use_amp
+(evaluate.py:283-324). Not ported: the bf16 decode options, beam search,
+zero-shot TAL, the TAL JSON and the plot hooks.
 
 DVC JSON: {"results": {vid: [{timestamp, raw_box, label, proposal_score,
 sentence, sentence_score, cl_score, query_id, vid_duration,
@@ -87,14 +93,6 @@ def _check_ported(cfg: Any, text_encoder) -> None:
     if get("transformer_input_type", "queries") != "queries":
         raise NotImplementedError("only query-mode eval is ported")
     if get("enable_contrastive", False):
-        if get("eval_enable_matching_score", False):
-            raise NotImplementedError(
-                "eval_enable_matching_score (the matching-score pass over the "
-                "generated captions) is not ported yet")
-        if get("eval_use_amp", False):
-            raise NotImplementedError(
-                "eval_use_amp (the text encoder in bfloat16) is not ported "
-                "yet")
         if text_encoder is None:
             raise ValueError("EvalRunner: enable_contrastive needs the text "
                              "encoder (models.text_encoder.load_text_encoder)")
@@ -104,7 +102,7 @@ class EvalRunner:
     """DVC and grounding eval of a GVLModel.
 
     cfg: any object with the JAX Config's attribute names; translator:
-    anything with `.rtranslate(ids) -> str`; text_encoder: the frozen
+    anything with `.rtranslate(ids) -> str`; text_encoder: the
     `TextEncoder` (required with enable_contrastive). Batches (for `run`):
     numpy dicts with `keys`, `video_feats` (B, T, D), `video_mask` (B, T)
     and `duration` (B,), as gvl_tpu.data.dataset.Batcher yields them; with
@@ -125,6 +123,10 @@ class EvalRunner:
         self.contrastive = bool(getattr(cfg, "enable_contrastive", False))
         self.grounding = self.contrastive and bool(
             getattr(cfg, "eval_enable_grounding", True))
+        self.matching = self.contrastive and bool(
+            getattr(cfg, "eval_enable_matching_score", False))
+        self.text_bf16 = self.contrastive and bool(
+            getattr(cfg, "eval_use_amp", False))
         self.G = effective_max_gt_events(cfg)
         self.max_text_len = int(getattr(cfg, "max_text_input_len", 32))
 
@@ -145,11 +147,13 @@ class EvalRunner:
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
-    def _text(self, ids, tmask, smask, memory, mask_flat):
+    def _text(self, ids, tmask, smask, memory, mask_flat,
+              bf16_weights=False):
         """The text encoder over (B, G, Ltok) tokens, then encode_text."""
         B, G, Ltok = ids.shape
         word = self.text_encoder(ids.reshape(B * G, Ltok).long(),
-                                 tmask.reshape(B * G, Ltok))
+                                 tmask.reshape(B * G, Ltok),
+                                 bf16_weights=bf16_weights)
         return self.model.encode_text(
             word.float().reshape(B, G, Ltok, -1), tmask.bool(), smask,
             memory, mask_flat)
@@ -160,8 +164,8 @@ class EvalRunner:
         grounding outputs for one (padded, tokenized) batch, on the model's
         device. Port of evaluate.py:101-281 (standard head). Returns
         (result, the trunk tensors the sentences past G are grounded
-        against). The decode is enqueued before the losses, whose matcher
-        waits for the device."""
+        against and the matching-score pass reads). The decode is enqueued
+        before the losses, whose matcher waits for the device."""
         cfg = self.cfg
         feats = self._tensor(arrs["video_feats"])
         mask = self._tensor(arrs["video_mask"], torch.bool)
@@ -175,7 +179,8 @@ class EvalRunner:
         if self.contrastive:
             text_out = self._text(self._tensor(arrs["text_ids"]),
                                   self._tensor(arrs["text_mask"]), gt_mask,
-                                  out["memory"], out["mask_flat"])
+                                  out["memory"], out["mask_flat"],
+                                  bf16_weights=self.text_bf16)
         if cfg.caption_loss_coef > 0 and not cfg.eval_disable_captioning \
                 and cfg.caption_decoder_type != "none":
             query = out["hs"][-1]
@@ -206,6 +211,7 @@ class EvalRunner:
                 out, text_out["final"], duration, gt_mask, self.gspec, -1)
             result["grounding_aux"] = grounding_outputs(
                 out, text_out["aux"], duration, gt_mask, self.gspec, -2)
+        if self.grounding or self.matching:
             aux = {k: out[k] for k in ("pred_logits", "pred_boxes",
                                        "event_embed", "memory", "mask_flat")}
             aux["duration"] = duration
@@ -222,6 +228,26 @@ class EvalRunner:
                                   smask_t, self.gspec, -1),
                 grounding_outputs(aux, text_out["aux"], aux["duration"],
                                   smask_t, self.gspec, -2))
+
+    def _matching_scores(self, aux, ids, tmask, query_idx):
+        """cl_score[b, r] = cos(text of the caption ranked r, last-layer
+        event embedding of its query), ids (B, R, Ltok) the tokens of the
+        ranked captions, query_idx (B, R) their queries (evaluate.py:
+        305-324, reference PostProcess.forward): the text pass over f32
+        weights, encode_text with every sentence slot valid."""
+        ids, tmask = self._tensor(ids), self._tensor(tmask)
+        B, R, _ = ids.shape
+        text_out = self._text(ids, tmask,
+                              torch.ones(B, R, dtype=torch.bool,
+                                         device=self.device),
+                              aux["memory"], aux["mask_flat"])
+        t = text_out["final"]
+        e = aux["event_embed"][-1]
+        t = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-12)
+        e = e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-12)
+        e = torch.gather(e, 1, self._tensor(query_idx).long()[..., None]
+                         .expand(-1, -1, e.shape[-1]))
+        return (t * e).sum(-1)
 
     # -------------------------------------------------------------- host side
     def _prepare(self, batch: Dict, eval_bs: int = 0
@@ -269,6 +295,8 @@ class EvalRunner:
                 n_rows += real_b
                 for k, v in res.get("losses", {}).items():
                     loss_sum[k] = loss_sum.get(k, 0.0) + float(v) * real_b
+                if self.matching and "seq" in res:
+                    res["det"]["cl_scores"] = self._match_pass(res, aux)
                 self._assemble(batch, res, out_json)
                 if "grounding" in res:
                     self._assemble_grounding(batch, res["grounding"],
@@ -287,6 +315,17 @@ class EvalRunner:
         save_dvc_json(out_json_g, dvc_json_path + ".grounding.json")
         save_dvc_json(aux_out_json_g, dvc_json_path + "_aux.grounding.json")
         return dvc_json_path, out_json, out_json_g, aux_out_json_g, loss_sum
+
+    def _match_pass(self, res, aux) -> np.ndarray:
+        """The matching-score pass of one batch (evaluate.py:415-427): the
+        generated captions in rank order, tokenized with G = the ranks,
+        scored on the device. Returns the (B, ranks) cl_scores."""
+        qidx = res["det"]["query_idx"]
+        ranked = [[self.translator.rtranslate(res["seq"][b, q])
+                   for q in qidx[b]] for b in range(len(qidx))]
+        ids, tmask = self.text_encoder.tokenize(ranked, qidx.shape[1],
+                                                self.max_text_len)
+        return self._to_host(self._matching_scores(aux, ids, tmask, qidx))
 
     def _ground_past_g(self, batch, aux, out_json_g, aux_out_json_g):
         """Grounding of each video's sentences past the G slots, G at a time
@@ -334,7 +373,8 @@ class EvalRunner:
                     "proposal_score": score,
                     "sentence": sent,
                     "sentence_score": sent_score,
-                    "cl_score": 0.0,
+                    "cl_score": float(det["cl_scores"][b, pid])
+                    if "cl_scores" in det else 0.0,
                     "query_id": q,
                     "vid_duration": duration,
                     "pred_event_count": int(det["pred_count"][b]),

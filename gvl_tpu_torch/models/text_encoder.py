@@ -250,8 +250,21 @@ class TextEncoder(nn.Module):
         self.hidden_size = spec.hidden_size
         self._tok = HashTokenizer(spec.vocab_size)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self.text_encoder(ids, mask)
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                bf16_weights: bool = False) -> torch.Tensor:
+        """Last hidden state (N, L, hidden). With bf16_weights, the pass
+        the JAX package makes over `bf16_cast_tree(text_params)`
+        (gvl_tpu/utils/amp.py:11-18; train_use_amp, eval_use_amp): every
+        weight rounded to bfloat16 inside autograd, the arithmetic f32, as
+        Flax's f32 layers promote the bf16 weights back; the weights'
+        gradients come out rounded to bfloat16, as the cast's transpose
+        rounds them. Not autocast, which would run the products in bf16."""
+        if not bf16_weights:
+            return self.text_encoder(ids, mask)
+        rounded = {n: p.to(torch.bfloat16).to(p.dtype)
+                   for n, p in self.text_encoder.named_parameters()}
+        return torch.func.functional_call(self.text_encoder, rounded,
+                                          (ids, mask))
 
     def tokenize(self, raw_per_video: List[List[str]], G: int, max_len: int):
         return _batch_tokenize(self._tok, raw_per_video, G, max_len)

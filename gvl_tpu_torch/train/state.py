@@ -2,18 +2,18 @@
 
 Port of gvl_tpu/train/state.py for the dense-captioning train step:
 forward in train mode, the text branch when the contrastive side is on (the
-frozen text encoder without gradients, then `encode_text`), set criterion,
-teacher-forced caption NLL, weighted loss sum, backward, global-norm
-gradient clip, optimizer and schedule step. The model, the text encoder, the
-optimizer and the batch live on the model's device; batches arrive as numpy
-arrays.
+text encoder, frozen and without gradients or trained with an optimizer and
+schedule of its own, over f32 or bf16-rounded weights; then `encode_text`),
+set criterion, teacher-forced caption NLL, weighted loss sum, one backward,
+a global-norm gradient clip of each parameter set, optimizer and schedule
+steps. The model, the text encoder, the optimizers and the batch live on the
+model's device; batches arrive as numpy arrays.
 
 Dropout draws come from the default generator of the model's device: seed it
 (`torch.manual_seed`) before the first step for a repeatable run.
 
 Refused by name (NotImplementedError): `caption_rl`, `caption_cost`,
-`caption_gpt`, `two_stage`, `caption_bf16`, `text_bf16`,
-`train_text_encoder` (a text encoder that trains), and scheduled sampling
+`caption_gpt`, `two_stage`, `caption_bf16`, and scheduled sampling
 (`ss_prob > 0`).
 """
 
@@ -87,7 +87,8 @@ def _freeze_mode(cfg: Any) -> str:
 
 
 def build_optimizer(cfg: Any, named_params: Dict[str, torch.Tensor],
-                    total_steps: int, steps_per_epoch: int
+                    total_steps: int, steps_per_epoch: int,
+                    for_text_encoder: bool = False
                     ) -> Tuple[torch.optim.Optimizer,
                                torch.optim.lr_scheduler.LambdaLR]:
     """Adam (weight decay as L2 through the gradient) or AdamW (decoupled),
@@ -95,8 +96,11 @@ def build_optimizer(cfg: Any, named_params: Dict[str, torch.Tensor],
     parameters under `task_heads_different_lr`, and the freeze modes: with
     `only_ft_captioner` / `only_ft_class_head` only the parameters of that
     head are handed to the optimizer; the others still receive gradients and
-    count in the clipped norm, and are never updated. Port of build_optimizer
-    (state.py:92-137). Returns the optimizer and its per-group schedule."""
+    count in the clipped norm, and are never updated. With for_text_encoder,
+    the text encoder's optimizer: the same optimizer_type and weight_decay,
+    the schedule of the text_encoder_* options, no head learning rate and no
+    freeze mode. Port of build_optimizer (state.py:92-137). Returns the
+    optimizer and its per-group schedule."""
     def get(name, default):
         return getattr(cfg, name, default)
 
@@ -108,6 +112,15 @@ def build_optimizer(cfg: Any, named_params: Dict[str, torch.Tensor],
             get("learning_rate_decay_every", 3),
             get("learning_rate_decay_rate", 0.5), get("epoch", 30))
 
+    if for_text_encoder:
+        groups = [(list(named_params.values()), build_schedule(
+            get("text_encoder_learning_strategy", "warmup_linear"),
+            get("text_encoder_lr", 1e-5), total_steps, steps_per_epoch,
+            get("text_encoder_warm_up_ratio", 0.01),
+            get("text_encoder_lr_decay_start", 8),
+            get("text_encoder_lr_decay_every", 3),
+            get("text_encoder_lr_decay_rate", 0.5), get("epoch", 30)))]
+        return _adam(cfg, groups)
     freeze = _freeze_mode(cfg)
     if freeze:
         prefix = {"captioner": "caption_head", "class_head": "class_head"}[freeze]
@@ -121,11 +134,19 @@ def build_optimizer(cfg: Any, named_params: Dict[str, torch.Tensor],
         groups = [g for g in groups if g[0]]
     else:
         groups = [(list(named_params.values()), sched(cfg.lr))]
+    return _adam(cfg, groups)
+
+
+def _adam(cfg: Any, groups: List[Tuple[List[torch.Tensor], Schedule]]
+          ) -> Tuple[torch.optim.Optimizer,
+                     torch.optim.lr_scheduler.LambdaLR]:
+    """cfg.optimizer_type's optimizer over the parameter groups, each with
+    its schedule."""
     # lr 1.0 in the groups: LambdaLR multiplies it by the schedule's value
-    cls = (torch.optim.AdamW if get("optimizer_type", "adam") == "adamw"
-           else torch.optim.Adam)
+    cls = (torch.optim.AdamW if getattr(cfg, "optimizer_type", "adam")
+           == "adamw" else torch.optim.Adam)
     opt = cls([dict(params=p) for p, _ in groups], lr=1.0, betas=(0.9, 0.999),
-              eps=1e-8, weight_decay=get("weight_decay", 0.0))
+              eps=1e-8, weight_decay=getattr(cfg, "weight_decay", 0.0))
     scheduler = torch.optim.lr_scheduler.LambdaLR(opt, [s for _, s in groups])
     return opt, scheduler
 
@@ -156,7 +177,7 @@ class StepStatics:
 
 
 _NOT_PORTED = ("caption_rl", "caption_cost", "caption_gpt", "two_stage",
-               "caption_bf16", "text_bf16", "train_text_encoder")
+               "caption_bf16")
 
 
 def _check_statics(statics: StepStatics, text_encoder) -> None:
@@ -164,7 +185,8 @@ def _check_statics(statics: StepStatics, text_encoder) -> None:
         if getattr(statics, name):
             raise NotImplementedError(
                 f"train step: {name} is not ported yet (ROADMAP Queue 1)")
-    if statics.enable_contrastive and text_encoder is None:
+    if (statics.enable_contrastive or statics.train_text_encoder) and \
+            text_encoder is None:
         raise ValueError("train step: enable_contrastive needs the text "
                          "encoder (models.text_encoder.load_text_encoder)")
 
@@ -190,30 +212,45 @@ def gather_matched(x: torch.Tensor, match_q: torch.Tensor) -> torch.Tensor:
 
 class TrainState:
     """The model being trained, its optimizer and schedule, the number of
-    updates taken, and the frozen text encoder beside the model (None with
-    the contrastive side off), which has no optimizer."""
+    updates taken, the text encoder beside the model (None with the
+    contrastive side off), and the text encoder's own optimizer and schedule
+    (None while it is frozen)."""
 
     def __init__(self, model: GVLModel, optimizer: torch.optim.Optimizer,
                  scheduler: torch.optim.lr_scheduler.LambdaLR, step: int = 0,
-                 text_encoder: TextEncoder = None):
+                 text_encoder: TextEncoder = None,
+                 text_optimizer: torch.optim.Optimizer = None,
+                 text_scheduler: torch.optim.lr_scheduler.LambdaLR = None):
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
         self.step = step
         self.text_encoder = text_encoder
+        self.text_optimizer = text_optimizer
+        self.text_scheduler = text_scheduler
 
 
 def create_train_state(cfg: Any, model: GVLModel, steps_per_epoch: int,
                        statics: StepStatics,
                        text_encoder: TextEncoder = None) -> TrainState:
-    """Optimizer and schedule for `model`, on the model's device; the text
-    encoder (required with enable_contrastive) is held frozen
+    """Optimizer and schedule for `model`, on the model's device. The text
+    encoder (required with enable_contrastive) stays frozen, or under
+    train_text_encoder gets gradients and an optimizer and schedule of its
+    own (`build_optimizer(..., for_text_encoder=True)`); it stays in eval
+    mode either way: the JAX package runs it without dropout
     (state.py:561-576)."""
     _check_statics(statics, text_encoder)
     total_steps = int(getattr(cfg, "epoch", 30) * steps_per_epoch)
     opt, scheduler = build_optimizer(cfg, dict(model.named_parameters()),
                                      total_steps, steps_per_epoch)
-    return TrainState(model, opt, scheduler, text_encoder=text_encoder)
+    text_opt = text_scheduler = None
+    if statics.train_text_encoder:
+        text_encoder.requires_grad_(True).eval()
+        text_opt, text_scheduler = build_optimizer(
+            cfg, dict(text_encoder.named_parameters()), total_steps,
+            steps_per_epoch, for_text_encoder=True)
+    return TrainState(model, opt, scheduler, text_encoder=text_encoder,
+                      text_optimizer=text_opt, text_scheduler=text_scheduler)
 
 
 def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
@@ -231,8 +268,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
     0 (state.py:514-519). The step puts the model in train mode, computes
     the losses, backpropagates their weighted sum, clips the global gradient
     norm at cfg.grad_clip, and steps the optimizer and the schedule of
-    `state`. The text encoder runs under no_grad, in eval mode (no dropout,
-    as the JAX package's apply_fn). Returns the losses (detached 0-d
+    `state`. The text encoder runs in eval mode (no dropout, as the JAX
+    package's apply_fn), over weights rounded to bf16 under text_bf16; it
+    runs under no_grad unless train_text_encoder, and then its gradients
+    come from the same backward, are clipped by a global norm of their own
+    and step its optimizer and schedule. Returns the losses (detached 0-d
     tensors on the device) with 'total_loss'. `step.forward_losses(batch,
     cl_gate=1.0)` computes the losses alone, in the model's current mode."""
     _check_statics(statics, text_encoder)
@@ -258,14 +298,17 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         return query
 
     def text_layers(db, out):
-        """The text branch (state.py:233-250): the frozen encoder without
-        gradients (the JAX package's stop_gradient), then encode_text;
-        decoder layers 0..Ld-2 take 'aux', the last 'final'."""
+        """The text branch (state.py:233-250): the text encoder, over
+        bf16-rounded weights under text_bf16, without gradients unless it
+        trains (the JAX package's stop_gradient), then encode_text; decoder
+        layers 0..Ld-2 take 'aux', the last 'final'."""
         ids, tmask = db["text_ids"], db["text_mask"]
         B, G, Ltok = ids.shape
-        with torch.no_grad():
+        with torch.set_grad_enabled(st.train_text_encoder
+                                    and torch.is_grad_enabled()):
             word = text_encoder(ids.reshape(B * G, Ltok).long(),
-                                tmask.reshape(B * G, Ltok))
+                                tmask.reshape(B * G, Ltok),
+                                bf16_weights=st.text_bf16)
         text_out = model.encode_text(
             word.float().reshape(B, G, Ltok, -1), tmask.bool(), db["gt_mask"],
             out["memory"], out["mask_flat"])
@@ -324,10 +367,15 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                 "yet")
         if state.model is not model:
             raise ValueError("train step: the state holds another model")
+        if st.train_text_encoder and state.text_optimizer is None:
+            raise ValueError("train step: train_text_encoder needs the text "
+                             "encoder's optimizer (create_train_state)")
         model.train()
         # the model's, not the optimizer's: in a freeze mode the optimizer
         # holds the head only, and the clip below counts every gradient
         model.zero_grad(set_to_none=True)
+        if st.train_text_encoder:
+            text_encoder.zero_grad(set_to_none=True)
         # the matcher's contrastive cost follows the contrastive weight's
         # schedule (state.py:514-519)
         cl_gate = float(weights.get("contrastive_loss", 0.0) > 0) \
@@ -337,6 +385,15 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         total.backward()
         clip_global_norm(model.parameters(), grad_clip)
         state.optimizer.step()
+        if st.train_text_encoder:
+            # a parameter no loss reaches (the pooler) gets a zero gradient,
+            # so that Adam's L2 term moves it as optax does
+            for p in text_encoder.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            clip_global_norm(text_encoder.parameters(), grad_clip)
+            state.text_optimizer.step()
+            state.text_scheduler.step()
         state.scheduler.step()
         state.step += 1
         losses = {k: v.detach() for k, v in losses.items()}

@@ -241,11 +241,43 @@ def test_contrastive_step_needs_the_text_encoder(world):
 
 @pytest.mark.parametrize("name", ["train_text_encoder", "text_bf16"])
 def test_text_encoder_options_not_ported_raise_by_name(world, name):
-    cfg = world["cfg"]
+    """The two text-encoder options the port once refused by name now build
+    a state and a step, and the step runs (tests/test_torch_text_train.py
+    holds both to the JAX package): train_text_encoder gives the state the
+    text encoder's own optimizer and schedule, and a step that runs without
+    them is refused (two steps: the text encoder's default schedule,
+    warmup_linear, starts at lr 0); text_bf16 alone keeps the encoder
+    frozen. The world's
+    model and text encoder are left as they were."""
+    cfg, port, text = world["cfg"], world["port"], world["text"]
     st = pstate.StepStatics(spec=LossSpec.from_config(cfg),
                             **statics_kw(cfg, **{name: True}))
-    with pytest.raises(NotImplementedError, match=name):
-        pstate.make_train_step(world["port"], cfg, st, world["text"])
+    model_sd = {k: v.clone() for k, v in port.state_dict().items()}
+    try:
+        state = pstate.create_train_state(cfg, port, 100, st, text)
+        step = pstate.make_train_step(port, cfg, st, text)
+        trains = name == "train_text_encoder"
+        assert (state.text_optimizer is not None) == trains
+        assert (state.text_scheduler is not None) == trains
+        assert all(p.requires_grad == trains for p in text.parameters())
+        assert not text.training
+        if trains:
+            with pytest.raises(ValueError, match="text encoder's optimizer"):
+                step(pstate.TrainState(port, state.optimizer,
+                                       state.scheduler, text_encoder=text),
+                     world["pbatch"], weights(cfg, make_weight_dict(cfg)))
+        for _ in range(2):       # the first at the warm-up's lr 0
+            losses = step(state, world["pbatch"],
+                          weights(cfg, make_weight_dict(cfg)))
+            assert np.isfinite(float(losses["contrastive_loss"]))
+        moved = any(not torch.equal(v, world["text0"][k])
+                    for k, v in text.state_dict().items())
+        assert moved == trains
+    finally:
+        port.load_state_dict(model_sd)
+        port.eval()
+        text.load_state_dict(world["text0"])
+        text.requires_grad_(False).zero_grad(set_to_none=True)
 
 
 def test_cl_gate_follows_the_contrastive_weight(world):
@@ -295,8 +327,10 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
     roberta-base's widths: the train step's, the model's and the eval
     runner's checks pass, the model and the text encoder build (on the meta
     device: no weights are drawn), grounding eval is on. Without the offline
-    flag the text encoder is refused by name, and the configs whose text
-    encoder trains (multi_step) are refused by name."""
+    flag the text encoder is refused by name. The configs whose text encoder
+    trains (multi_step: YouMakeup and both TACoS), once refused by name,
+    now pass the train step's and the eval runner's checks too, their G the
+    JAX package's 64 slots."""
     import os
 
     from gvl_tpu.config import load_config
@@ -328,8 +362,20 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
     cfg.load_pretrained_language_model_from_config = None
     with pytest.raises(NotImplementedError, match="pretrained"):
         pte.load_text_encoder(cfg, device="cpu")
-    for name in ("ym_i3d_msvg_dvc.yml", "tacos_c3d_msvg.yml"):
-        other = load_config(os.path.join(root, "cfgs", name))
-        with pytest.raises(NotImplementedError, match="train_text_encoder"):
-            pstate.make_train_step(model, other, statics_from_config(other),
-                                   text)
+    for name in ("ym_i3d_msvg_dvc.yml", "tacos_c3d_msvg.yml",
+                 "tacos_c3d_ssvg.yml"):
+        other = load_config(os.path.join(root, "cfgs", name),
+                            load_pretrained_language_model_from_config="x",
+                            offline_text_encoder_hidden=768,
+                            offline_text_encoder_layers=12)
+        st = statics_from_config(other)
+        assert st.enable_contrastive and st.train_text_encoder, name
+        assert other.text_encoder_learning_strategy == "multi_step", name
+        assert pte.effective_max_gt_events(other) == \
+            other.effective_max_gt_events == 64, name
+        pstate._check_statics(st, text)
+        evaluate._check_ported(other, text)
+        assert other.eval_enable_grounding, name
+        with torch.device("meta"):
+            GVLModel(GVLArch.from_config(other, text.hidden_size),
+                     device="meta")

@@ -65,8 +65,22 @@ def grounding_cfg(tmp, **kw):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("ground")
-    cfg, anno = grounding_cfg(tmp)
+    return run_both(tmp_path_factory.mktemp("ground"))
+
+
+@pytest.fixture(scope="module")
+def match_runs(tmp_path_factory):
+    """Matching scores on, weighed 1.0 in the reranking, and the text pass
+    over bf16-rounded weights (eval_use_amp)."""
+    return run_both(tmp_path_factory.mktemp("match"),
+                    eval_enable_matching_score=True,
+                    eval_matching_score_weight=1.0, eval_use_amp=True)
+
+
+def run_both(tmp, **cfg_kw):
+    """Both EvalRunners over the same batches from the same weights:
+    (cfg, the GT annotations, the JAX run's result, the port's)."""
+    cfg, anno = grounding_cfg(tmp, **cfg_kw)
     ds = DenseVideoDataset(anno, cfg.visual_feature_folder, cfg.dict_file,
                            False, cfg)
     batcher = Batcher(ds, cfg, cfg.eval_batch_size, shuffle=False)
@@ -156,17 +170,65 @@ def test_eval_losses_match_jax(runs):
 
 
 def test_text_side_eval_options_not_ported_raise_by_name(runs, tmp_path):
+    """Zero-shot TAL is refused by name, and the contrastive side without
+    its text encoder; matching scores and eval_use_amp, once refused, build
+    a runner."""
     cfg, *_ = runs
     port = build_model(cfg, text_hidden_dim=32, device="cpu")
     text = load_text_encoder(cfg, device="cpu")
     for name in ("eval_enable_matching_score", "eval_use_amp"):
         setattr(cfg, name, True)
         try:
-            with pytest.raises(NotImplementedError, match=name):
-                EvalRunner(cfg, port, None, text)
+            runner = EvalRunner(cfg, port, None, text)
+            assert runner.matching == (name == "eval_enable_matching_score")
+            assert runner.text_bf16 == (name == "eval_use_amp")
         finally:
             setattr(cfg, name, False)
     with pytest.raises(NotImplementedError, match="zero-shot TAL"):
         EvalRunner(cfg, port, None, text).enable_zeroshot_tal(["a"])
     with pytest.raises(ValueError, match="text encoder"):
         EvalRunner(cfg, port, None)
+
+
+def test_matching_score_dvc_json_matches_jax(match_runs):
+    """With eval_enable_matching_score every prediction's cl_score is the
+    cosine of its generated caption, encoded again, with its query's event
+    embedding: the DVC JSON, cl_score included, equals the JAX runner's,
+    and the scores are real cosines (non-zero, in [-1, 1])."""
+    _, _, (_, want, *_), (_, got, *_) = match_runs
+    assert_same_json(got, want)
+    scores = [p["cl_score"] for v in got["results"].values() for p in v]
+    assert len(scores) > 10
+    assert all(-1.0 <= x <= 1.0 for x in scores)
+    assert sum(x != 0.0 for x in scores) >= 0.9 * len(scores)
+
+
+def test_matching_score_reranked_json_matches_jax(match_runs, runs):
+    """The reranking weighs the cl_scores by eval_matching_score_weight
+    1.0: the reranked JSON equals the JAX runner's, and its order differs
+    from the run without matching scores for some video."""
+    _, _, (want_path, *_), (got_path, *_) = match_runs
+    with open(want_path) as f:
+        want = json.load(f)
+    with open(got_path) as f:
+        got = json.load(f)
+    assert_same_json(got, want)
+    with open(runs[3][0]) as f:
+        plain = json.load(f)
+    assert any([p["query_id"] for p in got["results"][v]]
+               != [p["query_id"] for p in plain["results"][v]]
+               for v in got["results"])
+
+
+@pytest.mark.parametrize("which", [2, 3])
+def test_eval_use_amp_grounding_jsons_match_jax(match_runs, runs, which):
+    """eval_use_amp: the batch's text pass over bf16-rounded weights (the
+    chunks past G over the f32 ones, as in the JAX package). Both grounding
+    JSONs equal the JAX runner's; their cl_scores differ from the f32
+    run's."""
+    _, _, want, got = match_runs
+    assert_same_json(got[which], want[which])
+    plain = runs[3][which]["results"]
+    diff = max(abs(got[which]["results"][k][0]["cl_score"]
+                   - plain[k][0]["cl_score"]) for k in plain)
+    assert diff > 1e-5

@@ -112,6 +112,46 @@ def test_text_encoder_matches_flax_roberta(hidden, layers):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("hidden, layers", [(64, 1), (128, 2)])
+def test_bf16_weight_text_pass_matches_jax_bf16_cast_tree(hidden, layers):
+    """The pass under train_use_amp / eval_use_amp: the JAX package applies
+    the encoder to `bf16_cast_tree(params)` (Flax's f32 layers promote the
+    bf16 weights back, so the arithmetic is f32); the port's bf16_weights
+    pass is held to it within 1e-5 absolute, and to an f32 pass over
+    weights rounded by hand within 1e-6, while it differs from the f32
+    pass by more than 1e-4. Its weight gradients are bfloat16-representable,
+    as the cast's transpose rounds them."""
+    from gvl_tpu.utils.amp import bf16_cast_tree
+    cfg, bundle, enc = jax_and_port_encoders(hidden, layers)
+    ids, mask = bundle.tokenize([SENTS, SENTS[::-1]], len(SENTS), 10)
+    ids, mask = ids.reshape(-1, 10), mask.reshape(-1, 10)
+    want = np.asarray(bundle.apply_fn(bf16_cast_tree(bundle.params),
+                                      jnp.asarray(ids), jnp.asarray(mask)))
+    assert want.dtype == np.float32
+    with torch.no_grad():
+        got = enc(t(ids).long(), t(mask), bf16_weights=True)
+        f32 = enc(t(ids).long(), t(mask))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    assert float((got - f32).abs().max()) > 1e-4
+    rounded = pte.load_text_encoder(cfg, device="cpu")
+    rounded.load_state_dict({k: v.to(torch.bfloat16).float()
+                             for k, v in enc.state_dict().items()})
+    with torch.no_grad():
+        by_hand = rounded(t(ids).long(), t(mask))
+    assert float((got - by_hand).abs().max()) <= 1e-6
+    enc.requires_grad_(True)
+    try:
+        enc(t(ids).long(), t(mask), bf16_weights=True).square().sum() \
+            .backward()
+        for n, p in enc.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros(())
+            assert torch.equal(g, g.to(torch.bfloat16).float()), n
+        assert enc.text_encoder.pooler.dense.weight.grad is None
+    finally:
+        enc.requires_grad_(False).zero_grad(set_to_none=True)
+
+
 def test_tokenizers_equal_jax_token_for_token():
     for max_len in (4, 9, 32):
         np.testing.assert_array_equal(

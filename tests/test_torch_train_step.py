@@ -358,23 +358,45 @@ OPTIMIZERS = {
     "head_lr": dict(task_heads_different_lr=True, task_heads_lr=5e-3),
     "freeze_captioner": dict(only_ft_captioner=True),
     "freeze_class_head": dict(only_ft_class_head=True, weight_decay=1e-2),
+    # the text encoder's optimizer: its own schedule (warm-up from the
+    # config's default warmup_linear, or multi_step decaying after two of
+    # the four updates), the model's optimizer type and weight decay, and no
+    # freeze mode
+    "text_warmup_linear": dict(
+        for_text_encoder=True, weight_decay=1e-2, only_ft_captioner=True,
+        text_encoder_lr=1e-2, text_encoder_warm_up_ratio=0.5),
+    "text_multi_step": dict(
+        for_text_encoder=True, weight_decay=1e-2, text_encoder_lr=1e-2,
+        text_encoder_learning_strategy="multi_step",
+        text_encoder_lr_decay_start=2, text_encoder_lr_decay_every=1,
+        text_encoder_lr_decay_rate=0.5, epoch=4),
+    "text_adamw": dict(
+        for_text_encoder=True, optimizer_type="adamw", weight_decay=1e-2,
+        text_encoder_lr=1e-2, text_encoder_warm_up_ratio=0.5,
+        task_heads_different_lr=True, task_heads_lr=5e-3),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OPTIMIZERS))
 def test_optimizer_matches_optax(rng, case):
-    """Four updates with seeded gradients under a warm-up schedule, against
-    optax from the same config: rtol 1e-5 / atol 1e-7 on every parameter."""
+    """Four updates with seeded gradients under a warm-up schedule (or the
+    case's own), against optax from the same config: rtol 1e-5 / atol 1e-7
+    on every parameter."""
+    kw = dict(OPTIMIZERS[case])
+    text = kw.pop("for_text_encoder", False)
     cfg = Config()
-    cfg.update(dict(lr=1e-2, learning_strategy="warmup_linear",
-                    warm_up_ratio=0.5, epoch=1, **OPTIMIZERS[case]))
+    cfg.update(dict(dict(lr=1e-2, learning_strategy="warmup_linear",
+                         warm_up_ratio=0.5, epoch=1), **kw))
     total, spe = 6, 6
+    if text and cfg.text_encoder_learning_strategy == "multi_step":
+        spe = 1                     # one update an epoch: decays at 2 and 3
+        total = cfg.epoch * spe
     params = toy_params(rng)
     grads = [jax.tree_util.tree_map(
         lambda x: rng.randn(*x.shape).astype(np.float32), params)
         for _ in range(4)]
 
-    opt = jstate.build_optimizer(cfg, total, spe)
+    opt = jstate.build_optimizer(cfg, total, spe, for_text_encoder=text)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     opt_state = opt.init(jp)
     import optax
@@ -385,7 +407,8 @@ def test_optimizer_matches_optax(rng, case):
 
     named = {n: torch.from_numpy(v.copy()).requires_grad_()
              for n, v in flat_names(params).items()}
-    popt, sched = pstate.build_optimizer(cfg, named, total, spe)
+    popt, sched = pstate.build_optimizer(cfg, named, total, spe,
+                                         for_text_encoder=text)
     for g in grads:
         for n, v in flat_names(g).items():
             named[n].grad = torch.from_numpy(v.copy())
@@ -395,6 +418,11 @@ def test_optimizer_matches_optax(rng, case):
     for n, w in flat_names(jp).items():
         np.testing.assert_allclose(named[n].detach().numpy(), np.asarray(w),
                                    rtol=1e-5, atol=1e-7, err_msg=n)
+    if text:
+        # every parameter moves: no freeze mode, no head learning rate
+        for n, v in flat_names(params).items():
+            assert not np.array_equal(named[n].detach().numpy(), v), n
+        assert len(popt.param_groups) == 1
     if case.startswith("freeze"):
         prefix = "caption_head" if "captioner" in case else "class_head"
         for n, v in flat_names(params).items():
