@@ -33,7 +33,8 @@ exits non-zero:
      and one video of 37 sentences (G = 30 slots, so its last 7 are
      grounded in a second text pass); checks the kernel launch count,
      finite outputs, the DVC JSON, both grounding JSONs (one key per GT
-     sentence) and the eval losses.
+     sentence) and the eval losses. Each workload's cfg is the port's
+     load_config of its yml with the changes CUTS names, and nothing else.
   5. kernel path vs plain path: one batch through the model with the kernel
      and with the plain op; trunk outputs (event embeddings included) to
      1e-4, greedy tokens >= 99%; through the eval step, the grounding boxes
@@ -73,7 +74,7 @@ exits non-zero:
      synthetic batches (B=16, 30 GT slots with ActivityNet event counts and
      their sentences, caption length 30, the contrastive weight 0.1 of
      epoch 2, so its loss and the matcher's contrastive cost are live, Adam
-     at 5e-5, clip 100, dropout on); checks the loss keys, finite losses, 4
+     at 5e-5 with L2 1e-4 as published, clip 100, dropout on); checks the loss keys, finite losses, 4
      forward + 4 backward kernel launches per step, a finite gradient on
      every parameter, that the parameters moved and the frozen text
      encoder did not (a text encoder that trains, phase 15: a finite
@@ -142,6 +143,23 @@ exits non-zero:
      1e-4 on its multi_step schedule, its gradients clipped by their own
      norm): 2 launches per step of each of the four kernels, the text
      encoder's checks of phase 9; then phases 10 and 11 on it.
+ 16. (flagship, after phase 7) the eval CLI on the card: a run directory
+     in the on-disk form the JAX package reads (40 videos of 60-180 frames
+     of 512-d .npy features resized to 100, ActivityNet event counts with
+     5-20-word sentences and one video of 37, two reference annotation
+     files and their paragraph files, the grounding GT, a vocabulary of
+     exactly 8517 words, an opts.json of the port's load_config of the yml
+     with only the data paths changed, model-best.pth of the seeded model
+     and text encoder) evaluated by gvl_tpu_torch.eval_cli.main in this
+     process: kernel 1 launched 4 times per batch over 2 full batches of 16
+     and a padded one of 8, the banded kernels never; the DVC, reranked
+     and both grounding JSONs written (one grounding key per GT sentence,
+     every DVC number finite); the scores JSON with METEOR, CIDEr, Bleu_4,
+     soda_c, MetaScore, grounding_mIOU and the METEOR approximations in
+     `approx`; the CLI's four JSONs equal, bit for bit, to those of
+     EvalRunner.run called directly on the same checkpoint and the port's
+     Batcher. Logs the CLI's stage times, whole-CLI videos/s with and
+     without the metrics and the batcher's time per batch.
 With --kernels-only the script stops after phases 1-3, 8, 12 and 13. With
 --profile DIR phases 7 and 11 also profile the long-video steps. The last
 two lines are the kernels' JSON summary (four kernels, each with the
@@ -206,56 +224,49 @@ DVC_KEYS = {"timestamp", "raw_box", "label", "proposal_score", "sentence",
             "sentence_score", "cl_score", "query_id", "vid_duration",
             "pred_event_count"}
 
-# __graft_entry__._flagship_cfg(tiny=False), contrastive off
-FLAGSHIP_DVC = dict(
-    hidden_dim=512, nheads=8, enc_layers=2, dec_layers=2,
-    transformer_ff_dim=512, num_feature_levels=4, num_queries=30,
-    feature_dim=512, frame_embedding_num=100, vocab_size=8517,
-    input_encoding_size=512, rnn_size=512, att_hid_size=512,
-    max_caption_len=30, cap_nheads=1, cap_num_feature_levels=4,
-    max_eseq_length=10, with_box_refine=1, enable_contrastive=False,
-    caption_decoder_type="standard", caption_loss_coef=2.0,
-    count_loss_coef=0.5, eval_disable_captioning=False, ec_alpha=0.3,
-    eval_matching_score_weight=0.0,
-    # the loss and optimizer side of the same config, for the train step
-    set_cost_class=2.0, set_cost_giou=4.0, set_cost_bbox=0.0,
-    cls_loss_coef=2.0, giou_loss_coef=4.0, bbox_loss_coef=0.0, aux_loss=True,
-    share_caption_head=1, fuse_caption_layers=True,
-    transformer_dropout_prob=0.1, drop_prob=0.5, optimizer_type="adam",
-    weight_decay=0.0, lr=5e-5, grad_clip=100.0, epoch=30,
-    learning_strategy="multi_step")
-# cfgs/anet_tsp_msvg_dvc.yml as published: the contrastive text side on, a
-# frozen text encoder, grounding eval on; the offline RoBERTa at roberta-base's
-# widths and depth (hidden 768, 12 layers, 12 heads, FFN 3072; its embedding
-# table has the hash tokenizer's 5000 rows, not 50265)
-FLAGSHIP = dict(
-    FLAGSHIP_DVC, enable_contrastive=True, enable_cross_video_cl=True,
-    enable_layer_diff_text_feature=True, enable_word_context_modeling=True,
-    word_context_modeling_type="attention_pool",
-    enable_sentence_context_modeling=True, enable_sentence_pos_embedding=True,
-    sentence_pos_embedding_type="cosine", sentence_modeling_layer_num=1,
-    contrastive_hidden_size=128, contrastive_loss_temperature=0.1,
-    set_cost_cl=2.0, cl_schedule_time=[0, 2], cl_schedule_val=[0, 0.1],
-    eval_enable_grounding=True, eval_set_cost_cl=1.0, eval_set_cost_class=0.0,
-    text_encoder_learning_strategy="frozen", max_text_input_len=32,
-    gt_proposal_sample_num=30, eval_batch_size=16,
-    load_pretrained_language_model_from_config="offline",
-    offline_text_encoder_hidden=768, offline_text_encoder_layers=12, seed=777,
-    ec_alpha=1.0)
+CFGS = pathlib.Path(__file__).resolve().parent / "cfgs"
+# The pretrained roberta-base weights and its tokenizer are not in the repo:
+# the offline RoBERTa at roberta-base's widths and depth (hidden 768, 12
+# layers, 12 heads, FFN 3072; its embedding table has the hash tokenizer's
+# 5000 rows, not 50265), with random weights from the seed
+OFFLINE_ROBERTA = dict(load_pretrained_language_model_from_config="offline",
+                       offline_text_encoder_hidden=768,
+                       offline_text_encoder_layers=12)
+# Each workload's changes to its published config, every one named here:
+# the keys of CUTS[name] are the only ones in which the workload's cfg
+# differs from the port's load_config of its yml.
+CUTS = {
+    # cfgs/anet_tsp_msvg_dvc.yml as published: hidden 512, 8 heads, 2+2
+    # layers, 4 levels, 30 queries, vocab 8517, the contrastive text side on
+    # (attention word pool, layer-dependent text features, one sentence
+    # layer with the cosine position table, projections to 128), a frozen
+    # text encoder, grounding eval on, Adam at 5e-5 with L2 1e-4, 25 epochs
+    "anet": dict(OFFLINE_ROBERTA),
+    # the flagship with the contrastive side off (no text encoder)
+    "anet_dvc": dict(OFFLINE_ROBERTA, enable_contrastive=False),
+    # cfgs/ym_i3d_msvg_dvc.yml as published (YouMakeup: 800 frames of
+    # 1024-d i3d features, 100 queries, vocab 1247, layer-independent text
+    # features, G = min(300, 64) = 64 sentence slots, Adam at 1e-4 with L2
+    # 1e-4, the text encoder trained by an Adam of its own on a multi_step
+    # schedule); eval batches of 8 videos, not 16: the run's three eval
+    # batches of 800 frames stay inside the phase's time
+    "longvideo": dict(OFFLINE_ROBERTA, eval_batch_size=8),
+}
+YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
+        "longvideo": "ym_i3d_msvg_dvc.yml"}
+
+
+def workload_cfg(name: str) -> dict:
+    """The port's load_config of the workload's yml, as a dict, with the
+    workload's CUTS over it."""
+    from gvl_tpu_torch.config import load_config
+    return dict(load_config(str(CFGS / YMLS[name])).to_dict(), **CUTS[name])
+
+
+FLAGSHIP = workload_cfg("anet")
+FLAGSHIP_DVC = workload_cfg("anet_dvc")
 CL_EPOCH = 2        # the contrastive weight's schedule value from this epoch
-# cfgs/ym_i3d_msvg_dvc.yml as published, at the trunk widths it shares with
-# the flagship (YouMakeup: 800 frames of 1024-d i3d features, 100 queries,
-# vocab 1247): the contrastive text side with layer-independent text
-# features, grounding eval, G = min(gt_proposal_sample_num 300, 64) = 64
-# sentence slots, Adam with L2 1e-4, and the text encoder trained by an Adam
-# of its own on a multi_step schedule (1e-5, halved every 3 epochs from 8)
-LONGVIDEO = dict(
-    FLAGSHIP, num_queries=100, feature_dim=1024, frame_embedding_num=800,
-    vocab_size=1247, lr=1e-4, weight_decay=1e-4, epoch=25, ec_alpha=0.3,
-    enable_layer_diff_text_feature=False, gt_proposal_sample_num=300,
-    eval_batch_size=8, text_encoder_learning_strategy="multi_step",
-    text_encoder_lr=1e-5, text_encoder_lr_decay_start=8,
-    text_encoder_lr_decay_every=3, text_encoder_lr_decay_rate=0.5)
+LONGVIDEO = workload_cfg("longvideo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,14 +409,19 @@ def want_counts(w: Workload, steps: int, train: bool) -> dict:
 
 
 # ---------------------------------------------------------------- phase 1
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("device", f"{name}; torch {torch.__version__}, CUDA "
@@ -1516,6 +1532,201 @@ def eval_split(tag: str, runner, arrs) -> None:
                          for k in dev_ms))
 
 
+# --------------------------------------------------------------- phase 16
+CLI_VIDEOS = 40                 # 2 full eval batches of 16 and one of 8
+CLI_FRAMES = (60, 181)          # frames per video, resized to T
+CLI_STAGES = ("config_and_data", "model_build", "checkpoint_load",
+              "eval_run", "metrics")
+CLI_SCORE_KEYS = {"METEOR", "CIDEr", "Bleu_4", "soda_c", "MetaScore",
+                  "grounding_mIOU"}
+
+
+def write_cli_world(w: Workload, root: pathlib.Path, dev) -> tuple:
+    """A run directory and its data in the on-disk form the JAX package
+    reads, for the workload's published config: CLI_VIDEOS videos of
+    CLI_FRAMES frames of feature_dim-d features (.npy, named by the config's
+    feature type), ActivityNet event counts with 5-20-word sentences and one
+    video of w.long_sentences, two reference annotation files and their
+    paragraph files, the grounding GT, a vocabulary of exactly vocab_size
+    words, an opts.json of the workload's cfg with only the data paths
+    changed, and model-best.pth of the seeded model and text encoder.
+    Returns (the run directory, the grounding GT path, the annotations)."""
+    from gvl_tpu_torch.data.features import feature_path
+    from gvl_tpu_torch.data.vocabulary import build_vocabulary
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.train.checkpoint import CheckpointManager
+    cfg = dict(w.cfg)
+    rs = np.random.RandomState(SEED + 16)
+    vf_types = cfg["visual_feature_type"]
+    vf_type = vf_types[0] if isinstance(vf_types, list) else vf_types
+    feat_dir = root / "features" / vf_type
+    feat_dir.mkdir(parents=True)
+    counts = event_counts(w, rs, CLI_VIDEOS)
+    counts[3] = w.long_sentences
+    annos = ({}, {})
+    for i, n in enumerate(counts):
+        key = f"v_{i:011d}"
+        T = rs.randint(*CLI_FRAMES)
+        np.save(feature_path(key, vf_type, str(feat_dir))[0],
+                rs.randn(T, cfg["feature_dim"]).astype(np.float32))
+        duration = float(rs.uniform(*w.duration))
+        for anno in annos:                # two annotators, as val_1 / val_2
+            start = rs.uniform(0, 0.9 * duration, n)
+            end = np.minimum(start + rs.uniform(0.05, 0.4, n) * duration,
+                             duration)
+            anno[key] = {"duration": duration,
+                         "timestamps": [[float(s), float(e)]
+                                        for s, e in zip(start, end)],
+                         "sentences": sentences(rs, int(n))}
+    paths = {}
+    for j, anno in enumerate(annos):
+        paths[f"val_{j + 1}"] = root / f"val_{j + 1}.json"
+        paths[f"para_{j + 1}"] = root / f"para_{j + 1}.json"
+        paths[f"val_{j + 1}"].write_text(json.dumps(anno))
+        paths[f"para_{j + 1}"].write_text(json.dumps(
+            {k: " ".join(v["sentences"]) for k, v in anno.items()}))
+    grounding = root / "grounding.json"
+    grounding.write_text(json.dumps(
+        {k[2:]: {"timestamps": v["timestamps"], "duration": v["duration"]}
+         for k, v in annos[0].items()}))
+    vocab = build_vocabulary(s for anno in annos for v in anno.values()
+                             for s in v["sentences"])
+    words = list(vocab["word_to_ix"])
+    words += [f"word{i}" for i in range(cfg["vocab_size"] - len(words))]
+    (root / "vocab.json").write_text(json.dumps(
+        {"word_to_ix": {x: i + 1 for i, x in enumerate(words)},
+         "ix_to_word": {str(i + 1): x for i, x in enumerate(words)}}))
+    cfg.update(
+        train_caption_file=str(paths["val_1"]),
+        val_caption_file=str(paths["val_1"]),
+        gt_file_for_eval=[str(paths["val_1"]), str(paths["val_2"])],
+        gt_file_for_auc=str(paths["val_1"]),
+        gt_file_for_para_eval=[str(paths["para_1"]), str(paths["para_2"])],
+        eval_gt_file_for_grounding=str(grounding),
+        dict_file=str(root / "vocab.json"),
+        visual_feature_folder=([str(feat_dir)] if isinstance(vf_types, list)
+                               else str(feat_dir)))
+    run = root / "save" / "run"
+    run.mkdir(parents=True)
+    (run / "opts.json").write_text(json.dumps(cfg))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    text = load_text(w, dev)
+    model = build_model(types.SimpleNamespace(**cfg),
+                        text_hidden_dim=text.hidden_size, device=dev,
+                        generator=gen)
+    CheckpointManager(str(run)).save("model-best", model, text, 1)
+    return run, grounding, annos[0]
+
+
+def check_finite_json(what: str, node) -> int:
+    """Every number in a JSON tree finite; returns how many there are."""
+    if isinstance(node, dict):
+        return sum(check_finite_json(what, v) for v in node.values())
+    if isinstance(node, list):
+        return sum(check_finite_json(what, v) for v in node)
+    if isinstance(node, (int, float)) and not isinstance(node, bool):
+        check(math.isfinite(node), f"{what}: non-finite number {node}")
+        return 1
+    return 0
+
+
+def phase_eval_cli(w: Workload, dev) -> dict:
+    """The eval CLI on the card: write the world (write_cli_world), run
+    `gvl_tpu_torch.eval_cli.main` on it in this process, and check its
+    launches, JSONs and scores; then EvalRunner.run directly on the same
+    checkpoint and the port's Batcher, whose JSONs must equal the CLI's bit
+    for bit. Returns the CLI run's launch counts."""
+    from gvl_tpu_torch import eval_cli
+    from gvl_tpu_torch.config import Config
+    from gvl_tpu_torch.data.dataset import Batcher, DenseVideoDataset
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    from gvl_tpu_torch.eval.metrics import meteor
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.train.checkpoint import CheckpointManager
+    tag = w.tag + "evalcli"
+    B = w.cfg["eval_batch_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run, grounding, anno = write_cli_world(w, pathlib.Path(tmp), dev)
+        log(tag, f"world: {CLI_VIDEOS} videos, "
+                 f"{sum(len(v['sentences']) for v in anno.values())} GT "
+                 f"sentences, checkpoint "
+                 f"{(run / 'model-best.pth').stat().st_size / 2**20:.1f} "
+                 f"MiB; written in {time.perf_counter() - t0:.3f} s")
+        argv = ["--eval_save_dir", str(run.parent), "--eval_folder", run.name,
+                "--eval_batch_size", str(B),
+                "--eval_gt_file_for_grounding", str(grounding)]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        times, n_batches = res["times"], res["batches"]
+        want = want_counts(w, n_batches, train=False)
+        log(tag, f"eval_cli.main over {res['videos']} videos in {n_batches} "
+                 f"batches of {B}: {wall:.3f} s; kernel launches {launches} "
+                 f"(want {want})")
+        check(n_batches == -(-CLI_VIDEOS // B) and launches == want,
+              f"eval CLI launches {launches} in {n_batches} batches")
+        dvc = run / "eval_model-best.json"
+        outs = {"dvc": dvc, "reranked": pathlib.Path(res["dvc_json"]),
+                "grounding": pathlib.Path(res["dvc_json"] + ".grounding.json"),
+                "aux_grounding": pathlib.Path(
+                    res["dvc_json"] + "_aux.grounding.json")}
+        got = {k: json.loads(p.read_text()) for k, p in outs.items()}
+        check(outs["reranked"] != dvc and len(got["dvc"]["results"])
+              == len(got["reranked"]["results"]) == CLI_VIDEOS,
+              "the DVC and reranked JSONs hold every video")
+        n_num = check_finite_json("DVC JSON", got["dvc"])
+        batches = [dict(keys=list(anno), captions_raw=[
+            v["sentences"] for v in anno.values()],
+            duration=np.array([v["duration"] for v in anno.values()]))]
+        n_keys = check_grounding(tag, batches, got["grounding"],
+                                 got["aux_grounding"])
+        scores = json.loads((run / "eval_model-best_scores.json").read_text())
+        approx = meteor.approximations()
+        check(CLI_SCORE_KEYS <= set(scores)
+              and scores.get("approx", []) == approx
+              and all(math.isfinite(v) for k, v in scores.items()
+                      if k != "approx"),
+              f"scores JSON keys {sorted(scores)}")
+        log(tag, f"DVC JSON: {n_num} numbers, all finite; grounding JSONs: "
+                 f"{n_keys} keys, one per GT sentence; scores: "
+                 + ", ".join(f"{k} {scores[k]!r}" for k in sorted(
+                     CLI_SCORE_KEYS)) + f"; approx {approx}")
+        # EvalRunner.run directly, on the same checkpoint and data
+        cfg = Config().update(json.loads((run / "opts.json").read_text()))
+        cfg.eval_batch_size = B
+        cfg.eval_gt_file_for_grounding = str(grounding)
+        payload = CheckpointManager(str(run)).restore_raw("model-best")
+        text = load_text(w, dev)
+        text.load_state_dict(payload["text_encoder"], strict=True)
+        model = build_model(cfg, text_hidden_dim=text.hidden_size, device=dev)
+        model.load_state_dict(payload["model"], strict=True)
+        ds = DenseVideoDataset(cfg.val_caption_file, cfg.visual_feature_folder,
+                               cfg.dict_file, False, cfg)
+        direct = str(run / "direct.json")
+        path, *_ = EvalRunner(cfg, model, ds.translator, text).run(
+            Batcher(ds, cfg, B, shuffle=False), direct)
+        for k, p in {"dvc": direct, "reranked": path,
+                     "grounding": path + ".grounding.json",
+                     "aux_grounding": path + "_aux.grounding.json"}.items():
+            with open(p) as f:
+                check(json.load(f) == got[k], f"the CLI's {k} JSON differs "
+                                              "from EvalRunner.run's")
+        del model, text
+    evalled = sum(times[k] for k in CLI_STAGES if k != "metrics")
+    log(tag, f"stage times, s ({card()}): "
+             + ", ".join(f"{k} {times[k]!r}" for k in CLI_STAGES)
+             + f"; the batcher {times['batcher']!r} of eval_run, "
+               f"{times['batcher'] / n_batches * 1e3!r} ms a batch; "
+               f"whole CLI {CLI_VIDEOS / sum(times[k] for k in CLI_STAGES)!r} "
+               f"videos/s, {CLI_VIDEOS / evalled!r} without the metrics; its "
+               "DVC, reranked and grounding JSONs equal EvalRunner.run's bit "
+               "for bit")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 9
 def train_batch(w: Workload, seed: int, text=None) -> dict:
     """A synthetic train batch in the form of the JAX package's train-step
@@ -2082,6 +2293,8 @@ def main() -> None:
                     f"{w.eval_B / med['ref'] * 1e3!r}")
         if args.profile:
             phase_profile(w, cfg, model, runner, args.profile)
+        if w is ANET:
+            launches["anet_eval_cli"] = phase_eval_cli(w, dev)
         del model, runner
         tmodel, state, step, weights, batches = build_train(w, dev)
         # phase 10 before phase 9: see the docstring
@@ -2112,12 +2325,13 @@ def main() -> None:
         rows.append(row(rname, source, replaces, by_path, kv[key],
                         key.endswith("bwd")))
     # each kernel of a path was launched on that path
-    for w in (ANET, LONG):
-        for train in (False, True):
-            path = f"{w.name}_{'train' if train else 'eval'}"
-            for key, n in want_counts(w, 1, train).items():
-                check((launches[path][key] > 0) == (n > 0),
-                      f"{path}: {key} launched {launches[path][key]} times")
+    paths = {f"{w.name}_{'train' if train else 'eval'}": (w, train)
+             for w in (ANET, LONG) for train in (False, True)}
+    paths["anet_eval_cli"] = (ANET, False)
+    for path, (w, train) in paths.items():
+        for key, n in want_counts(w, 1, train).items():
+            check((launches[path][key] > 0) == (n > 0),
+                  f"{path}: {key} launched {launches[path][key]} times")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

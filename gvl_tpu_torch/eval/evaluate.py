@@ -79,7 +79,9 @@ def reranking(p_src: str, alpha: float, cl_score_weight: float,
     return save_path
 
 
-def _check_ported(cfg: Any, text_encoder) -> None:
+def _check_ported(cfg: Any) -> None:
+    """Raise NotImplementedError naming the first eval option of `cfg`
+    that the port does not run yet."""
     def get(name, default):
         return getattr(cfg, name, default)
 
@@ -92,10 +94,6 @@ def _check_ported(cfg: Any, text_encoder) -> None:
         raise NotImplementedError("the gpt2 caption head is not ported yet")
     if get("transformer_input_type", "queries") != "queries":
         raise NotImplementedError("only query-mode eval is ported")
-    if get("enable_contrastive", False):
-        if text_encoder is None:
-            raise ValueError("EvalRunner: enable_contrastive needs the text "
-                             "encoder (models.text_encoder.load_text_encoder)")
 
 
 class EvalRunner:
@@ -112,7 +110,10 @@ class EvalRunner:
     """
 
     def __init__(self, cfg: Any, model, translator, text_encoder=None):
-        _check_ported(cfg, text_encoder)
+        _check_ported(cfg)
+        if getattr(cfg, "enable_contrastive", False) and text_encoder is None:
+            raise ValueError("EvalRunner: enable_contrastive needs the text "
+                             "encoder (models.text_encoder.load_text_encoder)")
         self.cfg = cfg
         self.model = model
         self.translator = translator
@@ -271,14 +272,17 @@ class EvalRunner:
             arrs["text_ids"], arrs["text_mask"] = ids, tmask
         return batch, real_b, arrs
 
-    def run(self, batches: Iterable[Dict], dvc_json_path: str):
+    def run(self, batches: Iterable[Dict], dvc_json_path: str, logger=None,
+            debug: bool = False):
         """Evaluate every batch; write the DVC JSON, the reranked one (when
         count_loss_coef > 0) and the two grounding JSONs beside the final
         one. A partial last batch is padded to the iterable's `batch_size`,
-        where it has one. Returns (path of the final DVC JSON, the
-        un-reranked result dict, the grounding and aux grounding dicts, the
-        eval losses averaged over the real videos, rounded to 3 places), as
-        the JAX package's run (evaluate.py:539)."""
+        where it has one. With `debug` the run stops after the batch that
+        takes the DVC JSON past 5 videos (evaluate.py:480-482); the eval
+        losses go to `logger.info` when a logger is given. Returns (path of
+        the final DVC JSON, the un-reranked result dict, the grounding and
+        aux grounding dicts, the eval losses averaged over the real videos,
+        rounded to 3 places), as the JAX package's run (evaluate.py:539)."""
         cfg = self.cfg
         out_json = {"results": {}, "version": "VERSION 1.0",
                     "external_data": {"used:": True, "details": None}}
@@ -304,8 +308,12 @@ class EvalRunner:
                                              out_json_g, aux_out_json_g)
                     self._ground_past_g(batch, aux, out_json_g,
                                         aux_out_json_g)
+                if debug and len(out_json["results"]) > 5:
+                    break
         for k in loss_sum:
             loss_sum[k] = round(loss_sum[k] / (n_rows + 1e-5), 3)
+        if logger is not None:
+            logger.info("eval loss: {}".format(dict(loss_sum)))
         save_dvc_json(out_json, dvc_json_path, verbose=True)
         if cfg.count_loss_coef > 0:
             dvc_json_path = reranking(

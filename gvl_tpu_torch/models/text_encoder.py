@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gvl_tpu_torch.config import Config
+
 
 class HashTokenizer:
     """Deterministic whitespace + hash tokenizer (text_encoder.py:31-48).
@@ -73,12 +75,10 @@ def _batch_tokenize(tok_fn, raw_per_video: List[List[str]], G: int,
 
 
 def effective_max_gt_events(cfg: Any) -> int:
-    """G, the sentence slots of a video: max_gt_events when set, else
-    gt_proposal_sample_num capped at 64 (gvl_tpu/config.py:389-396)."""
-    n = int(getattr(cfg, "max_gt_events", 0))
-    if n > 0:
-        return n
-    return min(int(getattr(cfg, "gt_proposal_sample_num", 10)), 64)
+    """G, the sentence slots of a video: the port's
+    `Config.effective_max_gt_events`, read on any config object that has
+    max_gt_events and gt_proposal_sample_num."""
+    return Config.effective_max_gt_events.fget(cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +270,19 @@ class TextEncoder(nn.Module):
         return _batch_tokenize(self._tok, raw_per_video, G, max_len)
 
 
+def _check_ported(cfg: Any) -> None:
+    """Raise NotImplementedError when `cfg` asks for the pretrained text
+    weights (load_pretrained_language_model_from_config unset)."""
+    if not getattr(cfg, "load_pretrained_language_model_from_config", None):
+        name = getattr(cfg, "pretrained_language_model", "roberta-base")
+        raise NotImplementedError(
+            f"load_text_encoder: the pretrained text weights "
+            f"(pretrained_language_model={name!r}) are not available to the "
+            "port; set load_pretrained_language_model_from_config to build "
+            "the offline RoBERTa from offline_text_encoder_hidden / "
+            "offline_text_encoder_layers")
+
+
 def load_text_encoder(cfg: Any, device=None,
                       generator: Optional[torch.Generator] = None
                       ) -> Optional[TextEncoder]:
@@ -283,14 +296,7 @@ def load_text_encoder(cfg: Any, device=None,
     weights are not available to the port."""
     if not getattr(cfg, "enable_contrastive", False):
         return None
-    if not getattr(cfg, "load_pretrained_language_model_from_config", None):
-        name = getattr(cfg, "pretrained_language_model", "roberta-base")
-        raise NotImplementedError(
-            f"load_text_encoder: the pretrained text weights "
-            f"(pretrained_language_model={name!r}) are not available to the "
-            "port; set load_pretrained_language_model_from_config to build "
-            "the offline RoBERTa from offline_text_encoder_hidden / "
-            "offline_text_encoder_layers")
+    _check_ported(cfg)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

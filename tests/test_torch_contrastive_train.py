@@ -352,7 +352,7 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
         model = GVLModel(GVLArch.from_config(cfg, text.hidden_size),
                          device="meta")
     pstate._check_statics(st, text)
-    evaluate._check_ported(cfg, text)
+    evaluate._check_ported(cfg)
     assert cfg.eval_enable_grounding and cfg.enable_cross_video_cl
     assert GroundingSpec.from_config(cfg) == GroundingSpec(cost_cl=1.0,
                                                            cost_class=0.0)
@@ -374,7 +374,7 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
         assert pte.effective_max_gt_events(other) == \
             other.effective_max_gt_events == 64, name
         pstate._check_statics(st, text)
-        evaluate._check_ported(other, text)
+        evaluate._check_ported(other)
         assert other.eval_enable_grounding, name
         with torch.device("meta"):
             GVLModel(GVLArch.from_config(other, text.hidden_size),

@@ -77,9 +77,10 @@ def match_runs(tmp_path_factory):
                     eval_matching_score_weight=1.0, eval_use_amp=True)
 
 
-def run_both(tmp, **cfg_kw):
-    """Both EvalRunners over the same batches from the same weights:
-    (cfg, the GT annotations, the JAX run's result, the port's)."""
+def noisy_world(tmp, **cfg_kw):
+    """The world and its JAX weights: (cfg, the annotation file, the
+    dataset, its eval batcher, the JAX text bundle, the JAX model, its
+    noisy parameters)."""
     cfg, anno = grounding_cfg(tmp, **cfg_kw)
     ds = DenseVideoDataset(anno, cfg.visual_feature_folder, cfg.dict_file,
                            False, cfg)
@@ -98,7 +99,14 @@ def run_both(tmp, **cfg_kw):
         token_mask=jnp.asarray(tmask) > 0,
         gt_mask=jnp.asarray(batch["gt_mask"]),
         captions=jnp.asarray(batch["captions"])))
+    return cfg, anno, ds, batcher, bundle, model, params
 
+
+def run_both(tmp, **cfg_kw):
+    """Both EvalRunners over the same batches from the same weights:
+    (cfg, the GT annotations, the JAX run's result, the port's)."""
+    cfg, anno, ds, batcher, bundle, model, params = noisy_world(tmp, **cfg_kw)
+    Dt = bundle.hidden_size
     jr = JaxEvalRunner(cfg, model, bundle, ds.translator)
     jr.set_params(params, bundle.params)
     want = jr.run(batcher, str(tmp / "jax.json"))

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 14      # every submodule was imported
+    assert int(proc.stdout.strip()) >= 43      # every submodule was imported
 
 
 def test_train_modules_import_without_jax():
@@ -131,3 +131,51 @@ def test_chip_smoke_fails_without_a_card():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_eval_cli_modules_import_without_jax():
+    """The eval CLI and the framework-free modules it runs on (config, cli,
+    data layer, metric harness, logging, checkpoint), each alone in a fresh
+    process, import none of JAX, flax, optax, transformers or gvl_tpu; nor
+    does the metric harness import nltk, which the card's machine lacks."""
+    for mod in ("gvl_tpu_torch.eval_cli", "gvl_tpu_torch.config",
+                "gvl_tpu_torch.cli", "gvl_tpu_torch.data",
+                "gvl_tpu_torch.data.features",
+                "gvl_tpu_torch.data.synthetic", "gvl_tpu_torch.eval.metrics",
+                "gvl_tpu_torch.eval.metrics.spice",
+                "gvl_tpu_torch.utils.logging",
+                "gvl_tpu_torch.train.checkpoint"):
+        code = textwrap.dedent(f"""
+            import sys
+            import {mod}
+            from gvl_tpu_torch.eval.metrics.meteor import _get_stemmer
+            assert _get_stemmer().stem("running") == "run"
+            bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu",
+                "nltk"))
+            assert not bad, bad
+        """)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (mod, proc.stderr)
+
+
+def test_eval_cli_on_cuda_raises_without_a_card(tmp_path):
+    """`--eval_device cuda` (the default) on a machine without a CUDA device
+    raises before it reads the run directory, and nothing runs on the CPU:
+    the run directory gains no file."""
+    import json
+    import pytest
+    import torch
+    from gvl_tpu_torch import eval_cli
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    run = tmp_path / "save" / "run"
+    run.mkdir(parents=True)
+    (run / "opts.json").write_text(json.dumps({"caption_loss_coef": 1.0}))
+    for flags in (["--eval_device", "cuda"], []):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            eval_cli.main(["--eval_save_dir", str(tmp_path / "save"),
+                           "--eval_folder", "run"] + flags)
+    assert sorted(os.listdir(run)) == ["opts.json"]
