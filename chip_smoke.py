@@ -160,6 +160,40 @@ exits non-zero:
      EvalRunner.run called directly on the same checkpoint and the port's
      Batcher. Logs the CLI's stage times, whole-CLI videos/s with and
      without the metrics and the batcher's time per batch.
+ 17. (flagship, after phase 16, in phase 16's world written again) the
+     train CLI on the card: a yml of the port's load_config of
+     cfgs/anet_tsp_msvg_dvc.yml with the world's data paths, save_dir and
+     CUTS['anet_train_cli'] (2 epochs, validation from epoch 0, B=16, the
+     run's id), run by gvl_tpu_torch.train_cli.main in this process: 2
+     epochs of 2 steps (Adam at 5e-5, L2 1e-4, clip 100), each validated:
+     kernel 1 launched 4 times per step and per validation batch, kernel 2
+     4 times per step, the banded kernels never; finite train losses;
+     info.json with two val_scores entries holding METEOR, soda_c,
+     grounding_R@1IOU0.5 and val_loss_total; model-last, model-best and
+     model-best-{dvc,pc,grounding}.pth. model-last restored into a fresh
+     train state equals the run's state at its end bit for bit (model, text
+     encoder, Adam state, schedule, step). Then --start_from the run with
+     --epoch 3 and a contrary --lr: the same run directory, info.json at
+     epoch 2, the saved lr kept, the first update the saved one. Then the
+     eval CLI on the trained model-best.pth. Logs the step time median,
+     the steps' time per epoch, each validation's time, the checkpoint
+     saves' time and size. The checkpoints go to a temporary directory,
+     deleted at the end of phase 18.
+ 18. SCST on the card: a yml of the port's load_config of
+     cfgs/anet_tsp_dvc_rl.yml with the data paths, save_dir, pretrain_path
+     (phase 17's run directory) and CUTS['anet_scst'] (debug: 5 steps and
+     one validation batch; one epoch; B=16), by train_cli.main:
+     load_pretrained('full') filled every model entry; kernels 1 and 2
+     launched 4 times per step (kernel 1 also per validation batch); the
+     caption losses finite and the host rewards not all zero; only
+     caption_head.* moved, the trunk, the other heads and the text encoder
+     are the pretrained run's bit for bit. One batch's sampled rollout
+     (the fused two-layer path, its generator and dropout seeded alike) on
+     the kernel path and the plain path: >= 99% equal tokens, logprobs
+     within 1e-4 where the rollouts agree. Logs the step split (trunk,
+     sampled chain, greedy chain, host reward, backward, optimizer; the
+     device synchronised at each mark), the host reward's time, the valid
+     rollout slots per step and the peak device memory.
 With --kernels-only the script stops after phases 1-3, 8, 12 and 13. With
 --profile DIR phases 7 and 11 also profile the long-video steps. The last
 two lines are the kernels' JSON summary (four kernels, each with the
@@ -224,6 +258,8 @@ DVC_KEYS = {"timestamp", "raw_box", "label", "proposal_score", "sentence",
             "sentence_score", "cl_score", "query_id", "vid_duration",
             "pred_event_count"}
 
+TRAIN_CLI_EPOCHS = 2            # phase 17: epochs of the first run
+TRAIN_CLI_B = 16                # phases 17, 18: train batch
 CFGS = pathlib.Path(__file__).resolve().parent / "cfgs"
 # The pretrained roberta-base weights and its tokenizer are not in the repo:
 # the offline RoBERTa at roberta-base's widths and depth (hidden 768, 12
@@ -251,9 +287,30 @@ CUTS = {
     # schedule); eval batches of 8 videos, not 16: the run's three eval
     # batches of 800 frames stay inside the phase's time
     "longvideo": dict(OFFLINE_ROBERTA, eval_batch_size=8),
+    # phase 17, the train CLI on the flagship: 2 epochs, not 25; validation
+    # from epoch 0, not 2 (the published min_epoch_when_save would validate
+    # no epoch of a 2-epoch run); batches of 16 videos, not the Config
+    # default of 1 that the yml keeps (phases 9-11's train batch: 2 steps
+    # an epoch in the 40-video world); the run's id. The world's data paths
+    # and the save_dir are set at run time (train_cli_cfg)
+    "anet_train_cli": dict(OFFLINE_ROBERTA, id="anet_train_cli",
+                           epoch=TRAIN_CLI_EPOCHS, min_epoch_when_save=0,
+                           batch_size=TRAIN_CLI_B),
+    # phase 18, SCST as cfgs/anet_tsp_dvc_rl.yml publishes it (the flagship
+    # fine-tuned: only_ft_captioner, AdamW at 5e-5, crops of 256 with a
+    # minimum ratio of 0.5, Meteor 0.95 + CiderD 0.05, rl_m2o_rate 4, the
+    # fused two-layer rollouts): debug (5 steps, then one validation batch),
+    # one epoch, not 25, and batches of 16 crops, not 1 (as phase 17). Data paths, save_dir and pretrain_path (phase
+    # 17's run directory) are set at run time (scst_cfg); the CiderD
+    # document-frequency file it names is not in the repo, so CiderD takes
+    # the document frequencies of each call, as in the JAX package
+    "anet_scst": dict(OFFLINE_ROBERTA, debug=True, epoch=1,
+                      batch_size=TRAIN_CLI_B),
 }
 YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
-        "longvideo": "ym_i3d_msvg_dvc.yml"}
+        "longvideo": "ym_i3d_msvg_dvc.yml",
+        "anet_train_cli": "anet_tsp_msvg_dvc.yml",
+        "anet_scst": "anet_tsp_dvc_rl.yml"}
 
 
 def workload_cfg(name: str) -> dict:
@@ -267,6 +324,8 @@ FLAGSHIP = workload_cfg("anet")
 FLAGSHIP_DVC = workload_cfg("anet_dvc")
 CL_EPOCH = 2        # the contrastive weight's schedule value from this epoch
 LONGVIDEO = workload_cfg("longvideo")
+TRAIN_CLI = workload_cfg("anet_train_cli")
+SCST = workload_cfg("anet_scst")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1541,21 +1600,18 @@ CLI_SCORE_KEYS = {"METEOR", "CIDEr", "Bleu_4", "soda_c", "MetaScore",
                   "grounding_mIOU"}
 
 
-def write_cli_world(w: Workload, root: pathlib.Path, dev) -> tuple:
-    """A run directory and its data in the on-disk form the JAX package
-    reads, for the workload's published config: CLI_VIDEOS videos of
-    CLI_FRAMES frames of feature_dim-d features (.npy, named by the config's
-    feature type), ActivityNet event counts with 5-20-word sentences and one
-    video of w.long_sentences, two reference annotation files and their
-    paragraph files, the grounding GT, a vocabulary of exactly vocab_size
-    words, an opts.json of the workload's cfg with only the data paths
-    changed, and model-best.pth of the seeded model and text encoder.
-    Returns (the run directory, the grounding GT path, the annotations)."""
+def write_cli_data(w: Workload, root: pathlib.Path) -> tuple:
+    """The data of a run in the on-disk form the JAX package reads, for the
+    workload's published config: CLI_VIDEOS videos of CLI_FRAMES frames of
+    feature_dim-d features (.npy, named by the config's feature type),
+    ActivityNet event counts with 5-20-word sentences and one video of
+    w.long_sentences, two reference annotation files and their paragraph
+    files, the grounding GT and a vocabulary of exactly vocab_size words.
+    Returns (the data paths as config keys, the grounding GT path, the
+    annotations); the first annotation file is also the train file."""
     from gvl_tpu_torch.data.features import feature_path
     from gvl_tpu_torch.data.vocabulary import build_vocabulary
-    from gvl_tpu_torch.models.gvl import build_model
-    from gvl_tpu_torch.train.checkpoint import CheckpointManager
-    cfg = dict(w.cfg)
+    cfg = w.cfg
     rs = np.random.RandomState(SEED + 16)
     vf_types = cfg["visual_feature_type"]
     vf_type = vf_types[0] if isinstance(vf_types, list) else vf_types
@@ -1596,7 +1652,7 @@ def write_cli_world(w: Workload, root: pathlib.Path, dev) -> tuple:
     (root / "vocab.json").write_text(json.dumps(
         {"word_to_ix": {x: i + 1 for i, x in enumerate(words)},
          "ix_to_word": {str(i + 1): x for i, x in enumerate(words)}}))
-    cfg.update(
+    data = dict(
         train_caption_file=str(paths["val_1"]),
         val_caption_file=str(paths["val_1"]),
         gt_file_for_eval=[str(paths["val_1"]), str(paths["val_2"])],
@@ -1606,6 +1662,18 @@ def write_cli_world(w: Workload, root: pathlib.Path, dev) -> tuple:
         dict_file=str(root / "vocab.json"),
         visual_feature_folder=([str(feat_dir)] if isinstance(vf_types, list)
                                else str(feat_dir)))
+    return data, grounding, annos[0]
+
+
+def write_cli_world(w: Workload, root: pathlib.Path, dev) -> tuple:
+    """A run directory and its data (write_cli_data): an opts.json of the
+    workload's cfg with only the data paths changed, and model-best.pth of
+    the seeded model and text encoder. Returns (the run directory, the
+    grounding GT path, the annotations)."""
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.train.checkpoint import CheckpointManager
+    data, grounding, anno = write_cli_data(w, root)
+    cfg = dict(w.cfg, **data)
     run = root / "save" / "run"
     run.mkdir(parents=True)
     (run / "opts.json").write_text(json.dumps(cfg))
@@ -1615,7 +1683,7 @@ def write_cli_world(w: Workload, root: pathlib.Path, dev) -> tuple:
                         text_hidden_dim=text.hidden_size, device=dev,
                         generator=gen)
     CheckpointManager(str(run)).save("model-best", model, text, 1)
-    return run, grounding, annos[0]
+    return run, grounding, anno
 
 
 def check_finite_json(what: str, node) -> int:
@@ -1724,6 +1792,447 @@ def phase_eval_cli(w: Workload, dev) -> dict:
                f"videos/s, {CLI_VIDEOS / evalled!r} without the metrics; its "
                "DVC, reranked and grounding JSONs equal EvalRunner.run's bit "
                "for bit")
+    return launches
+
+
+# --------------------------------------------------------- phases 17, 18
+RESUME_EPOCHS = 3               # phase 17: the resumed run's --epoch
+SCST_STEPS = 5                  # phase 18: debug's cap of one epoch
+SCST_TOKEN_AGREEMENT = 0.99     # phase 18: sampled rollouts, both paths
+SCST_LOGPROB_TOL = 1e-4
+CLI_VAL_KEYS = {"METEOR", "soda_c", "grounding_R@1IOU0.5", "val_loss_total"}
+BEST_CKPTS = ("model-last", "model-best", "model-best-dvc", "model-best-pc",
+              "model-best-grounding")
+
+
+class CallLog:
+    """Wraps the train loop's parts for the phases' logs and checks: each
+    train step (host clock from call to return, the device synchronised;
+    its parts by the step's `tick` when `split`), each validation, each
+    checkpoint save (time and file size), each eval batch, and under SCST
+    each host reward (its inputs' valid slots, its rewards, its time) and
+    load_pretrained's result. Nothing in the port is changed: the wrappers
+    call through and are taken off again on exit."""
+
+    def __init__(self, split: bool = False):
+        self.split = split
+        self.steps, self.splits, self.vals, self.saves = [], [], [], []
+        self.rewards, self.pretrained, self.states = [], [], []
+        self.step_at = []       # the state's update count as each step began
+        self.eval_batches = 0
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        setattr(owner, name, make(orig))
+        self._undo.append((owner, name, orig))
+
+    def __enter__(self):
+        from gvl_tpu_torch.eval.evaluate import EvalRunner
+        from gvl_tpu_torch.train import checkpoint, loop, rl, state
+        log_ = self
+
+        def make_step(orig):
+            def make_train_step(*a, **k):
+                step = orig(*a, **k)
+
+                def timed(st, *sa, **sk):
+                    log_.states.append(st)
+                    log_.step_at.append(st.step)
+                    marks = [("start", time.perf_counter())]
+                    if log_.split:
+                        def tick(name):
+                            torch.cuda.synchronize()
+                            marks.append((name, time.perf_counter()))
+                        step.tick = tick
+                    out = step(st, *sa, **sk)
+                    torch.cuda.synchronize()
+                    marks.append(("end", time.perf_counter()))
+                    log_.steps.append(marks[-1][1] - marks[0][1])
+                    log_.splits.append({n: t - marks[i][1] for i, (n, t) in
+                                        enumerate(marks[1:])})
+                    return out
+                timed.forward_losses = step.forward_losses
+                return timed
+            return make_train_step
+
+        def make_val(orig):
+            def run_validation(*a, **k):
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                log_.vals.append(time.perf_counter() - t0)
+                return out
+            return run_validation
+
+        def make_save(orig):
+            def save(mgr, name, *a, **k):
+                t0 = time.perf_counter()
+                path = orig(mgr, name, *a, **k)
+                log_.saves.append((name, time.perf_counter() - t0,
+                                   os.path.getsize(path)))
+                return path
+            return save
+
+        def make_eval_step(orig):
+            def _eval_step(runner, *a, **k):
+                log_.eval_batches += 1
+                return orig(runner, *a, **k)
+            return _eval_step
+
+        def make_reward(orig):
+            def rl_reward_callback(*a, **k):
+                host_fn = orig(*a, **k)
+
+                def timed(gen, greedy, gt, valid):
+                    t0 = time.perf_counter()
+                    r = host_fn(gen, greedy, gt, valid)
+                    log_.rewards.append(dict(
+                        seconds=time.perf_counter() - t0,
+                        valid=int(valid.sum()), rewards=r[valid.astype(bool)],
+                        slots=valid.size))
+                    return r
+                return timed
+            return rl_reward_callback
+
+        def make_pretrained(orig):
+            def load_pretrained(model, *a, **k):
+                keys = orig(model, *a, **k)
+                log_.pretrained.append((keys, sorted(model.state_dict())))
+                return keys
+            return load_pretrained
+
+        self._patch(state, "make_train_step", make_step)
+        self._patch(loop, "run_validation", make_val)
+        self._patch(checkpoint.CheckpointManager, "save", make_save)
+        self._patch(EvalRunner, "_eval_step", make_eval_step)
+        self._patch(rl, "rl_reward_callback", make_reward)
+        self._patch(checkpoint, "load_pretrained", make_pretrained)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+    def summary(self) -> str:
+        saves = [t for _, t, _ in self.saves]
+        sizes = sorted({b for _, _, b in self.saves})
+        return (f"step median {statistics.median(self.steps) * 1e3!r} ms "
+                f"over {len(self.steps)} steps (first "
+                f"{self.steps[0] * 1e3!r} ms); validations "
+                f"{[round(v, 3) for v in self.vals]} s; {len(saves)} "
+                f"checkpoint saves, median {statistics.median(saves)!r} s, "
+                f"sizes {[round(b / 2**20, 1) for b in sizes]} MiB")
+
+
+def write_run_yml(path: pathlib.Path, cfg: dict) -> pathlib.Path:
+    """cfg as a yml for --cfg_path; base_cfg_path dropped, the chain is
+    already merged."""
+    import yaml
+    path.write_text(yaml.safe_dump({k: v for k, v in cfg.items()
+                                    if k != "base_cfg_path"}))
+    return path
+
+
+def train_cli_cfg(root: pathlib.Path, data: dict) -> dict:
+    """Phase 17's cfg: the port's load_config of the flagship yml with the
+    world's data paths, save_dir and CUTS['anet_train_cli']."""
+    return dict(TRAIN_CLI, **data, save_dir=str(root / "save"))
+
+
+def phase_train_cli(w: Workload, dev, root: pathlib.Path, data: dict,
+                    grounding: pathlib.Path) -> tuple:
+    """Phase 17, the train CLI on the card (see the docstring). Returns
+    (the launch counts of the first run, the run directory)."""
+    from gvl_tpu_torch import eval_cli, train_cli
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.models.text_encoder import load_text_encoder
+    from gvl_tpu_torch.train.checkpoint import CheckpointManager
+    from gvl_tpu_torch.train.state import StepStatics, create_train_state
+    from gvl_tpu_torch.train.criterion import LossSpec
+    tag = "traincli"
+    cfg = train_cli_cfg(root, data)
+    yml = write_run_yml(root / "anet_train_cli.yml", cfg)
+    steps_per_epoch = CLI_VIDEOS // TRAIN_CLI_B
+    val_batches = -(-CLI_VIDEOS // cfg["eval_batch_size"])
+    reset_counts()
+    t0 = time.perf_counter()
+    with CallLog() as calls:
+        run = pathlib.Path(train_cli.main(["--cfg_path", str(yml)]))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_steps = TRAIN_CLI_EPOCHS * steps_per_epoch
+    want = {"fwd": 4 * (n_steps + TRAIN_CLI_EPOCHS * val_batches),
+            "bwd": 4 * n_steps, "banded_fwd": 0, "banded_bwd": 0}
+    log(tag, f"train_cli.main: {TRAIN_CLI_EPOCHS} epochs of "
+             f"{steps_per_epoch} steps at B={TRAIN_CLI_B}, "
+             f"{calls.eval_batches} validation batches, {wall:.3f} s; "
+             f"launches {launches} (want {want})")
+    check(len(calls.steps) == n_steps and calls.eval_batches ==
+          TRAIN_CLI_EPOCHS * val_batches and launches == want,
+          f"train CLI: {len(calls.steps)} steps, {calls.eval_batches} val "
+          f"batches, launches {launches}")
+    info = json.loads((run / "info.json").read_text())
+    check(info["epoch"] == TRAIN_CLI_EPOCHS - 1 and sorted(
+        info["history"]["val_scores"]) == [str(e) for e in
+                                           range(TRAIN_CLI_EPOCHS)],
+          f"info.json epoch {info['epoch']}, val_scores "
+          f"{sorted(info['history']['val_scores'])}")
+    for e, scores in info["history"]["val_scores"].items():
+        check(CLI_VAL_KEYS <= set(scores), f"epoch {e} scores "
+                                           f"{sorted(scores)}")
+    for e, losses in info["history"]["train_loss"].items():
+        check(losses and all(math.isfinite(v) for v in losses.values()),
+              f"epoch {e}: train losses {losses}")
+    for name in BEST_CKPTS:
+        check((run / f"{name}.pth").exists(), f"{name}.pth missing")
+    epoch_s = [sum(calls.steps[e * steps_per_epoch:(e + 1) * steps_per_epoch])
+               for e in range(TRAIN_CLI_EPOCHS)]
+    log(tag, f"({card()}) {calls.summary()}; steps per epoch "
+             f"{[round(s, 3) for s in epoch_s]} s; train losses by epoch "
+             + json.dumps({e: round(v["total_loss"], 4) for e, v in
+                           info["history"]["train_loss"].items()})
+             + "; val scores by epoch " + json.dumps(
+                 {e: {k: v[k] for k in sorted(CLI_VAL_KEYS)} for e, v in
+                  info["history"]["val_scores"].items()}))
+
+    # model-last back into a fresh train state: equal, bit for bit, to the
+    # run's own state at its end and to the file
+    live = calls.states[-1]
+    mcfg = types.SimpleNamespace(**info["opt"])
+    text = load_text_encoder(mcfg, device=dev)
+    model = build_model(mcfg, text.hidden_size, device=dev)
+    statics = StepStatics(
+        spec=LossSpec.from_config(mcfg), enable_contrastive=True,
+        caption_loss=True, two_stage=False, train_text_encoder=False,
+        disable_mid_caption_heads=False, enable_pos_emb_for_captioner=False,
+        temporal_shapes=w.shapes)
+    fresh = create_train_state(mcfg, model, steps_per_epoch, statics, text)
+    payload = CheckpointManager(str(run)).restore("model-last", fresh)
+
+    def same(a, b) -> bool:
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+    for what, a, b in (
+            ("model", fresh.model.state_dict(), live.model.state_dict()),
+            ("text encoder", fresh.text_encoder.state_dict(),
+             live.text_encoder.state_dict()),
+            ("optimizer", fresh.optimizer.state_dict(),
+             live.optimizer.state_dict()),
+            ("scheduler", fresh.scheduler.state_dict(),
+             live.scheduler.state_dict()),
+            ("file's optimizer", fresh.optimizer.state_dict(),
+             payload["optimizer"])):
+        check(same(a, b), f"restored {what} differs from the run's")
+    check(fresh.step == live.step == n_steps and
+          fresh.scheduler.last_epoch == n_steps and
+          fresh.text_optimizer is None and payload["text_optimizer"] is None,
+          f"restored step {fresh.step}, run's {live.step}")
+    log(tag, f"model-last restored into a fresh train state: model, text "
+             f"encoder, Adam state and schedule equal to the run's bit for "
+             f"bit; step {fresh.step}, epoch {payload['epoch']}")
+    del fresh, model, text, live, calls
+
+    # resume: --epoch RESUME_EPOCHS, and a contrary --lr that the saved
+    # opts override
+    with CallLog() as calls:
+        run2 = pathlib.Path(train_cli.main(
+            ["--start_from", run.name, "--save_dir", str(run.parent),
+             "--id", run.name, "--epoch", str(RESUME_EPOCHS), "--lr", "0.5"]))
+    info2 = json.loads((run2 / "info.json").read_text())
+    check(run2 == run and info2["epoch"] == RESUME_EPOCHS - 1
+          and info2["opt"]["lr"] == cfg["lr"] and str(RESUME_EPOCHS - 1)
+          in info2["history"]["val_scores"],
+          f"resume: run dir {run2}, epoch {info2['epoch']}, lr "
+          f"{info2['opt']['lr']}")
+    check(calls.step_at[0] == n_steps, "the resumed run's first update "
+                                       f"{calls.step_at[0]}")
+    log(tag, f"resumed {run.name} to --epoch {RESUME_EPOCHS}: same run dir, "
+             f"info.json at epoch {info2['epoch']}, lr {info2['opt']['lr']!r}"
+             f" kept over --lr 0.5; {len(calls.steps)} more steps from "
+             f"update {n_steps}; {calls.summary()}")
+    del calls
+
+    # the eval CLI on the trained model-best.pth
+    res = eval_cli.main(["--eval_save_dir", str(run.parent), "--eval_folder",
+                         run.name, "--eval_batch_size", str(w.eval_B),
+                         "--eval_gt_file_for_grounding", str(grounding)])
+    check(res["videos"] == CLI_VIDEOS and all(
+        math.isfinite(v) for k, v in res["scores"].items() if k != "approx"),
+          f"eval of the trained model: {res['videos']} videos")
+    log(tag, f"eval_cli on the trained model-best: "
+             + ", ".join(f"{k} {res['scores'][k]!r}" for k in sorted(
+                 CLI_SCORE_KEYS)) + f"; stage times {res['times']!r}")
+    return launches, run
+
+
+def scst_cfg(root: pathlib.Path, data: dict, pretrained: pathlib.Path
+             ) -> dict:
+    """Phase 18's cfg: the port's load_config of the SCST yml with the
+    world's data paths, save_dir, pretrain_path and CUTS['anet_scst']."""
+    return dict(SCST, **data, save_dir=str(root / "save_rl"),
+                pretrain_path=str(pretrained))
+
+
+def scst_rollout(model, batch: dict, rate: int, seed: int, impl: str):
+    """The sampled rollout of the fused SCST path on one batch (the trunk
+    without dropout, the caption head in train mode), its generator and the
+    dropout seeded with `seed`, with the dense op `impl`; the many-to-one
+    matches of the kernel path are passed back in through batch['_rl']."""
+    from gvl_tpu_torch.models.captioner import prepare_dsa_reference
+    from gvl_tpu_torch.models.layers import set_msda_impl
+    from gvl_tpu_torch.models.transformer import pyramid_shapes
+    from gvl_tpu_torch.train.criterion import LossSpec, compute_criterion
+    from gvl_tpu_torch.train.state import gather_matched
+    a = model.arch
+    dev = next(model.parameters()).device
+    db = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+          if isinstance(v, np.ndarray)}
+    shapes = pyramid_shapes(db["video_feats"].shape[1], a.num_feature_levels)
+    set_msda_impl(model, impl)
+    try:
+        model.eval()
+        with torch.no_grad():
+            out = model(db["video_feats"], db["video_mask"], db["duration"])
+            if "_rl" not in batch:
+                rl = []
+                compute_criterion(out, db["gt_boxes"], db["gt_labels"],
+                                  db["gt_mask"], None, LossSpec(),
+                                  rl_m2o_rate=rate, rl_matches=rl)
+                batch["_rl"] = rl
+            rl = batch["_rl"]
+            layers = range(a.dec_layers)
+            query = torch.cat([gather_matched(out["hs"][l], rl[l][0])
+                               for l in layers], 1)
+            ref = torch.cat([prepare_dsa_reference(
+                gather_matched(out["layer_refs"][l], rl[l][0]),
+                out["valid_ratios"], shapes, a.cap_num_feature_levels,
+                a.cap_dec_n_points) for l in layers], 1)
+            valid = torch.cat([rl[l][1] for l in layers], 1)
+            head = model.caption_head[a.dec_layers - 1]
+            head.train()
+            torch.manual_seed(seed)
+            seq, lps = model.caption_sample(
+                a.dec_layers - 1, query, ref, out["memory"],
+                out["mask_flat"], shapes, out["valid_ratios"], greedy=False,
+                generator=torch.Generator(device=dev).manual_seed(seed),
+                ref_prepared=True)
+    finally:
+        set_msda_impl(model, "kernel")
+        model.eval()
+    return seq, lps, valid
+
+
+def phase_scst(w: Workload, dev, root: pathlib.Path, data: dict,
+               pretrained: pathlib.Path) -> dict:
+    """Phase 18, SCST on the card (see the docstring). Returns its launch
+    counts."""
+    from gvl_tpu_torch import train_cli
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.train.checkpoint import CheckpointManager
+    tag = "scst"
+    cfg = scst_cfg(root, data, pretrained)
+    yml = write_run_yml(root / "anet_tsp_dvc_rl.yml", cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with CallLog(split=True) as calls:
+        run = pathlib.Path(train_cli.main(["--cfg_path", str(yml)]))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"fwd": 4 * (SCST_STEPS + calls.eval_batches),
+            "bwd": 4 * SCST_STEPS, "banded_fwd": 0, "banded_bwd": 0}
+    log(tag, f"train_cli.main on {yml.name}: {len(calls.steps)} steps, "
+             f"{calls.eval_batches} validation batch(es), {wall:.3f} s; "
+             f"launches {launches} (want {want})")
+    check(len(calls.steps) == SCST_STEPS and launches == want,
+          f"SCST: {len(calls.steps)} steps, launches {launches}")
+    (keys, model_keys), = calls.pretrained
+    check(keys == model_keys, f"load_pretrained('full') filled {len(keys)} "
+                              f"of {len(model_keys)} model entries")
+    info = json.loads((run / "info.json").read_text())
+    losses = info["history"]["train_loss"]["0"]
+    check(math.isfinite(losses["loss_caption"]) and
+          math.isfinite(losses["loss_caption_0"]),
+          f"SCST caption losses {losses}")
+    rewards = np.concatenate([r["rewards"] for r in calls.rewards])
+    check(len(calls.rewards) == SCST_STEPS and np.isfinite(rewards).all()
+          and bool((rewards != 0).any()),
+          f"{len(calls.rewards)} host rewards, all zero or non-finite")
+    # only the caption head moved; the trunk, the other heads and the text
+    # encoder are the pretrained run's, bit for bit
+    src = CheckpointManager(str(pretrained)).restore_raw("model-best")
+    out = CheckpointManager(str(run)).restore_raw("model-last")
+    moved = {k for k in src["model"]
+             if not torch.equal(src["model"][k], out["model"][k])}
+    check(moved and all(k.startswith("caption_head.") for k in moved),
+          f"moved outside the caption head: "
+          f"{sorted(k for k in moved if not k.startswith('caption_head.'))}")
+    check(all(torch.equal(v, out["text_encoder"][k])
+              for k, v in src["text_encoder"].items()),
+          "the frozen text encoder moved")
+    split = {k: statistics.median(s[k] for s in calls.splits) * 1e3
+             for k in calls.splits[0]}
+    split_ms = json.dumps({k: round(v, 3) for k, v in split.items()})
+    log(tag, f"({card()}) {calls.summary()}; step split, median ms "
+             f"(device synchronised at each mark, the reward on the host "
+             f"clock): {split_ms}"
+             f"; host reward {[round(r['seconds'], 3) for r in calls.rewards]}"
+             f" s over {[r['valid'] for r in calls.rewards]} valid of "
+             f"{calls.rewards[0]['slots']} rollout slots per step; rewards "
+             f"mean {float(rewards.mean())!r}, non-zero "
+             f"{float((rewards != 0).mean())!r}; loss_caption "
+             f"{losses['loss_caption']!r} (epoch mean); {len(moved)} "
+             f"caption-head entries moved, nothing else; peak device memory "
+             f"{peak / 2**30:.2f} GiB")
+
+    # one batch's sampled rollout on the kernel path and the plain path
+    mcfg = types.SimpleNamespace(**info["opt"])
+    text = load_text(w, dev)
+    model = build_model(mcfg, text.hidden_size, device=dev)
+    model.load_state_dict(out["model"], strict=True)
+    batch = train_batch(w, SEED + 18)
+    rate = int(cfg.get("rl_m2o_rate", 4))
+    kseq, klps, valid = scst_rollout(model, batch, rate, SEED, "kernel")
+    pseq, plps, _ = scst_rollout(model, batch, rate, SEED, "ref")
+    v = valid.bool()
+    agree = float((kseq == pseq)[v].float().mean())
+    # the logprobs the policy loss reads (up to the first 0) where both
+    # rollouts drew the same tokens so far
+    read = torch.cat([torch.ones_like(kseq[..., :1]), (kseq > 0)[..., :-1]],
+                     dim=-1).bool()
+    shared = torch.cumprod((kseq == pseq).int(), dim=-1).bool()
+    lp_err = float((klps - plps).abs()[shared & read & v[..., None]].max())
+    log(tag, f"sampled rollout, kernel vs plain path, one batch (B="
+             f"{w.train_B}, {int(v.sum())} valid slots of {v.numel()}): "
+             f"tokens equal {agree!r}, logprobs on the shared prefixes max "
+             f"abs diff {lp_err!r}")
+    check(agree >= SCST_TOKEN_AGREEMENT, f"rollout tokens agree {agree}")
+    check(lp_err <= SCST_LOGPROB_TOL, f"rollout logprobs differ {lp_err}")
+    del model, text
+    return launches
+
+
+def phase_train_cli_and_scst(w: Workload, dev) -> dict:
+    """Phases 17 and 18 in one world (phase 16's, written again), deleted
+    at the end. Returns the launch counts of each path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        data, grounding, _ = write_cli_data(w, root)
+        log("traincli", f"world: {CLI_VIDEOS} videos in "
+                        f"{time.perf_counter() - t0:.3f} s")
+        launches = {}
+        launches["anet_train_cli"], run = phase_train_cli(
+            w, dev, root, data, grounding)
+        torch.cuda.empty_cache()
+        launches["anet_scst"] = phase_scst(w, dev, root, data, run)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2296,6 +2805,9 @@ def main() -> None:
         if w is ANET:
             launches["anet_eval_cli"] = phase_eval_cli(w, dev)
         del model, runner
+        if w is ANET:
+            torch.cuda.empty_cache()
+            launches.update(phase_train_cli_and_scst(w, dev))
         tmodel, state, step, weights, batches = build_train(w, dev)
         # phase 10 before phase 9: see the docstring
         phase_train_paths_agree(w, tmodel, step, weights, batches[0],
@@ -2328,6 +2840,7 @@ def main() -> None:
     paths = {f"{w.name}_{'train' if train else 'eval'}": (w, train)
              for w in (ANET, LONG) for train in (False, True)}
     paths["anet_eval_cli"] = (ANET, False)
+    paths["anet_train_cli"] = paths["anet_scst"] = (ANET, True)
     for path, (w, train) in paths.items():
         for key, n in want_counts(w, 1, train).items():
             check((launches[path][key] > 0) == (n > 0),

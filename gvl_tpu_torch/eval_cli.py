@@ -199,13 +199,15 @@ def check_config(cfg: Config) -> None:
         text_encoder._check_ported(cfg)
 
 
-def _device(name: str) -> torch.device:
+def _device(name: str, who: str = "eval_cli",
+            flag: str = "--eval_device") -> torch.device:
+    """The device `name` ('cpu' or 'cuda', the current card); 'cuda'
+    raises where there is none, naming `flag`. The train CLI shares it."""
     if name == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("eval_cli: --eval_device cuda, but no CUDA device "
-                           "is available; pass --eval_device cpu to evaluate "
-                           "on the CPU")
+        raise RuntimeError(f"{who}: {flag} cuda, but no CUDA device is "
+                           f"available; pass {flag} cpu to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
 
 

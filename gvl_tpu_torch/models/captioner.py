@@ -1,10 +1,10 @@
 """The 'standard' caption head, LSTM-DSA: an LSTM whose per-step visual context
 is deformable soft attention around the event's reference point.
 
-Port of gvl_tpu/models/captioner.py: greedy fixed-length decode, and teacher
-forcing for training (logprobs, and the fused per-event NLL). Scheduled
-sampling, sampling with temperature, early exit and beam search are not
-ported. Parameter names follow the reference
+Port of gvl_tpu/models/captioner.py: fixed-length decode, greedy or sampled
+with a temperature (the SCST rollouts), and teacher forcing for training
+(logprobs, and the fused per-event NLL). Scheduled sampling, early exit and
+beam search are not ported. Parameter names follow the reference
 pdvc/CaptioningHead/LSTM_DSA.py state_dict: `embed`, `logit`, `core.rnn`,
 `core.deformable_att.{sampling_offsets,value_proj}`, `core.{ctx2att,h2att,
 alpha_net}`.
@@ -64,6 +64,17 @@ def caption_nll(logprobs: torch.Tensor, targets: torch.Tensor,
     m = mask[:, :Tsteps].to(logprobs.dtype)
     picked = torch.gather(logprobs, 2, tgt[..., None])[..., 0]
     return -(picked * m).sum(-1) / (m.sum(-1) + 1e-6)
+
+
+def draw_tokens(z: torch.Tensor, temperature: float,
+                generator: torch.Generator = None) -> torch.Tensor:
+    """One token per event from softmax(z / temperature) (z (B, Ne, V+1)
+    raw logits), drawn with `generator` (the device's default one when
+    None). Returns (B, Ne) int64."""
+    probs = torch.softmax(z.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        z.shape[:-1])
 
 
 def prepare_dsa_reference(reference, valid_ratios, temporal_shapes,
@@ -163,9 +174,9 @@ class LSTMDSACore(DeformableSoftAttention):
 
 
 class LSTMDSACaptioner(nn.Module):
-    """'standard' caption head: greedy decode (`sample`) and teacher forcing
-    (`forward`, `teacher_forced_nll`). The cell output's dropout is live
-    under `.train()` only."""
+    """'standard' caption head: greedy or sampled decode (`sample`) and
+    teacher forcing (`forward`, `teacher_forced_nll`). The cell output's
+    dropout is live under `.train()` only."""
 
     def __init__(self, vocab_size: int, input_encoding_size: int,
                  rnn_size: int, d_model: int, n_levels: int, n_heads: int,
@@ -286,14 +297,21 @@ class LSTMDSACaptioner(nn.Module):
         return torch.log_softmax(self.logit(hs).float(), dim=-1)
 
     def sample(self, query, reference, memory, memory_mask, temporal_shapes,
-               valid_ratios):
-        """Greedy decode of all (B, Ne) events at once, max_caption_len
-        steps with `unfinished` masking (captioner.py:534-566). Returns
-        token ids (B, Ne, Lc), 0 after EOS, and the chosen-token logprobs."""
+               valid_ratios, greedy: bool = True, temperature: float = 1.0,
+               generator: torch.Generator = None,
+               ref_prepared: bool = False):
+        """Decode all (B, Ne) events at once, max_caption_len steps with
+        `unfinished` masking (captioner.py:553-598). Greedy: the argmax of
+        each step; otherwise a draw from softmax(z / temperature) by
+        `draw_tokens` with `generator`. Returns token ids (B, Ne, Lc), 0
+        after EOS, and the chosen tokens' logprobs z[it] - logsumexp(z) in
+        f32 (of the drawn token, before the masking), differentiable when
+        gradients are on: a rollout `s` has the teacher-forced logprobs of
+        [0 | s] picked at `s`, up to its first 0."""
         B, Ne = query.shape[:2]
         ref, value, shapes = self._prepare(reference, valid_ratios,
                                            temporal_shapes, memory,
-                                           memory_mask)
+                                           memory_mask, ref_prepared)
         zeros = query.new_zeros((B, Ne, self.rnn_size))
         carry = (zeros, zeros)
         it = torch.zeros((B, Ne), dtype=torch.long, device=query.device)
@@ -303,10 +321,13 @@ class LSTMDSACaptioner(nn.Module):
             carry, z = self._step(it, carry, query, ref, value, shapes)
             z = z.float()
             lse = torch.logsumexp(z, dim=-1)
-            zmax = z.amax(dim=-1)
-            it = z.argmax(dim=-1)
+            if greedy:
+                lp, it = z.amax(dim=-1), z.argmax(dim=-1)
+            else:
+                it = draw_tokens(z, temperature, generator)
+                lp = torch.gather(z, 2, it[..., None])[..., 0]
             unfinished = (it > 0) if t == 0 else (unfinished & (it > 0))
             it = it * unfinished
             toks.append(it)
-            lps.append(zmax - lse)
+            lps.append(lp - lse)
         return torch.stack(toks, dim=2), torch.stack(lps, dim=2)

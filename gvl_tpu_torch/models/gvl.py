@@ -159,8 +159,8 @@ def _check_ported(a: GVLArch) -> None:
 
 
 class GVLModel(nn.Module):
-    """Trunk (`forward`), text head (`encode_text`), greedy caption decode
-    (`caption_sample`) and teacher forcing (`caption_train`,
+    """Trunk (`forward`), text head (`encode_text`), greedy or sampled
+    caption decode (`caption_sample`) and teacher forcing (`caption_train`,
     `caption_train_nll`). Dropout is live
     under `.train()` only; its draws come from the device's default
     generator, which the caller seeds (`torch.manual_seed`).
@@ -383,13 +383,20 @@ class GVLModel(nn.Module):
 
     def caption_sample(self, layer_id: int, query, reference, memory,
                        memory_mask, temporal_shapes, valid_ratios,
-                       beam_size: int = 1):
-        """Greedy decode with the layer's caption head (gvl.py:521-550)."""
+                       beam_size: int = 1, greedy: bool = True,
+                       temperature: float = 1.0,
+                       generator: torch.Generator = None,
+                       ref_prepared: bool = False):
+        """Greedy or sampled decode with the layer's caption head
+        (gvl.py:521-550); with ref_prepared, `reference` is already
+        prepare_dsa_reference's (B, Ne, L, 2), which the fused SCST path
+        concatenates across layers. The head's dropout follows its mode."""
         if beam_size > 1:
             raise NotImplementedError("beam search is not ported yet")
         return self.caption_head[layer_id].sample(
             query, reference, memory, memory_mask, temporal_shapes,
-            valid_ratios)
+            valid_ratios, greedy=greedy, temperature=temperature,
+            generator=generator, ref_prepared=ref_prepared)
 
 
 def build_model(cfg: Any, text_hidden_dim: int = 768, device=None,

@@ -5,9 +5,10 @@ Port of gvl_tpu/train/criterion.py: matches are a dense (B, G) int64 array
 by `gt_mask`. 'loss_self_iou' and 'cardinality_error' are logged, not
 weighted (they are not in `make_weight_dict`). The contrastive side is the
 matcher's cosine cost (`cl_match_matrix`, gated by the contrastive weight's
-schedule) and the InfoNCE `contrastive_loss`. Not ported yet, raising
-NotImplementedError by name: the caption cost (`set_cost_caption > 0`) and
-`match_layer_m2o` (SCST).
+schedule) and the InfoNCE `contrastive_loss`. SCST's many-to-one
+assignment is `match_layer_m2o`, which `compute_criterion` runs beside the
+one-to-one match with `rl_m2o_rate > 0`. Not ported yet, raising
+NotImplementedError by name: the caption cost (`set_cost_caption > 0`).
 """
 
 from __future__ import annotations
@@ -68,10 +69,6 @@ def _not_ported(name: str, what: str):
                               "(ROADMAP Queue 1)")
 
 
-def match_layer_m2o(*args, **kwargs):
-    _not_ported("match_layer_m2o", "the many-to-one SCST assignment")
-
-
 def _unit(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
 
@@ -124,6 +121,30 @@ def match_layer(cost: torch.Tensor, gt_mask: torch.Tensor,
         raise ValueError(f"unknown matcher_impl: {impl}")
     mq = batched_lap(cost, gt_mask)
     return torch.where(gt_mask, mq, torch.zeros_like(mq))
+
+
+@torch.no_grad()
+def match_layer_m2o(cost: torch.Tensor, gt_mask: torch.Tensor, rate: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Many-to-one assignment for SCST (criterion.py:154-179, reference
+    matcher.py:125-128 `rl_indices`, m2o_rate 4): the GT columns are tiled
+    `rate` times, so up to `rate` distinct queries match each GT. scipy's
+    rectangular assignment matches min(Nq, rate*n) pairs; where rate*G >
+    Nq, dummy rows that cost 1e6 on the valid columns make the real
+    queries go first. Returns (match_q (B, rate*G) int64, the query of
+    each slot, 0 where not valid; valid (B, rate*G) bool). Slot r*G + g is
+    replica r of GT g. The replicas of one GT cost the same, so which of
+    them a query lands in is a tie: compare per GT the set of its queries."""
+    B, Nq, G = cost.shape
+    C = rate * G
+    cost_t = cost.repeat(1, 1, rate)                    # (B, Nq, rate*G)
+    mask_t = gt_mask.repeat(1, rate)                    # (B, rate*G)
+    if C > Nq:
+        dummy = torch.where(mask_t[:, None, :], 1e6, 0.0).to(cost.dtype)
+        cost_t = torch.cat([cost_t, dummy.expand(B, C - Nq, C)], dim=1)
+    mq = batched_lap(cost_t, mask_t)                    # (B, C) col -> row
+    valid = mask_t & (mq >= 0) & (mq < Nq)
+    return torch.where(valid, mq, torch.zeros_like(mq)), valid
 
 
 # -------------------------------------------------------------------- losses
@@ -296,7 +317,8 @@ def contrastive_loss(text_embed, event_embed, match_q, gt_mask,
 def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
                       text_embeds_per_layer, spec: LossSpec,
                       cap_costs=None, row_mask: Optional[torch.Tensor] = None,
-                      cl_gate=1.0
+                      cl_gate=1.0, rl_m2o_rate: int = 0,
+                      rl_matches: Optional[list] = None
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Match, then the detection losses of every decoder layer and, with
     text_embeds_per_layer (a (B, G, Dcl) text embedding per decoder layer),
@@ -305,7 +327,9 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
     copy. Returns (losses, match_qs (Ld, B, G)); the last layer's keys are
     unsuffixed, the others end in '_<i>'. row_mask (B,) bool drops whole
     videos from every term; cl_gate scales the contrastive cost
-    (`build_match_cost`)."""
+    (`build_match_cost`). With rl_m2o_rate > 0 the same stacked costs also
+    go through `match_layer_m2o`, and one (match_q, valid) pair per layer
+    is appended to the list rl_matches (criterion.py:428-438)."""
     contrastive = text_embeds_per_layer is not None
     if contrastive and "event_embed" not in outputs:
         raise ValueError("compute_criterion: text embeddings given, but the "
@@ -330,8 +354,14 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
                                              text_embeds_per_layer[l])
                              if contrastive else None, cl_gate)
             for l in range(Ld)])
-        match_qs = match_layer(cost_all, gt_mask.repeat(Ld, 1),
+        mask_all = gt_mask.repeat(Ld, 1)
+        match_qs = match_layer(cost_all, mask_all,
                                spec.matcher_impl).reshape(Ld, B, -1)
+        if rl_m2o_rate > 0 and rl_matches is not None:
+            mq_rl, valid_rl = match_layer_m2o(cost_all, mask_all, rl_m2o_rate)
+            rl_matches.extend((mq_rl[l * B:(l + 1) * B],
+                               valid_rl[l * B:(l + 1) * B])
+                              for l in range(Ld))
 
     losses: Dict[str, torch.Tensor] = {}
     for l in range(Ld):

@@ -4,24 +4,29 @@ Port of gvl_tpu/train/state.py for the dense-captioning train step:
 forward in train mode, the text branch when the contrastive side is on (the
 text encoder, frozen and without gradients or trained with an optimizer and
 schedule of its own, over f32 or bf16-rounded weights; then `encode_text`),
-set criterion, teacher-forced caption NLL, weighted loss sum, one backward,
-a global-norm gradient clip of each parameter set, optimizer and schedule
+set criterion, the caption loss (teacher-forced NLL, or under caption_rl the
+SCST policy loss of a sampled rollout against a greedy one, rewarded on the
+host; gvl_tpu_torch/train/rl.py), weighted loss sum, one backward, a
+global-norm gradient clip of each parameter set, optimizer and schedule
 steps. The model, the text encoder, the optimizers and the batch live on the
 model's device; batches arrive as numpy arrays.
 
-Dropout draws come from the default generator of the model's device: seed it
-(`torch.manual_seed`) before the first step for a repeatable run.
+Random draws: dropout comes from the default generator of the model's
+device, SCST sampling from a generator of its own on the device. A step
+given `seed` seeds both from it (`step_seed(cfg.seed, global_step)` in the
+train loop), so a resumed run draws at step n what an unbroken run draws
+there; without one, both draw from the device's default generator.
 
-Refused by name (NotImplementedError): `caption_rl`, `caption_cost`,
-`caption_gpt`, `two_stage`, `caption_bf16`, and scheduled sampling
-(`ss_prob > 0`).
+Refused by name (NotImplementedError): `caption_cost`, `caption_gpt`,
+`two_stage`, `caption_bf16` (also the bf16 rollouts of SCST), and scheduled
+sampling (`ss_prob > 0`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +37,7 @@ from gvl_tpu_torch.models.text_encoder import (TextEncoder,
                                                effective_max_gt_events)
 from gvl_tpu_torch.models.transformer import pyramid_shapes
 from gvl_tpu_torch.train.criterion import LossSpec, compute_criterion
+from gvl_tpu_torch.train.rl import rl_policy_loss
 
 Schedule = Callable[[int], float]
 
@@ -176,8 +182,7 @@ class StepStatics:
     caption_bf16: bool = False
 
 
-_NOT_PORTED = ("caption_rl", "caption_cost", "caption_gpt", "two_stage",
-               "caption_bf16")
+_NOT_PORTED = ("caption_cost", "caption_gpt", "two_stage", "caption_bf16")
 
 
 def _check_statics(statics: StepStatics, text_encoder) -> None:
@@ -202,6 +207,18 @@ def add_text_inputs(batch: Dict, text_encoder: TextEncoder, cfg: Any) -> Dict:
         batch["text_ids"] = ids
         batch["text_mask"] = mask
     return batch
+
+
+def step_seed(seed: int, global_step: int) -> int:
+    """The seed of update number `global_step` of a run seeded `seed`: a
+    pure function of the two, so a resumed run seeds step n as an unbroken
+    one does (the JAX loop's PRNGKey(global_step))."""
+    return fold_seed(seed, global_step)
+
+
+def fold_seed(seed: int, k: int) -> int:
+    """A seed derived from `seed` and `k` (jax.random.fold_in's role)."""
+    return (int(seed) * 1_000_003 + int(k)) % (2 ** 63)
 
 
 def gather_matched(x: torch.Tensor, match_q: torch.Tensor) -> torch.Tensor:
@@ -255,7 +272,7 @@ def create_train_state(cfg: Any, model: GVLModel, steps_per_epoch: int,
 
 def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                     text_encoder: TextEncoder = None):
-    """Build `step(state, batch, weights, ss_prob=0.0) -> losses`
+    """Build `step(state, batch, weights, ss_prob=0.0, seed=None) -> losses`
     (state.py:180-552).
 
     batch: numpy arrays video_feats (B, T, D), video_mask (B, T), duration
@@ -274,7 +291,22 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
     come from the same backward, are clipped by a global norm of their own
     and step its optimizer and schedule. Returns the losses (detached 0-d
     tensors on the device) with 'total_loss'. `step.forward_losses(batch,
-    cl_gate=1.0)` computes the losses alone, in the model's current mode."""
+    cl_gate=1.0, seed=None)` computes the losses alone, in the model's
+    current mode.
+
+    Under caption_rl (SCST, state.py:199-215, 371-483) the caption loss of
+    each layer is rl_policy_loss over its many-to-one matched slots
+    (`match_layer_m2o`, rl_m2o_rate per GT): a sampled rollout in train
+    mode, a greedy one with the head in eval mode and without gradients,
+    and the reward of the two on the host (one copy of the token arrays).
+    With a shared head and fuse_caption_layers, all layers' slots go
+    through one sampled and one greedy chain (sampling seeded with fold
+    1000); otherwise each layer has its own (fold 1000 + layer).
+
+    `step.tick`, when set, is called with the name of each part as it ends
+    ("trunk": the forward and the criterion; under SCST "sampled",
+    "greedy", "reward"; then "backward", "optimizer"): a caller timing the
+    step sets it."""
     _check_statics(statics, text_encoder)
     st = statics
     Ld = model.arch.dec_layers
@@ -283,6 +315,23 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             and model.arch.share_caption_head)
     cap_levels = model.arch.cap_num_feature_levels
     cap_points = model.arch.cap_dec_n_points
+    rate = int(getattr(cfg, "rl_m2o_rate", 4)) if st.caption_rl else 0
+    rl_layers = [Ld - 1] if st.disable_mid_caption_heads else list(range(Ld))
+    rl_fused = fuse and len(rl_layers) > 1
+    reward_fn = None
+    if st.caption_rl:
+        from gvl_tpu_torch.train.rl import init_scorer, rl_reward_callback
+        types_ = list(getattr(cfg, "rl_scorer_types", ["Meteor"]))
+        reward_fn = rl_reward_callback(
+            init_scorer(types_, getattr(cfg, "cached_tokens", None)),
+            dict(zip(types_, getattr(cfg, "rl_scorer_weights", [1.0]))),
+            float(getattr(cfg, "cl_sent_ratio", 1.0)),
+            float(getattr(cfg, "cl_para_ratio", 0.0)), m2o_rate=rate,
+            n_groups=len(rl_layers) if rl_fused else 1)
+
+    def tick(name: str) -> None:
+        if step.tick is not None:
+            step.tick(name)
 
     def to_device(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         dev = next(model.parameters()).device
@@ -296,6 +345,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             query = torch.cat(
                 [query, gather_matched(out["query_pos"], mq)], dim=-1)
         return query
+
+    def prepared_ref(out, layer, mq, shapes):
+        return prepare_dsa_reference(
+            gather_matched(out["layer_refs"][layer], mq),
+            out["valid_ratios"], shapes, cap_levels, cap_points)
 
     def text_layers(db, out):
         """The text branch (state.py:233-250): the text encoder, over
@@ -314,16 +368,74 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             out["memory"], out["mask_flat"])
         return [text_out["aux"]] * (Ld - 1) + [text_out["final"]]
 
-    def forward_losses(batch, cl_gate=1.0) -> Dict[str, torch.Tensor]:
+    def scst_losses(db, out, shapes, rl_matches, seed):
+        """The SCST caption losses (state.py:371-427 fused, :446-483 per
+        layer)."""
+        common = (out["memory"], out["mask_flat"], shapes,
+                  out["valid_ratios"])
+        groups = [rl_layers] if rl_fused else [[l] for l in rl_layers]
+        dev = out["memory"].device
+        losses = {}
+        for group in groups:
+            fused = len(group) > 1
+            mqs = [rl_matches[l][0] for l in group]
+            query = torch.cat([caption_query(out, l, mq)
+                               for l, mq in zip(group, mqs)], dim=1)
+            if fused:
+                ref = torch.cat([prepared_ref(out, l, mq, shapes)
+                                 for l, mq in zip(group, mqs)], dim=1)
+            else:
+                ref = gather_matched(out["layer_refs"][group[0]], mqs[0])
+            valid = torch.cat([rl_matches[l][1] for l in group], dim=1)
+            head_id = group[-1]
+            gen = None
+            if seed is not None:
+                gen = torch.Generator(device=dev).manual_seed(
+                    fold_seed(seed, 1000 if fused else 1000 + group[0]))
+            seq, lps = model.caption_sample(
+                head_id, query, ref, *common, greedy=False, generator=gen,
+                ref_prepared=fused)
+            tick("sampled")
+            head = model.caption_head[head_id]
+            was_training = head.training
+            head.eval()
+            try:
+                with torch.no_grad():
+                    greedy_seq, _ = model.caption_sample(
+                        head_id, query, ref, *common, greedy=True,
+                        ref_prepared=fused)
+            finally:
+                head.train(was_training)
+            tick("greedy")
+            gt = db["captions"].repeat(1, len(group) * rate, 1)
+            rewards = reward_fn(*(x.cpu().numpy()
+                                  for x in (seq, greedy_seq, gt, valid)))
+            rewards = torch.from_numpy(rewards).to(dev)
+            tick("reward")
+            GL = mqs[0].shape[1]
+            for i, l in enumerate(group):
+                sl = slice(i * GL, (i + 1) * GL)
+                suffix = "" if l == Ld - 1 else f"_{l}"
+                losses["loss_caption" + suffix] = rl_policy_loss(
+                    lps[:, sl], seq[:, sl], rewards[:, sl], valid[:, sl])
+        return losses
+
+    def forward_losses(batch, cl_gate=1.0, seed: Optional[int] = None
+                       ) -> Dict[str, torch.Tensor]:
         db = to_device(batch)
         shapes = pyramid_shapes(db["video_feats"].shape[1],
                                 len(st.temporal_shapes))
         out = model(db["video_feats"], db["video_mask"], db["duration"])
         texts = text_layers(db, out) if st.enable_contrastive else None
+        rl_matches = [] if st.caption_rl else None
         losses, match_qs = compute_criterion(
             out, db["gt_boxes"], db["gt_labels"], db["gt_mask"], texts,
-            st.spec, cl_gate=cl_gate)
+            st.spec, cl_gate=cl_gate, rl_m2o_rate=rate, rl_matches=rl_matches)
+        tick("trunk")
         if not st.caption_loss:
+            return losses
+        if st.caption_rl:
+            losses.update(scst_losses(db, out, shapes, rl_matches, seed))
             return losses
 
         layers = [Ld - 1] if st.disable_mid_caption_heads else list(range(Ld))
@@ -338,10 +450,8 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             Lf = len(layers)
             query = torch.cat([caption_query(out, l, match_qs[l])
                                for l in layers], dim=1)        # (B, Lf*G, C)
-            ref = torch.cat([prepare_dsa_reference(
-                gather_matched(out["layer_refs"][l], match_qs[l]),
-                out["valid_ratios"], shapes, cap_levels, cap_points)
-                for l in layers], dim=1)
+            ref = torch.cat([prepared_ref(out, l, match_qs[l], shapes)
+                             for l in layers], dim=1)
             nll = model.caption_train_nll(
                 layers[-1], query, ref, *common,
                 db["captions"].repeat(1, Lf, 1),
@@ -359,8 +469,8 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         return losses
 
     def step(state: TrainState, batch: Dict[str, np.ndarray],
-             weights: Dict[str, float], ss_prob: float = 0.0
-             ) -> Dict[str, torch.Tensor]:
+             weights: Dict[str, float], ss_prob: float = 0.0,
+             seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         if ss_prob > 0:
             raise NotImplementedError(
                 "train step: scheduled sampling (ss_prob > 0) is not ported "
@@ -370,6 +480,8 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         if st.train_text_encoder and state.text_optimizer is None:
             raise ValueError("train step: train_text_encoder needs the text "
                              "encoder's optimizer (create_train_state)")
+        if seed is not None:
+            torch.manual_seed(seed)           # the dropout draws
         model.train()
         # the model's, not the optimizer's: in a freeze mode the optimizer
         # holds the head only, and the clip below counts every gradient
@@ -380,9 +492,10 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         # schedule (state.py:514-519)
         cl_gate = float(weights.get("contrastive_loss", 0.0) > 0) \
             if "contrastive_loss" in weights else 1.0
-        losses = forward_losses(batch, cl_gate)
+        losses = forward_losses(batch, cl_gate, seed)
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
         total.backward()
+        tick("backward")
         clip_global_norm(model.parameters(), grad_clip)
         state.optimizer.step()
         if st.train_text_encoder:
@@ -396,9 +509,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             state.text_scheduler.step()
         state.scheduler.step()
         state.step += 1
+        tick("optimizer")
         losses = {k: v.detach() for k, v in losses.items()}
         losses["total_loss"] = total.detach()
         return losses
 
     step.forward_losses = forward_losses
+    step.tick = None
     return step

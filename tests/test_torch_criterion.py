@@ -5,6 +5,7 @@ Tolerance: rtol 2e-4 / atol 2e-5 in f32 for losses and box ops; assignments
 must be equal on tie-free costs and of equal total cost with ties.
 """
 
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -100,10 +101,21 @@ def test_batched_lap_with_ties_has_the_jax_total_cost(rng):
 
 
 def test_batched_lap_refuses_more_columns_than_rows_and_holes(rng):
+    """More valid columns than rows is refused; columns masked out anywhere
+    (holes, as the SCST matcher's tiled GT mask has) are left out of the
+    solve as the JAX solver leaves them, on tie-free costs."""
     with pytest.raises(ValueError, match="cols <= rows"):
         batched_lap(torch.zeros(1, 2, 3))
-    with pytest.raises(ValueError, match="prefix"):
-        batched_lap(torch.zeros(1, 3, 3), torch.tensor([[True, False, True]]))
+    with pytest.raises(ValueError, match="cols <= rows"):
+        batched_lap(torch.zeros(1, 2, 4),
+                    torch.tensor([[True, False, True, True]]))
+    cost = rng.standard_normal((3, 7, 6)).astype(np.float32)
+    holes = np.array([[True, False, True] * 2, [False, True] * 3,
+                      [True] * 5 + [False]])
+    want = np.asarray(jlap.batched_lap(jnp.asarray(cost), jnp.asarray(holes)))
+    got = batched_lap(t(cost), t(holes)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[~holes] == -1).all() and (got[holes] >= 0).all()
 
 
 # ------------------------------------------------------------------ losses
@@ -219,10 +231,13 @@ def test_weight_dict_matches_jax():
     assert pc.make_weight_dict(cfg) == jc.make_weight_dict(cfg)
 
 
-@pytest.mark.parametrize("name", ["match_layer_m2o"])
-def test_unported_criterion_parts_raise_by_name(name):
+@pytest.mark.parametrize("name", ["set_cost_caption"])
+def test_unported_criterion_parts_raise_by_name(crit, name):
+    out, args, _, pspec, _, _ = crit
+    spec = dataclasses.replace(pspec, **{name: 1.0})
     with pytest.raises(NotImplementedError, match=name):
-        getattr(pc, name)()
+        pc.compute_criterion({k: t(v) for k, v in out.items()},
+                             *map(t, args), None, spec)
 
 
 def test_criterion_refuses_text_embeds_and_caption_costs(crit):

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 43      # every submodule was imported
+    assert int(proc.stdout.strip()) >= 46      # every submodule was imported
 
 
 def test_train_modules_import_without_jax():
@@ -179,3 +179,23 @@ def test_eval_cli_on_cuda_raises_without_a_card(tmp_path):
             eval_cli.main(["--eval_save_dir", str(tmp_path / "save"),
                            "--eval_folder", "run"] + flags)
     assert sorted(os.listdir(run)) == ["opts.json"]
+
+
+def test_train_cli_modules_import_without_jax():
+    """The train CLI, the train loop and the SCST module, each alone in a
+    fresh process, import none of JAX, flax, optax, transformers, gvl_tpu
+    or nltk."""
+    for mod in ("gvl_tpu_torch.train_cli", "gvl_tpu_torch.train.loop",
+                "gvl_tpu_torch.train.rl"):
+        code = textwrap.dedent(f"""
+            import sys
+            import {mod}
+            bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu",
+                "nltk"))
+            assert not bad, bad
+        """)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (mod, proc.stderr)

@@ -1,0 +1,473 @@
+"""The port's train loop, resume, load_pretrained and train CLI
+(gvl_tpu_torch.train.loop, .checkpoint, gvl_tpu_torch.train_cli) against the
+JAX package's, on the CPU.
+
+Both packages train tests/test_train_loop.py's tiny config (every dropout
+rate 0) on the same make_synthetic_dataset world: 2 debug epochs, then a
+resume of that run to 3 epochs with contrary flags. The JAX loop runs on
+one CPU device, as the port does. The port starts from the JAX loop's own
+init (its init_params, jitted here for speed, and the offline text
+bundle), converted by gvl_tpu_torch.convert and put in through the port
+loop's `init_weights` seam. Compared: the per-epoch train losses (the
+train-step trajectory's tolerances), the val scores (1e-4), the epochs at
+which each best checkpoint was saved (equal), and the final model-last
+weights, model and text encoder, against JAX's orbax model-last, converted
+(in units of the learning rate, within the distance two Adam trajectories
+can part: `adam_bound`).
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import gvl_tpu.models.text_encoder as jte
+import gvl_tpu.train.loop as jloop
+from gvl_tpu.config import Config as JConfig
+from gvl_tpu.parallel.mesh import make_mesh
+from gvl_tpu.train.checkpoint import CheckpointManager as JCheckpoints
+from gvl_tpu.train.checkpoint import load_pretrained as j_load_pretrained
+from gvl_tpu_torch.config import Config as PConfig
+from gvl_tpu_torch.convert import (flax_roberta_to_state_dict,
+                                   jax_params_to_state_dict)
+from gvl_tpu_torch.data.synthetic import make_synthetic_dataset
+from gvl_tpu_torch.models.gvl import GVLArch, build_model
+from gvl_tpu_torch.train import checkpoint as pckpt
+from gvl_tpu_torch.train import loop as ploop
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+EPOCHS, RESUMED_EPOCHS, STEPS_PER_EPOCH = 2, 3, 2
+
+
+def loop_cfg(root: pathlib.Path, data) -> dict:
+    """tests/test_train_loop.py's config, dropout off; 6 videos in batches
+    of 3: 2 steps an epoch."""
+    anno, feats, vocab, vsize = data
+    return dict(
+        id="loop_run", train_caption_file=anno, val_caption_file=anno,
+        gt_file_for_eval=[anno], gt_file_for_para_eval=[],
+        eval_gt_file_for_grounding=anno.replace("anno.json",
+                                                "grounding.json"),
+        visual_feature_folder=feats, visual_feature_type="npy",
+        dict_file=vocab, vocab_size=vsize, feature_dim=16,
+        frame_embedding_num=24, hidden_dim=64, nheads=4, enc_layers=1,
+        dec_layers=2, transformer_ff_dim=64, num_feature_levels=3,
+        num_queries=8, gt_proposal_sample_num=4, max_caption_len=8,
+        input_encoding_size=32, rnn_size=32, att_hid_size=32, cap_nheads=1,
+        cap_num_feature_levels=3, with_box_refine=1, enable_contrastive=True,
+        contrastive_hidden_size=16, caption_decoder_type="standard",
+        caption_loss_coef=1.0, count_loss_coef=0.5, set_cost_cl=1.0,
+        contrastive_loss_start_coef=0.1, max_eseq_length=6, batch_size=3,
+        eval_batch_size=3, epoch=EPOCHS, msda_impl="ref",
+        max_text_input_len=12,
+        load_pretrained_language_model_from_config="offline",
+        offline_text_encoder_hidden=32, offline_text_encoder_layers=1,
+        criteria_for_best_ckpt="grounding", debug=True,
+        eval_tool_version="2018", drop_prob=0.0,
+        transformer_dropout_prob=0.0, num_workers=1)
+
+
+RESUME = dict(start_from="loop_run", start_from_mode="last",
+              epoch=RESUMED_EPOCHS, lr=0.5, weight_decay=0.3)
+
+
+def jitted_init_params(model, cfg, bundle, probe_batch):
+    """gvl_tpu.train.loop.init_params under jax.jit: the same init (its
+    eager form compiles each op alone, ~30 s here)."""
+    db = {k: jnp.asarray(v) for k, v in probe_batch.items()
+          if isinstance(v, np.ndarray)}
+    G = cfg.effective_max_gt_events
+
+    def init(db):
+        B = db["captions"].shape[0]
+        return model.init(
+            jax.random.PRNGKey(cfg.seed), db["video_feats"], db["video_mask"],
+            db["duration"], method=model.init_all, captions=db["captions"],
+            word_embed=jnp.zeros((B, G, cfg.max_text_input_len,
+                                  bundle.hidden_size)),
+            token_mask=jnp.ones((B, G, cfg.max_text_input_len), bool),
+            gt_mask=db["gt_mask"])
+    return jax.jit(init)(db)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("loop")
+    data = make_synthetic_dataset(str(root), num_videos=6, feat_dim=16)
+    base = loop_cfg(root, data)
+    init = {}
+    mp = pytest.MonkeyPatch()
+    orig_text = jloop.load_text_encoder
+
+    def capture_init(*a):
+        init["params"] = jitted_init_params(*a)
+        return init["params"]
+
+    def capture_text(cfg):
+        init["bundle"] = orig_text(cfg)
+        return init["bundle"]
+
+    def port_init(cfg, model, text, probe):
+        model.load_state_dict(jax_params_to_state_dict(
+            jax.tree_util.tree_map(np.asarray, init["params"]),
+            GVLArch.from_config(cfg)), strict=True)
+        text.load_state_dict(flax_roberta_to_state_dict(
+            jax.tree_util.tree_map(np.asarray, init["bundle"].params)),
+            strict=True)
+
+    # the port trains on one device: so does the JAX loop here
+    # (tests/conftest.py makes 8 CPU devices, on which it would shard
+    # batches of 3 over a dp=3 mesh)
+    mp.setattr(jloop, "make_mesh_for_batch",
+               lambda batch_size, shape="dp": make_mesh(1, shape))
+    mp.setattr(jloop, "init_params", capture_init)
+    mp.setattr(jloop, "load_text_encoder", capture_text)
+    mp.setattr(ploop, "init_weights", port_init)
+    out = {}
+    try:
+        for pkg, cls, train, save_dir in (
+                ("jax", JConfig, jloop.train, root / "jax"),
+                ("port", PConfig, ploop.train, root / "port")):
+            cfg = cls().update(dict(base, save_dir=str(save_dir)))
+            if pkg == "port":
+                cfg.device = "cpu"
+            first = train(cfg)
+            # the resumed run writes into the same run dir: keep what the
+            # first run left
+            read = jax_checkpoint if pkg == "jax" else port_checkpoint
+            out[pkg] = dict(folder=first,
+                            info=json.loads(pathlib.Path(
+                                first, "info.json").read_text()),
+                            ckpts={n: read(first, n, cfg) for n in CKPTS})
+            # the JAX package pins its params after the run: a fresh init
+            # for the resumed one, as a new process makes
+            resumed_cfg = cls().update(dict(base, save_dir=str(save_dir),
+                                            **RESUME))
+            if pkg == "port":
+                resumed_cfg.device = "cpu"
+            resumed = train(resumed_cfg)
+            out[pkg].update(
+                resumed_cfg=resumed_cfg, resumed_folder=resumed,
+                resumed_info=json.loads(pathlib.Path(
+                    resumed, "info.json").read_text()))
+    finally:
+        mp.undo()
+    out.update(root=root, base=base, init=init)
+    return out
+
+
+CKPTS = ("model-best", "model-best-dvc", "model-best-pc",
+         "model-best-grounding", "model-last")
+
+
+def jax_checkpoint(folder, name, cfg):
+    """A JAX checkpoint's model and text encoder weights under the port's
+    names, its epoch and update count."""
+    raw = JCheckpoints(folder).restore_raw(name)
+    st = raw["state"]
+    sd = jax_params_to_state_dict(st["params"], GVLArch.from_config(cfg))
+    sd.update(flax_roberta_to_state_dict(st["text_params"]))
+    return sd, int(raw["epoch"]), int(st["step"])
+
+
+def port_checkpoint(folder, name, cfg=None):
+    raw = pckpt.CheckpointManager(folder).restore_raw(name)
+    sd = dict(raw["model"])
+    sd.update(raw["text_encoder"])
+    return sd, int(raw["epoch"]), int(raw["step"])
+
+
+def adam_bound(steps: int) -> float:
+    """The furthest two Adam trajectories (betas 0.9, 0.999) from the same
+    point can part after `steps` updates, in units of lr: each update moves
+    an entry by at most |m_hat| / sqrt(v_hat) <= sqrt(sum a_i^2 / b_i),
+    a_i and b_i the moments' weights of the i-th gradient (1.0 at the first
+    update, 1.0068 at the fourth)."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        i = np.arange(1, t + 1)
+        a = 0.1 * 0.9 ** (t - i) / (1 - 0.9 ** t)
+        b = 0.001 * 0.999 ** (t - i) / (1 - 0.999 ** t)
+        total += 2 * np.sqrt((a * a / b).sum())
+    return float(total)
+
+
+def assert_losses_close(got: dict, want: dict):
+    """The train-step trajectory's tolerances (tests/test_torch_train_step
+    .py): total rtol 1e-3, each loss rtol 2e-3 / atol 1e-4."""
+    assert sorted(got) == sorted(want)
+    for epoch in want:
+        assert set(got[epoch]) == set(want[epoch])
+        for k, v in want[epoch].items():
+            tol = dict(rtol=1e-3) if k == "total_loss" else \
+                dict(rtol=2e-3, atol=1e-4)
+            np.testing.assert_allclose(got[epoch][k], v, err_msg=(epoch, k),
+                                       **tol)
+
+
+def assert_scores_close(got: dict, want: dict, weights: dict):
+    """Every numeric val score within 1e-4; the approximation flags equal.
+    The eval losses ('val_*') are rounded to 3 places by both packages, so
+    one may sit a rounding step (1e-3) apart, and their weighted total
+    (`weights`) the weight of one loss's step."""
+    assert sorted(got) == sorted(want)
+    for epoch in want:
+        g, w = got[epoch], want[epoch]
+        assert set(g) == set(w), set(g) ^ set(w)
+        for k, v in w.items():
+            if k == "val_loss_total":
+                tol = 1e-3 * max(weights.values()) + 1e-4
+            elif k.startswith("val_"):
+                tol = 1e-3 + 1e-4
+            else:
+                tol = 1e-4
+            if isinstance(v, (int, float)):
+                assert abs(g[k] - v) <= tol, (epoch, k, g[k], v)
+            else:
+                assert g[k] == v, k
+
+
+def val_weights(runs) -> dict:
+    from gvl_tpu_torch.train.criterion import make_weight_dict
+    return make_weight_dict(PConfig().update(runs["base"]))
+
+
+def assert_weights_close(got: dict, want: dict, lr: float, steps: int):
+    """In units of the model's lr (the text encoder's own is 10x smaller):
+    no entry further from JAX's than two Adam trajectories can part
+    (adam_bound; the encoder's sampling offsets come near it, their
+    gradient jumps where a tap crosses a row), 99% within 0.5 (tests/
+    test_torch_train_step.py's trajectory test)."""
+    assert set(got) == set(want)
+    diffs = np.concatenate([(got[k] - want[k]).abs().numpy().ravel() / lr
+                            for k in want])
+    assert diffs.max() <= adam_bound(steps)
+    assert np.quantile(diffs, 0.99) <= 0.5
+
+
+def test_loop_train_losses_match_jax(runs):
+    assert_losses_close(runs["port"]["info"]["history"]["train_loss"],
+                        runs["jax"]["info"]["history"]["train_loss"])
+    assert sorted(runs["port"]["info"]["history"]["train_loss"]) == \
+        [str(e) for e in range(EPOCHS)]
+
+
+def test_loop_val_scores_match_jax(runs):
+    want = runs["jax"]["info"]["history"]["val_scores"]
+    assert_scores_close(runs["port"]["info"]["history"]["val_scores"], want,
+                        val_weights(runs))
+    for key in ("grounding_R@1IOU0.5", "METEOR", "soda_c", "val_loss_ce",
+                "val_loss_total"):
+        assert key in want[str(EPOCHS - 1)]
+
+
+@pytest.mark.parametrize("name", ["model-best", "model-best-dvc",
+                                  "model-best-pc", "model-best-grounding",
+                                  "model-last"])
+def test_loop_checkpoint_epochs_match_jax(runs, name):
+    """Each checkpoint of the 2-epoch run exists in both packages and was
+    saved at the same epoch, after as many updates."""
+    _, *want = runs["jax"]["ckpts"][name]
+    _, *got = runs["port"]["ckpts"][name]
+    assert got == want
+    assert runs["port"]["info"]["best"] == pytest.approx(
+        runs["jax"]["info"]["best"], abs=1e-4)
+
+
+def test_loop_final_weights_match_jax(runs):
+    cfg = PConfig().update(runs["base"])
+    want, _, steps = runs["jax"]["ckpts"]["model-last"]
+    got, *_ = runs["port"]["ckpts"]["model-last"]
+    assert steps == EPOCHS * STEPS_PER_EPOCH
+    assert_weights_close(got, want, cfg.lr, steps)
+
+
+def test_resume_matches_jax(runs):
+    """--start_from the 2-epoch run to 3 epochs: both packages continue in
+    the same run dir from the epoch model-last was saved at (they run it
+    again), with the optimizer state restored; their histories, val
+    scores and final weights agree as the straight run's do."""
+    p, j = runs["port"], runs["jax"]
+    assert p["resumed_folder"] == p["folder"]
+    assert p["resumed_info"]["epoch"] == j["resumed_info"]["epoch"] == \
+        RESUMED_EPOCHS - 1
+    assert_losses_close(p["resumed_info"]["history"]["train_loss"],
+                        j["resumed_info"]["history"]["train_loss"])
+    assert_scores_close(p["resumed_info"]["history"]["val_scores"],
+                        j["resumed_info"]["history"]["val_scores"],
+                        val_weights(runs))
+    cfg = PConfig().update(runs["base"])
+    want, _, jsteps = jax_checkpoint(j["resumed_folder"], "model-last",
+                                     JConfig().update(runs["base"]))
+    got, _, steps = port_checkpoint(p["resumed_folder"], "model-last")
+    assert steps == jsteps == (EPOCHS + RESUMED_EPOCHS - 1) * STEPS_PER_EPOCH
+    assert_weights_close(got, want, cfg.lr, steps)
+
+
+def test_resume_restores_saved_opts(runs):
+    """The port's test_resume.py::test_resume_restores_saved_opts: resume
+    continues with the run's original hyperparameters, the given lr and
+    weight_decay overridden by the saved ones, except the resume controls
+    and epoch/id/save_dir."""
+    for pkg in ("port", "jax"):
+        cfg2 = runs[pkg]["resumed_cfg"]
+        assert cfg2.lr == runs["base"].get("lr", 1e-4)
+        assert cfg2.weight_decay == 0.0
+        assert cfg2.epoch == RESUMED_EPOCHS
+        assert runs[pkg]["resumed_info"]["opt"]["lr"] == cfg2.lr
+
+
+# ----------------------------------------------------------- load_pretrained
+
+LOAD_CASES = {
+    "full": ("full", {}),
+    "encoder": ("encoder", {}),
+    "decoder": ("decoder", {}),
+    "remove_class_head": ("full", dict(remove_class_head_weight=True)),
+    "remove_bbox_head": ("full", dict(remove_bbox_head_weight=True)),
+    "remove_caption_head": ("full", dict(remove_caption_head_weight=True)),
+    "ft_captioner_from_scratch": ("full",
+                                  dict(ft_captioner_from_scratch=True)),
+    "remove_contrastive_projection": (
+        "full", dict(remove_contrastive_projection_weight=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOAD_CASES))
+def test_load_pretrained_key_set_is_the_image_of_jax(runs, case):
+    """JAX's load_pretrained of its run's model-best.ckpt and the port's of
+    its model-best.pth: the port loads exactly the entries that are the
+    image under jax_params_to_state_dict of the flax leaves JAX loads (each
+    leaf found loaded by the value it takes over a fresh tree moved by
+    1000)."""
+    mode, flags = LOAD_CASES[case]
+    jcfg = JConfig().update(dict(runs["base"], **flags))
+    pcfg = PConfig().update(dict(runs["base"], **flags))
+    arch = GVLArch.from_config(pcfg)
+    fresh = jax.tree_util.tree_map(lambda x: np.asarray(x) + 1000.0,
+                                   runs["init"]["params"])
+    merged = j_load_pretrained(fresh, runs["jax"]["folder"], mode, jcfg)
+    loaded = jax.tree_util.tree_map(
+        lambda a, b: np.full(np.shape(a), float(np.all(
+            np.asarray(a) != np.asarray(b))), np.float32),
+        merged, fresh)
+    image = jax_params_to_state_dict(loaded, arch)
+    want = sorted(k for k, v in image.items() if bool((v == 1).all()))
+    assert all(bool(((v == 0) | (v == 1)).all()) for v in image.values())
+
+    model = build_model(pcfg, 32, device="cpu")
+    got = pckpt.load_pretrained(model, runs["port"]["folder"], mode, pcfg)
+    assert got == want
+    src = pckpt.CheckpointManager(runs["port"]["folder"]).restore_raw(
+        "model-best")["model"]
+    sd = model.state_dict()
+    assert all(torch.equal(sd[k], src[k]) for k in got)
+    if case == "full":
+        assert got == sorted(sd)
+
+
+def test_load_pretrained_refuses_a_checkpoint_that_matches_nothing(tmp_path):
+    pcfg = PConfig().update(dict(
+        loop_cfg(tmp_path, ("anno.json", "feats", "vocab.json", 20)),
+        enable_contrastive=False))
+    model = build_model(pcfg, device="cpu")
+    torch.save({"model": {"no.such.key": torch.zeros(3)},
+                "text_encoder": None, "epoch": 0}, tmp_path / "x.pth")
+    with pytest.raises(ValueError, match="matched"):
+        pckpt.load_pretrained(model, str(tmp_path / "x.pth"), "full", pcfg)
+    with pytest.raises(FileNotFoundError):
+        pckpt.load_pretrained(model, str(tmp_path), "full", pcfg)
+
+
+# ------------------------------------------------------------------ the CLI
+
+def run_cli(tmp_path, *flags):
+    data = make_synthetic_dataset(str(tmp_path), num_videos=6, feat_dim=16)
+    cfg = dict(loop_cfg(tmp_path, data), save_dir=str(tmp_path / "save"),
+               epoch=1)
+    cfg.pop("debug")
+    (tmp_path / "cfg.yml").write_text(yaml.safe_dump(cfg))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-m", "gvl_tpu_torch.train_cli", "--cfg_path",
+         str(tmp_path / "cfg.yml"), *flags], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=600)
+
+
+def test_train_cli_debug_run_on_the_cpu(tmp_path):
+    res = run_cli(tmp_path, "--device", "cpu", "--debug", "true")
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "run id: debug_" in res.stdout
+    saved = os.listdir(tmp_path / "save")
+    assert len(saved) == 1 and saved[0].startswith("debug_"), saved
+    info = json.loads((tmp_path / "save" / saved[0] / "info.json")
+                      .read_text())
+    assert "0" in info["history"]["val_scores"]
+
+
+def test_train_cli_needs_the_card_unless_told_otherwise(tmp_path):
+    res = run_cli(tmp_path)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr and "--device cpu" in res.stderr
+
+
+REFUSED = {
+    "gpt2": (dict(caption_decoder_type="gpt2"), "gpt2"),
+    "two_stage": (dict(transformer_input_type="gt_proposals"), "two-stage"),
+    "caption_cost": (dict(set_cost_caption=1.0), "caption cost"),
+    "scheduled_sampling": (dict(scheduled_sampling_start=0,
+                                basic_ss_prob=0.1), "scheduled sampling"),
+    "train_caption_bf16": (dict(train_caption_bf16=True),
+                           "train_caption_bf16"),
+    "several_devices": (dict(gpu_id=["0", "1"]), "more than one device"),
+    "sp_mesh": (dict(mesh_shape="dp,sp"), "sequence-parallel"),
+    "eval_side": (dict(only_ft_class_head=True), "only_ft_class_head"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_unported_train_options_are_refused_before_any_work(tmp_path, case):
+    """Each option the port does not train yet raises NotImplementedError
+    naming it, before a run directory or a model exists."""
+    flags, name = REFUSED[case]
+    cfg = PConfig().update(dict(
+        loop_cfg(tmp_path, ("anno.json", "feats", "vocab.json", 20)),
+        save_dir=str(tmp_path / "save"), device="cpu", **flags))
+    with pytest.raises(NotImplementedError, match=name):
+        ploop.train(cfg)
+    assert not (tmp_path / "save").exists()
+
+
+def test_profile_steps_write_a_trace(tmp_path):
+    """profile_steps > 0 records the first epoch's first steps with
+    torch.profiler into <run>/trace; the run goes on to its end."""
+    data = make_synthetic_dataset(str(tmp_path), num_videos=6, feat_dim=16)
+    cfg = PConfig().update(dict(loop_cfg(tmp_path, data), epoch=1,
+                                profile_steps=1, device="cpu",
+                                save_dir=str(tmp_path / "save")))
+    folder = pathlib.Path(ploop.train(cfg))
+    traces = list((folder / "trace").iterdir())
+    assert traces and traces[0].stat().st_size > 0
+    assert json.loads((folder / "info.json").read_text())["epoch"] == 0
+
+
+def test_eval_cli_reads_a_checkpoint_with_train_state(runs):
+    """The eval CLI evaluates the train loop's model-best.pth, which holds
+    the optimizers, schedules and step beside the weights."""
+    from gvl_tpu_torch import eval_cli
+    folder = pathlib.Path(runs["port"]["resumed_folder"])
+    raw = pckpt.CheckpointManager(str(folder)).restore_raw("model-best")
+    assert {"optimizer", "scheduler", "step"} <= set(raw)
+    res = eval_cli.main(["--eval_save_dir", str(folder.parent),
+                         "--eval_folder", folder.name, "--eval_device", "cpu",
+                         "--eval_batch_size", "3"])
+    assert res["videos"] == 6
+    assert "METEOR" in res["scores"]
