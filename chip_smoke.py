@@ -16,8 +16,10 @@ exits non-zero:
      taps in [0, 1], "wild" taps in [-0.4, 1.4], taps on level borders and
      "pile" taps (every tap of a (b, h) on three rows of each level); then
      normal and pile taps at the short pyramid 300+150+75 with K=6 and rows
-     of 32, 64 and 128 floats and at a dense encoder over the long-video
-     pyramid (B=1, Lq=S=1500); max abs error <= 1e-5. Times at the main
+     of 32, 64, 128 and 192 floats, at a dense encoder over the long-video
+     pyramid (B=1, Lq=S=1500) and at the transformer caption head's one
+     head of 512 floats (B=16, Lq=900 and Lq=30); max abs error <= 1e-5.
+     Times at the main
      shapes beside the library call that computes the same sum
      (F.embedding_bag on prepared taps) and, with --old-forms, the earlier
      kernel.
@@ -194,12 +196,53 @@ exits non-zero:
      sampled chain, greedy chain, host reward, backward, optimizer; the
      device synchronised at each mark), the host reward's time, the valid
      rollout slots per step and the peak device memory.
-With --kernels-only the script stops after phases 1-3, 8, 12 and 13. With
---profile DIR phases 7 and 11 also profile the long-video steps. The last
-two lines are the kernels' JSON summary (four kernels, each with the
-library call's time, library_ms, the dense ones with the earlier kernel's,
-old_ms, null without --old-forms, and the backward's with each of its two
-CUDA kernels' time and bound, split) and {"ok": true, "device": {...}}. The run uses one card, the first visible.
+ 19. (after phase 13) kernels 1 and 3 in their bf16-tap form against their
+     plain version on the same bf16 inputs (the JAX rule for bf16 loc
+     and/or attn in both: ops/ms_deform_attn.py): kernel 1 at the flagship
+     encoder and decoder shapes and the long-video decoder, every tap
+     class, each (loc, attn) dtype pair the levels allow; kernel 3 at the
+     long-video encoder (B=8; f32 loc, bf16 attn) and at levels
+     256+128+64+32 (every pair); max abs error <= 1e-5; a bf16 loc over the
+     long-video levels is refused. Device medians of the form the path runs
+     (f32 loc, bf16 attn) beside the f32 form on the same weights widened,
+     the plain version and embedding_bag.
+ 20. (flagship, after phase 6) the eval under each decode option:
+     eval_decode_bf16, eval_full_bf16, eval_beam_size 3 and
+     eval_decode_early_exit. For each, EvalRunner.run over 3 batches (the
+     launches: under eval_full_bf16 the encoder's taps are f32, the
+     decoder's attn bf16, so kernel 1 runs its f32 form twice and its
+     bf16-tap form twice a batch; finite JSONs; the decode's steps); one
+     batch on both paths under the option (trunk outputs to 1e-4, under
+     eval_full_bf16 to 5e-2 x their max abs; tokens >= 99%, under the bf16
+     options >= 95%: the paths' last-bit differences move bf16 roundings,
+     which flips near-tied tokens of the random model); the step's time
+     beside the f32 greedy step's (early exit's also with the stop read
+     every 5 steps),
+     in turns. In phase 14's place for the long video: one batch under
+     eval_full_bf16 (kernel 3's f32 form and kernel 1's bf16-tap form). In
+     phase 16: the eval CLI with --eval_use_amp, its JSONs equal to
+     EvalRunner.run's under eval_use_amp and eval_decode_bf16.
+ 21. (after phase 11) the light, transformer and none caption heads at
+     the flagship's widths: EvalRunner.run over 3 batches (the transformer
+     head's decode launches kernel 1 once a layer and step, at Lq = 30);
+     phase 10's kernel vs plain path check; 3 train steps with their
+     launches (the transformer head's teacher forcing launches kernels 1
+     and 2 once a decoder layer at Lq = 30 x 30 = 900), times and peak
+     device memory.
+ 22. MLP class heads and the heads shared across decoder layers
+     (with_box_refine=0): phase 10's check and one train step each.
+ 23. train_caption_bf16 on the flagship train step: phase 9's checks, then
+     phase 11's time, split and peak memory beside phase 11's f32 ones; in
+     phase 18, SCST again under train_caption_bf16 (the bf16 rollouts), its
+     step split and peak memory beside the f32 run's.
+With --kernels-only the script stops after phases 1-3, 8, 12, 13 and 19.
+With --profile DIR phases 7 and 11 also profile the long-video steps. The
+last two lines are the kernels' JSON summary (kernels 1-4 and the bf16-tap
+forms of 1 and 3, each with the library call's time, library_ms, the dense
+ones with the earlier kernel's, old_ms, null without --old-forms, the
+backward's with each of its two CUDA kernels' time and bound, split, the
+bf16-tap forms with their f32 form's time, f32_form_ms) and {"ok": true,
+"device": {...}}. The run uses one card, the first visible.
 """
 
 from __future__ import annotations
@@ -450,21 +493,26 @@ def kernel_fns():
 
 def reset_counts() -> None:
     for fn in kernel_fns():
-        fn.launches = fn.bwd_launches = 0
+        fn.launches = fn.bwd_launches = fn.bf16_launches = 0
 
 
 def read_counts() -> dict:
+    """Launches per kernel: kernels 1-4 and the bf16-tap forms of 1 and 3."""
     dense, banded = kernel_fns()
     return {"fwd": dense.launches, "bwd": dense.bwd_launches,
-            "banded_fwd": banded.launches, "banded_bwd": banded.bwd_launches}
+            "banded_fwd": banded.launches, "banded_bwd": banded.bwd_launches,
+            "fwd_bf16": dense.bf16_launches,
+            "banded_fwd_bf16": banded.bf16_launches}
 
 
 def want_counts(w: Workload, steps: int, train: bool) -> dict:
+    """The launches of `steps` eval batches or train steps of an f32 path."""
     per = w.launches_per_step()
     return {"fwd": per["dense"] * steps,
             "bwd": per["dense"] * steps * train,
             "banded_fwd": per["banded"] * steps,
-            "banded_bwd": per["banded"] * steps * train}
+            "banded_bwd": per["banded"] * steps * train,
+            "fwd_bf16": 0, "banded_fwd_bf16": 0}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -575,13 +623,18 @@ N_REPEATS = 20
 TINY_SHAPES = (300, 150, 75)
 # (level lengths, batch, queries, heads, head width, points) that phases 3
 # and 8 check beside the main paths' shapes: the short pyramid with K=6 and
-# rows of 32, 64 and 128 floats, and a dense encoder over the long-video
+# rows of 32, 64 and 128 floats, a dense encoder over the long-video
 # pyramid (Lq = S = 1500), whose taps the backward's value kernel walks in
-# several chunks and row ranges
+# several chunks and row ranges, and the flagship's transformer caption head
+# (one head of 512 floats: its teacher forcing over 30 x 30 tokens a video,
+# its decode step over 30) and a row of 192 floats
 DENSE_GEOMETRIES = ((TINY_SHAPES, 2, 70, 4, 32, 2),
                     (TINY_SHAPES, 2, 70, H, DH, 2),
                     (TINY_SHAPES, 2, 70, 2, 128, 2),
-                    (LONG.shapes, 1, sum(LONG.shapes), H, DH, P))
+                    (LONG.shapes, 1, sum(LONG.shapes), H, DH, P),
+                    (ANET.shapes, ANET.train_B, 900, 1, 512, P),
+                    (ANET.shapes, ANET.eval_B, 30, 1, 512, P),
+                    (TINY_SHAPES, 2, 70, 1, 192, 2))
 
 
 def msda_inputs(kind: str, shapes, B: int, Lq: int, gen: torch.Generator, dev,
@@ -1782,6 +1835,33 @@ def phase_eval_cli(w: Workload, dev) -> dict:
             with open(p) as f:
                 check(json.load(f) == got[k], f"the CLI's {k} JSON differs "
                                               "from EvalRunner.run's")
+        # --eval_use_amp: the bf16 text pass and eval_decode_bf16, as the
+        # JAX CLI maps it (eval.py:134-135)
+        reset_counts()
+        res_amp = eval_cli.main(argv + ["--eval_use_amp"])
+        amp_launches = read_counts()
+        amp = {"dvc": dvc, "reranked": pathlib.Path(res_amp["dvc_json"]),
+               "grounding": pathlib.Path(res_amp["dvc_json"]
+                                         + ".grounding.json")}
+        amp = {k: json.loads(p.read_text()) for k, p in amp.items()}
+        cfg.eval_use_amp = cfg.eval_decode_bf16 = True
+        direct = str(run / "direct_amp.json")
+        path, *_ = EvalRunner(cfg, model, ds.translator, text).run(
+            Batcher(ds, cfg, B, shuffle=False), direct)
+        n_diff = sum(a["sentence"] != b["sentence"] for v in got["dvc"][
+            "results"] for a, b in zip(got["dvc"]["results"][v],
+                                       amp["dvc"]["results"][v]))
+        for k, p in {"dvc": direct, "reranked": path,
+                     "grounding": path + ".grounding.json"}.items():
+            with open(p) as f:
+                check(json.load(f) == amp[k], f"--eval_use_amp: the CLI's {k}"
+                                              " JSON differs from "
+                                              "EvalRunner.run's")
+        check(amp_launches == want, f"--eval_use_amp launches {amp_launches}")
+        log(tag, f"--eval_use_amp: launches {amp_launches}; its DVC, "
+                 f"reranked and grounding JSONs equal EvalRunner.run's under "
+                 f"eval_use_amp + eval_decode_bf16 bit for bit; {n_diff} "
+                 f"sentences differ from the f32 run's")
         del model, text
     evalled = sum(times[k] for k in CLI_STAGES if k != "metrics")
     log(tag, f"stage times, s ({card()}): "
@@ -1962,7 +2042,8 @@ def phase_train_cli(w: Workload, dev, root: pathlib.Path, data: dict,
     launches = read_counts()
     n_steps = TRAIN_CLI_EPOCHS * steps_per_epoch
     want = {"fwd": 4 * (n_steps + TRAIN_CLI_EPOCHS * val_batches),
-            "bwd": 4 * n_steps, "banded_fwd": 0, "banded_bwd": 0}
+            "bwd": 4 * n_steps, "banded_fwd": 0, "banded_bwd": 0,
+            "fwd_bf16": 0, "banded_fwd_bf16": 0}
     log(tag, f"train_cli.main: {TRAIN_CLI_EPOCHS} epochs of "
              f"{steps_per_epoch} steps at B={TRAIN_CLI_B}, "
              f"{calls.eval_batches} validation batches, {wall:.3f} s; "
@@ -2128,15 +2209,19 @@ def scst_rollout(model, batch: dict, rate: int, seed: int, impl: str):
 
 
 def phase_scst(w: Workload, dev, root: pathlib.Path, data: dict,
-               pretrained: pathlib.Path) -> dict:
-    """Phase 18, SCST on the card (see the docstring). Returns its launch
-    counts."""
+               pretrained: pathlib.Path, caption_bf16: bool = False) -> dict:
+    """Phase 18, SCST on the card (see the docstring); with caption_bf16
+    the same run under train_caption_bf16 (the bf16 rollouts), without the
+    paths' rollout comparison. Returns its launch counts and its step split
+    and peak device memory."""
     from gvl_tpu_torch import train_cli
     from gvl_tpu_torch.models.gvl import build_model
     from gvl_tpu_torch.train.checkpoint import CheckpointManager
-    tag = "scst"
+    tag = "scst_bf16" if caption_bf16 else "scst"
     cfg = scst_cfg(root, data, pretrained)
-    yml = write_run_yml(root / "anet_tsp_dvc_rl.yml", cfg)
+    if caption_bf16:
+        cfg.update(train_caption_bf16=True, save_dir=str(root / "save_rl16"))
+    yml = write_run_yml(root / f"{tag}.yml", cfg)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -2146,7 +2231,8 @@ def phase_scst(w: Workload, dev, root: pathlib.Path, data: dict,
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {"fwd": 4 * (SCST_STEPS + calls.eval_batches),
-            "bwd": 4 * SCST_STEPS, "banded_fwd": 0, "banded_bwd": 0}
+            "bwd": 4 * SCST_STEPS, "banded_fwd": 0, "banded_bwd": 0,
+            "fwd_bf16": 0, "banded_fwd_bf16": 0}
     log(tag, f"train_cli.main on {yml.name}: {len(calls.steps)} steps, "
              f"{calls.eval_batches} validation batch(es), {wall:.3f} s; "
              f"launches {launches} (want {want})")
@@ -2190,6 +2276,8 @@ def phase_scst(w: Workload, dev, root: pathlib.Path, data: dict,
              f"{losses['loss_caption']!r} (epoch mean); {len(moved)} "
              f"caption-head entries moved, nothing else; peak device memory "
              f"{peak / 2**30:.2f} GiB")
+    if caption_bf16:
+        return launches, dict(split=split, peak=peak)
 
     # one batch's sampled rollout on the kernel path and the plain path
     mcfg = types.SimpleNamespace(**info["opt"])
@@ -2215,7 +2303,7 @@ def phase_scst(w: Workload, dev, root: pathlib.Path, data: dict,
     check(agree >= SCST_TOKEN_AGREEMENT, f"rollout tokens agree {agree}")
     check(lp_err <= SCST_LOGPROB_TOL, f"rollout logprobs differ {lp_err}")
     del model, text
-    return launches
+    return launches, dict(split=split, peak=peak)
 
 
 def phase_train_cli_and_scst(w: Workload, dev) -> dict:
@@ -2231,8 +2319,17 @@ def phase_train_cli_and_scst(w: Workload, dev) -> dict:
         launches["anet_train_cli"], run = phase_train_cli(
             w, dev, root, data, grounding)
         torch.cuda.empty_cache()
-        launches["anet_scst"] = phase_scst(w, dev, root, data, run)
+        launches["anet_scst"], f32 = phase_scst(w, dev, root, data, run)
         torch.cuda.empty_cache()
+        launches["anet_scst_bf16"], bf16 = phase_scst(w, dev, root, data,
+                                                      run, caption_bf16=True)
+        torch.cuda.empty_cache()
+    log("scst_bf16", f"({card()}) step split, median ms, train_caption_bf16"
+                     f" / f32: " + ", ".join(
+                         f"{k} {bf16['split'][k]!r} / {f32['split'][k]!r}"
+                         for k in f32["split"])
+        + f"; peak device memory {bf16['peak'] / 2**30:.2f} / "
+          f"{f32['peak'] / 2**30:.2f} GiB")
     return launches
 
 
@@ -2265,12 +2362,13 @@ def train_batch(w: Workload, seed: int, text=None) -> dict:
     return batch
 
 
-def build_train(w: Workload, dev):
+def build_train(w: Workload, dev, text=None):
     """The model on the card with seeded weights, its train state and step
     (with the text side on: the text encoder, frozen or trained as the
-    config's text_encoder_learning_strategy says), the loss weights (the
-    contrastive weight the schedule gives at CL_EPOCH) and two seeded
-    batches."""
+    config's text_encoder_learning_strategy says; `text`, when given, is a
+    seeded one already built), the loss weights (the contrastive weight the
+    schedule gives at CL_EPOCH) and two seeded batches. The caption loss and
+    train_caption_bf16 follow the config."""
     from gvl_tpu_torch.models.gvl import build_model
     from gvl_tpu_torch.train.criterion import (LossSpec, cl_weight_at_epoch,
                                                make_weight_dict)
@@ -2279,17 +2377,18 @@ def build_train(w: Workload, dev):
     cfg = types.SimpleNamespace(**w.cfg)
     torch.manual_seed(SEED)               # the dropout draws
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    text = load_text(w, dev)
+    text = text if text is not None else load_text(w, dev)
     model = build_model(cfg, text_hidden_dim=text.hidden_size if text
                         else 768, generator=gen)  # no device: the card
     check(next(model.parameters()).device == dev, "build_model's default "
           f"device is {next(model.parameters()).device}, not {dev}")
     statics = StepStatics(
         spec=LossSpec.from_config(cfg), enable_contrastive=w.contrastive,
-        caption_loss=True, two_stage=False, train_text_encoder=w.trains_text,
-        disable_mid_caption_heads=False, enable_pos_emb_for_captioner=False,
-        temporal_shapes=w.shapes,
-        text_bf16=bool(getattr(cfg, "train_use_amp", False)))
+        caption_loss=cfg.caption_loss_coef > 0, two_stage=False,
+        train_text_encoder=w.trains_text, disable_mid_caption_heads=False,
+        enable_pos_emb_for_captioner=False, temporal_shapes=w.shapes,
+        text_bf16=bool(getattr(cfg, "train_use_amp", False)),
+        caption_bf16=bool(getattr(cfg, "train_caption_bf16", False)))
     state = create_train_state(cfg, model, STEPS_PER_EPOCH, statics, text)
     step = make_train_step(model, cfg, statics, text)
     check((state.text_optimizer is not None) == w.trains_text,
@@ -2646,13 +2745,526 @@ def phase_msda_ref_route(dev) -> None:
     torch.cuda.synchronize()
     got = read_counts()
     want = {"fwd": cfg.enc_layers + cfg.dec_layers, "bwd": 0,
-            "banded_fwd": 0, "banded_bwd": 0}
+            "banded_fwd": 0, "banded_bwd": 0, "fwd_bf16": 0,
+            "banded_fwd_bf16": 0}
     log("lvref", f"long-video model, msda_impl='ref', S={sum(LONG.shapes)}: "
                  f"one forward launched {got} (want {want}); memory finite "
                  f"{bool(torch.isfinite(out['memory']).all())}")
     check(got == want and bool(torch.isfinite(out["memory"]).all()),
           f"msda_impl='ref' route: launches {got}")
     reset_counts()
+
+
+# ---------------------------------------------------------------- phase 19
+# (loc, attn) dtypes of the bf16-tap forms; the first is what the path gives
+# them (eval_full_bf16: the decoder's attn is bf16, its loc f32)
+TAP_DTYPES = (("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+              ("bfloat16", "float32"))
+# a token pyramid whose every T and T - 1 is a bf16 value, for a bf16 loc
+# into kernel 3 (the long-video levels, 800 and 400, are not: refused)
+BF16_LOC_SHAPES = (256, 128, 64, 32)
+
+
+def cast_taps(loc, attn, dts):
+    return (loc.to(getattr(torch, dts[0])).contiguous(),
+            attn.to(getattr(torch, dts[1])).contiguous())
+
+
+def phase_bf16_taps_vs_plain(dev) -> dict:
+    """Kernels 1 and 3 in their bf16-tap form against their plain version
+    on the same bf16 inputs (the JAX rule in both, ops/ms_deform_attn.py):
+    kernel 1 at the flagship encoder and decoder shapes and the long-video
+    decoder, every tap class, every (loc, attn) dtype pair whose levels a
+    bf16 loc allows; kernel 3 at the long-video encoder (B=8, f32 loc, bf16
+    attn) and at BF16_LOC_SHAPES (every pair); max abs error <= 1e-5. A bf16
+    loc over the long-video levels is refused. Device medians of the path's
+    form (f32 loc, bf16 attn) beside the f32 form on the same weights
+    widened, the plain version and embedding_bag."""
+    from gvl_tpu_torch.ops import (ms_deform_attn_1d_banded_cuda,
+                                   ms_deform_attn_1d_banded_ref,
+                                   ms_deform_attn_1d_cuda,
+                                   ms_deform_attn_1d_ref, prep_taps)
+    from gvl_tpu_torch.ops.ms_deform_attn_banded import banded_rows
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    worst = {"fwd_bf16": 0.0, "banded_fwd_bf16": 0.0}
+    for label in ("encoder", "decoder", "longvideo_decoder"):
+        shapes, B, _, Lq = DENSE_CASES[label]
+        for kind in DENSE_KINDS:
+            value, loc, attn = msda_inputs(kind, shapes, B, Lq, gen, dev)
+            for dts in TAP_DTYPES:
+                if dts[0] == "bfloat16" and shapes == LONG.shapes:
+                    continue
+                lc, at = cast_taps(loc, attn, dts)
+                worst["fwd_bf16"] = max(worst["fwd_bf16"], check_forward(
+                    f"bf16taps {label} B={B} Lq={Lq} {kind} loc {dts[0]} "
+                    f"attn {dts[1]}",
+                    ms_deform_attn_1d_cuda(value, shapes, lc, at),
+                    ms_deform_attn_1d_ref(value, shapes, lc, at)))
+    value, loc, attn = msda_inputs("normal", LONG.shapes, 1, 100, gen, dev)
+    try:
+        ms_deform_attn_1d_cuda(value, LONG.shapes, loc.bfloat16(), attn)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log("bf16taps", f"bf16 loc over the levels {LONG.shapes}: {refused!r}")
+    check("bfloat16" in refused, "a bf16 loc over levels that round")
+    for shapes, pairs in ((LONG.shapes, TAP_DTYPES[:1]),
+                          (BF16_LOC_SHAPES, TAP_DTYPES)):
+        for kind in ("local", "wide", "border", "pile"):
+            value, loc, attn = banded_inputs(kind, LONG.eval_B, gen, dev,
+                                             shapes)
+            for dts in pairs:
+                lc, at = cast_taps(loc, attn, dts)
+                worst["banded_fwd_bf16"] = max(
+                    worst["banded_fwd_bf16"], check_forward(
+                        f"bf16taps banded B={LONG.eval_B} S={sum(shapes)} "
+                        f"{kind} loc {dts[0]} attn {dts[1]}",
+                        ms_deform_attn_1d_banded_cuda(value, shapes, lc, at,
+                                                      LV_MARGIN),
+                        ms_deform_attn_1d_banded_ref(value, shapes, lc, at,
+                                                     LV_MARGIN)))
+    times = {"fwd_bf16": {}, "banded_fwd_bf16": {}}
+    for label in ("decoder", "encoder"):
+        shapes, B, _, Lq = DENSE_CASES[label]
+        value, loc, attn = msda_inputs("normal", shapes, B, Lq, gen, dev)
+        a16 = attn.bfloat16()
+        a32 = a16.float()
+        tm = dict(
+            B=B, S=sum(shapes), Lq=Lq,
+            ms=device_median_ms(lambda: ms_deform_attn_1d_cuda(
+                value, shapes, loc, a16), 50),
+            f32_form_ms=device_median_ms(lambda: ms_deform_attn_1d_cuda(
+                value, shapes, loc, a32), 50),
+            plain_ms=device_median_ms(lambda: ms_deform_attn_1d_ref(
+                value, shapes, loc, a16), 50),
+            library_ms=device_median_ms(library_fwd(
+                value, *prep_taps(shapes, loc, a16)), 50))
+        times["fwd_bf16"][label] = tm
+        log("bf16taps", f"kernel 1, bf16 attn, {label} B={B} Lq={Lq}: "
+                        f"{tm['ms']!r} ms on the device, its f32 form "
+                        f"{tm['f32_form_ms']!r}, plain {tm['plain_ms']!r}, "
+                        f"embedding_bag {tm['library_ms']!r} (medians of 50)")
+    shapes = LONG.shapes
+    value, loc, attn = banded_inputs("local", LONG.eval_B, gen, dev)
+    a16 = attn.bfloat16()
+    a32 = a16.float()
+    g0, g1, w0, w1 = prep_taps(shapes, loc, a16)
+    tm = dict(
+        B=LONG.eval_B, S=sum(shapes), Lq=sum(shapes),
+        ms=device_median_ms(lambda: ms_deform_attn_1d_banded_cuda(
+            value, shapes, loc, a16, LV_MARGIN), 50),
+        f32_form_ms=device_median_ms(lambda: ms_deform_attn_1d_banded_cuda(
+            value, shapes, loc, a32, LV_MARGIN), 50),
+        plain_ms=device_median_ms(lambda: ms_deform_attn_1d_banded_ref(
+            value, shapes, loc, a16, LV_MARGIN), 20),
+        library_ms=device_median_ms(library_fwd(
+            value, *banded_rows(shapes, g0, g1, LV_MARGIN), w0, w1), 50))
+    times["banded_fwd_bf16"]["longvideo"] = tm
+    log("bf16taps", f"kernel 3, bf16 attn, long video B={LONG.eval_B}: "
+                    f"{tm['ms']!r} ms on the device, its f32 form "
+                    f"{tm['f32_form_ms']!r}, plain {tm['plain_ms']!r}, "
+                    f"embedding_bag {tm['library_ms']!r} (medians of 50 / 50"
+                    f" / 20 / 50)")
+    return {k: dict(max_abs_err=worst[k], times=times[k]) for k in worst}
+
+
+def bf16_row(name, source, replaces, launches, kv, banded) -> dict:
+    """A bf16-tap form's entry: the required keys at the shape its path
+    gives it (kernel 1: the flagship decoder under eval_full_bf16), the
+    bound with a 2-byte attn, the f32 form's time on the same weights
+    (f32_form_ms)."""
+    by_shape = {}
+    for label, tm in kv["times"].items():
+        bd = msda_bound(tm["B"], tm["S"], tm["Lq"], "fwd", attn_bytes=2)
+        by_shape[label] = dict(tm, bound_ms=bd["bound_ms"],
+                               bound_by=bd["bound_by"], bytes=bd["bytes"],
+                               flops=bd["flops"])
+        log("bound", f"{name} {label}: {bd['bytes']} bytes, {bd['flops']} "
+                     f"flop -> {bd['bound_ms']!r} ms, bound by "
+                     f"{bd['bound_by']}; kernel {tm['ms']!r} ms")
+    main = by_shape["longvideo" if banded else "decoder"]
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches.values()), "max_abs_err": kv["max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "f32_form_ms": main["f32_form_ms"],
+        "taps": "f32 loc, bf16 attn", "launches_by_path": launches,
+        "by_shape": by_shape,
+        "shape": (f"long-video encoder B={LONG.eval_B} S=1500 Lq=1500 "
+                  f"margin={LV_MARGIN}" if banded else
+                  "flagship decoder B=16 S=188 Lq=30") + " H=8 Dh=64 K=16"}
+    if banded:
+        row["on_a_path"] = ("none: under eval_full_bf16 the encoder's "
+                            "queries add the f32 position encodings, so "
+                            "JAX's rule gives kernel 3 f32 loc and attn")
+    return row
+
+
+# ---------------------------------------------------------------- phase 20
+EVAL_OPTIONS = {"decode_bf16": dict(eval_decode_bf16=True),
+                "full_bf16": dict(eval_full_bf16=True),
+                "beam3": dict(eval_beam_size=3),
+                "early_exit": dict(eval_decode_early_exit=True)}
+# kernel path vs plain path under a bf16 option: the paths' f32 sums differ
+# in their last bits, which moves a few bf16 roundings by an ulp (2^-8
+# relative): the bf16 trunk's outputs by that much, and the tokens of the
+# random model where two logits nearly tie (decode_bf16: 98.98% equal on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+FULL_BF16_TOL, BF16_TOKENS = 5e-2, 0.95
+N_OPT_ROUNDS, N_OPT_WINDOW = 3, 5
+
+
+def counting_decode(steps: list):
+    """Context: every decode_loop call appends its number of steps."""
+    from gvl_tpu_torch.models import captioner
+    real = captioner.decode_loop
+
+    def counting(step, *args, **kwargs):
+        n = [0]
+
+        def counted(it, t):
+            n[0] += 1
+            return step(it, t)
+        out = real(counted, *args, **kwargs)
+        steps.append(n[0])
+        return out
+
+    class Ctx:
+        def __enter__(self):
+            captioner.decode_loop = counting
+
+        def __exit__(self, *exc):
+            captioner.decode_loop = real
+    return Ctx()
+
+
+def option_launches(w: Workload, name: str, n: int) -> dict:
+    """The launches of n eval batches under a decode option: the f32 path's,
+    but under eval_full_bf16 the decoder's attn is bf16 (kernel 1's bf16-tap
+    form) and the encoder's taps f32."""
+    want = want_counts(w, n, train=False)
+    if name == "full_bf16":
+        want["fwd_bf16"] = w.cfg["dec_layers"] * n
+        want["fwd"] -= want["fwd_bf16"]
+    return want
+
+
+def phase_eval_options(w: Workload, model, text) -> dict:
+    """The flagship eval under each of EVAL_OPTIONS (see the docstring).
+    Returns the launch counts of each option's run."""
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    from gvl_tpu_torch.models.layers import set_msda_impl
+    tag = w.tag + "opts"
+    batches = list(synthetic_batches(w, N_BATCHES, SEED))
+    one = next(synthetic_batches(w, 1, SEED + 2, long_video=False))
+    base = EvalRunner(types.SimpleNamespace(**w.cfg), model, WordTranslator(),
+                      text)
+    launches = {}
+    for name, opt in EVAL_OPTIONS.items():
+        runner = EvalRunner(types.SimpleNamespace(**dict(w.cfg, **opt)),
+                            model, WordTranslator(), text)
+        steps = []
+        with tempfile.TemporaryDirectory() as tmp, counting_decode(steps):
+            reset_counts()
+            _, out_json, g_json, aux_json, losses = runner.run(
+                batches, f"{tmp}/dvc.json")
+            torch.cuda.synchronize()
+            got = read_counts()
+        launches[f"{w.name}_{name}"] = got
+        want = option_launches(w, name, N_BATCHES)
+        n_num = check_finite_json(f"{name} DVC JSON", out_json)
+        n_keys = check_grounding(tag, batches, g_json, aux_json)
+        check(got == want and len(out_json["results"]) ==
+              N_BATCHES * w.eval_B, f"{name}: launches {got}, want {want}")
+        log(tag, f"{name}: EvalRunner.run over {N_BATCHES} batches: "
+                 f"launches {got}; decode steps per batch {steps}; DVC JSON "
+                 f"{n_num} numbers, all finite; {n_keys} grounding keys")
+        # kernel path vs plain path, one batch, both under the option
+        _, _, arrs = runner._prepare(one)
+        res = {}
+        with torch.inference_mode():
+            for impl in ("kernel", "ref"):
+                set_msda_impl(model, impl)
+                r, aux = runner._eval_step(arrs)
+                res[impl] = runner._to_host((r, aux))
+        set_msda_impl(model, "kernel")
+        (kr, ka), (pr, pa) = res["kernel"], res["ref"]
+        tokens = float((kr["seq"] == pr["seq"]).mean())
+        full = name == "full_bf16"
+        errs = {}
+        for key in ("pred_logits", "pred_boxes", "memory", "event_embed"):
+            scale = float(np.abs(pa[key]).max())
+            errs[key] = float(np.abs(ka[key] - pa[key]).max())
+            check(np.isfinite(ka[key]).all() and errs[key] <= (
+                FULL_BF16_TOL * scale if full else TRUNK_TOL),
+                f"{name}: {key} kernel vs plain path {errs[key]} (max abs "
+                f"{scale})")
+        check(tokens >= (BF16_TOKENS if "bf16" in name else TOKEN_AGREEMENT),
+              f"{name}: tokens agree {tokens}")
+        log(tag, f"{name}: kernel vs plain path, one batch: trunk max abs "
+                 f"diffs {json.dumps(errs)}; tokens equal {tokens!r}")
+        time_against_f32(tag, w, name, runner, base, one)
+        if name == "early_exit":
+            # the stop read every 5 steps instead of every step
+            from gvl_tpu_torch.models import captioner
+            every = captioner.EXIT_CHECK_EVERY
+            captioner.EXIT_CHECK_EVERY = 5
+            try:
+                time_against_f32(tag, w, "early_exit, the stop read every 5 "
+                                 "steps", runner, base, one)
+            finally:
+                captioner.EXIT_CHECK_EVERY = every
+    return launches
+
+
+def time_against_f32(tag, w, name, runner, base, one) -> None:
+    """The eval step of `runner` against the f32 greedy step of `base`, in
+    turns: N_OPT_ROUNDS windows of N_OPT_WINDOW steps each."""
+    win = {name: [], "f32": []}
+
+    def window(r):
+        for _ in range(N_OPT_WINDOW):
+            r._to_host(r._eval_step(r._prepare(one)[2])[0])
+
+    with torch.inference_mode():
+        for r in (runner, base):
+            cuda_median_ms(lambda: window(r), 1, warmup=1)
+        for i in range(N_OPT_ROUNDS):
+            pair = ((name, runner), ("f32", base))
+            for key, r in (pair[::-1] if i % 2 else pair):
+                win[key].append(cuda_median_ms(lambda: window(r), 1,
+                                               warmup=0) / N_OPT_WINDOW)
+    med = {k: statistics.median(v) for k, v in win.items()}
+    log(tag, f"({card()}) {name}: eval step B={w.eval_B} {med[name]!r} "
+             f"ms, the f32 greedy step {med['f32']!r} ms (medians of "
+             f"{N_OPT_ROUNDS} windows of {N_OPT_WINDOW} steps each, in "
+             f"turns; windows {win[name]!r} / {win['f32']!r})")
+
+
+def phase_longvideo_full_bf16(w: Workload, model, text) -> dict:
+    """The long-video eval once under eval_full_bf16: the encoder's taps are
+    f32 (kernel 3's f32 form), the decoder's attn bf16 (kernel 1's bf16-tap
+    form); finite JSONs."""
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    tag = w.tag + "fullbf16"
+    runner = EvalRunner(types.SimpleNamespace(**dict(w.cfg,
+                                                     eval_full_bf16=True)),
+                        model, WordTranslator(), text)
+    batches = list(synthetic_batches(w, 1, SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        _, out_json, g_json, aux_json, _ = runner.run(batches,
+                                                      f"{tmp}/dvc.json")
+        torch.cuda.synchronize()
+        got = read_counts()
+    want = want_counts(w, 1, train=False)
+    want["fwd_bf16"], want["fwd"] = want["fwd"], 0
+    n_num = check_finite_json("long-video full-bf16 DVC JSON", out_json)
+    check_grounding(tag, batches, g_json, aux_json)
+    log(tag, f"EvalRunner.run under eval_full_bf16, one batch of "
+             f"{w.eval_B}: launches {got} (want {want}: the banded kernel's "
+             f"f32 form, kernel 1's bf16-tap form); DVC JSON {n_num} "
+             f"numbers, all finite")
+    check(got == want, f"long-video full bf16 launches {got}")
+    return got
+
+
+# ---------------------------------------------------------------- phase 21
+HEADS = ("light", "transformer", "none")
+N_HEAD_STEPS = 3
+
+
+def head_workload(name: str, **kw) -> Workload:
+    """The flagship with `kw` over its cfg (the caption head, a head
+    layout, train_caption_bf16)."""
+    return dataclasses.replace(ANET, name=f"anet_{name}", tag=name,
+                               cfg=dict(FLAGSHIP, **kw))
+
+
+def head_cfg(head: str) -> dict:
+    kw = dict(caption_decoder_type=head)
+    if head == "none":          # config.py:440-442: localization only
+        kw.update(caption_loss_coef=0.0, set_cost_caption=0.0)
+    return kw
+
+
+def record_lq() -> tuple:
+    """Wrap the dense kernels' wrappers to record the Lq of every launch;
+    returns (lists of forward and backward Lq, a function that unwraps)."""
+    import gvl_tpu_torch.ops.ms_deform_attn as msda
+    fwd_lq, bwd_lq = [], []
+    real_f, real_b = msda.ms_deform_attn_1d_cuda, msda.ms_deform_attn_1d_bwd_cuda
+
+    def f(value, shapes, loc, attn):
+        fwd_lq.append(loc.shape[1])
+        return real_f(value, shapes, loc, attn)
+
+    def b(grad_out, value, shapes, loc, attn, **kw):
+        bwd_lq.append(loc.shape[1])
+        return real_b(grad_out, value, shapes, loc, attn, **kw)
+
+    msda.ms_deform_attn_1d_cuda, msda.ms_deform_attn_1d_bwd_cuda = f, b
+
+    def undo():
+        msda.ms_deform_attn_1d_cuda = real_f
+        msda.ms_deform_attn_1d_bwd_cuda = real_b
+    return fwd_lq, bwd_lq, undo
+
+
+def train_steps_timed(tag, w, state, step, weights, batches, n) -> dict:
+    """n train steps, each between CUDA events after the launches of the
+    first; their times, the peak device memory and the launches of one
+    step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step = [], None
+    for i in range(n):
+        reset_counts()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = {k: float(v) for k, v in
+                  step(state, batches[i % 2], weights).items()}
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"{tag}: step {i} losses {losses}")
+        per_step = per_step or read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    return dict(times=times, peak=peak, per_step=per_step, losses=losses)
+
+
+def phase_heads(dev, text) -> dict:
+    """The light, transformer and none heads at the flagship's widths (see
+    the docstring). Returns the launch counts of each eval run and of one
+    train step."""
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    from gvl_tpu_torch.models.gvl import build_model
+    launches = {}
+    for head in HEADS:
+        w = head_workload(head, **head_cfg(head))
+        tag = w.tag + "head"
+        cfg = types.SimpleNamespace(**w.cfg)
+        model = build_model(cfg, text.hidden_size, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED))
+        runner = EvalRunner(cfg, model, WordTranslator(), text)
+        batches = list(synthetic_batches(w, N_BATCHES, SEED))
+        Lc, cap_layers = cfg.max_caption_len, int(cfg.num_layers)
+        fwd_lq, bwd_lq, undo = record_lq()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                reset_counts()
+                t0 = time.perf_counter()
+                _, out_json, g_json, aux_json, _ = runner.run(
+                    batches, f"{tmp}/dvc.json")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = read_counts()
+        finally:
+            undo()
+        want = want_counts(w, N_BATCHES, train=False)
+        if head == "transformer":       # one cross-attention a layer a step
+            want["fwd"] += N_BATCHES * Lc * cap_layers
+        launches[f"{w.name}_eval"] = got
+        n_num = check_finite_json(f"{head} DVC JSON", out_json)
+        check_grounding(tag, batches, g_json, aux_json)
+        n_sent = sum(bool(it["sentence"]) for v in out_json["results"].values()
+                     for it in v)
+        check(got == want and (n_sent > 0) == (head != "none"),
+              f"{head} eval: launches {got} (want {want}), {n_sent} "
+              f"sentences")
+        log(tag, f"{head} head, EvalRunner.run over {N_BATCHES} batches: "
+                 f"{wall:.3f} s; launches {got}, decode Lq "
+                 f"{sorted(set(fwd_lq))}; {n_num} finite numbers, {n_sent} "
+                 f"predictions with a sentence")
+        del runner, model
+        tmodel, state, step, weights, tb = build_train(w, dev, text)
+        phase_train_paths_agree(w, tmodel, step, weights, tb[0], None)
+        fwd_lq, bwd_lq, undo = record_lq()
+        try:
+            res = train_steps_timed(tag, w, state, step, weights, tb,
+                                    N_HEAD_STEPS)
+        finally:
+            undo()
+        want = want_counts(w, 1, train=True)
+        G = w.max_gt
+        if head == "transformer":      # teacher forcing over G*Lc tokens
+            extra = cfg.dec_layers * cap_layers
+            want["fwd"] += extra
+            want["bwd"] += extra
+            check(G * Lc in fwd_lq and G * Lc in bwd_lq,
+                  f"transformer teacher forcing Lq {sorted(set(fwd_lq))} / "
+                  f"{sorted(set(bwd_lq))}, want {G * Lc}")
+        launches[f"{w.name}_train"] = res["per_step"]
+        check(res["per_step"] == want,
+              f"{head} train step launches {res['per_step']}, want {want}")
+        log(tag, f"({card()}) {head} head, {N_HEAD_STEPS} train steps at "
+                 f"B={w.train_B}: {res['times']!r} ms (CUDA events), "
+                 f"median {statistics.median(res['times'])!r}; peak device "
+                 f"memory {res['peak'] / 2**30:.3f} GiB; launches per step "
+                 f"{res['per_step']}, forward Lq {sorted(set(fwd_lq))}, "
+                 f"backward Lq {sorted(set(bwd_lq))}; last losses: total "
+                 f"{res['losses']['total_loss']!r}, caption "
+                 f"{res['losses'].get('loss_caption')!r}")
+        del tmodel, state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 22
+LAYOUTS = {"mlp": dict(support_mlp_class_head=1),
+           "shared": dict(with_box_refine=0)}
+
+
+def phase_head_layouts(dev, text) -> dict:
+    """MLP class heads and the heads shared across decoder layers
+    (with_box_refine=0): phase 10's kernel vs plain path check and one
+    train step with its launches. Returns the step's launch counts."""
+    launches = {}
+    for name, kw in LAYOUTS.items():
+        w = head_workload(name, **kw)
+        model, state, step, weights, batches = build_train(w, dev, text)
+        if name == "shared":
+            check(model.class_head[0] is model.class_head[1]
+                  and model.bbox_head[0] is model.bbox_head[1],
+                  "with_box_refine=0: one head module for every layer")
+        else:
+            check(len(model.class_head[0].layers) == 3, "3-layer MLP heads")
+        phase_train_paths_agree(w, model, step, weights, batches[0], None)
+        res = train_steps_timed(w.tag + "layout", w, state, step, weights,
+                                batches, 1)
+        want = want_counts(w, 1, train=True)
+        check(res["per_step"] == want,
+              f"{name}: launches {res['per_step']}, want {want}")
+        launches[f"{w.name}_train"] = res["per_step"]
+        log(w.tag + "layout", f"{name}: one train step {res['times']!r} ms,"
+                              f" launches {res['per_step']}, total loss "
+                              f"{res['losses']['total_loss']!r}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 23
+def phase_caption_bf16_train(dev, text, f32: dict) -> dict:
+    """train_caption_bf16 on the flagship train step: phase 9's checks over
+    its 5 steps, then phase 11's time, split and peak memory, beside phase
+    11's f32 numbers (`f32`). Returns the launch counts."""
+    w = head_workload("cap_bf16", train_caption_bf16=True)
+    model, state, step, weights, batches = build_train(w, dev, text)
+    launches = phase_train_main_path(w, model, state, step, weights, batches)
+    res = phase_train_time(w, state, step, weights, batches)
+    log(w.tag + "ttime", f"({card()}) train_caption_bf16: step "
+                         f"{res['step_ms']!r} ms, peak "
+                         f"{res['peak'] / 2**30!r} GiB; f32 (phase 11): "
+                         f"{f32['step_ms']!r} ms, {f32['peak'] / 2**30!r} "
+                         f"GiB")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches
 
 
 # work -> (floats moved as multiples of value, out and the taps; FMAs per
@@ -2665,22 +3277,25 @@ BOUND_WORK = {"fwd": ((1, 1, 2), 2), "bwd": ((2, 1, 4), 4),
               "bwd_value": ((1, 1, 2), 2), "bwd_dot": ((1, 1, 4), 2)}
 
 
-def msda_bound(B: int, S: int, Lq: int, work: str) -> dict:
+def msda_bound(B: int, S: int, Lq: int, work: str,
+               attn_bytes: int = 4) -> dict:
     """The least time the card could take for one call (or one of the
     backward's two CUDA kernels, BOUND_WORK) at these sizes with H, Dh and
     K=16: each input read once and each output written once at the memory
     rate, against the FMAs at the f32 rate. The banded kernels move the same
-    bytes and do the same FMAs as the dense ones at Lq == S."""
+    bytes and do the same FMAs as the dense ones at Lq == S. attn_bytes: 2
+    for the bf16 attn of the bf16-tap forms."""
     (n_value, n_out, n_taps), fmas = BOUND_WORK[work]
     K = 4 * P
     value, out, taps = B * S * H * DH, B * Lq * H * DH, B * Lq * H * K
-    floats = n_value * value + n_out * out + n_taps * taps
+    n_bytes = 4 * (n_value * value + n_out * out + n_taps * taps) \
+        - (4 - attn_bytes) * taps
     flops = 2 * fmas * taps * DH
-    t_bytes = 4 * floats / HBM_BYTES_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / F32_FLOP_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_flops),
                 bound_by="bytes" if t_bytes >= t_flops else "operations",
-                bytes=4 * floats, flops=flops)
+                bytes=n_bytes, flops=flops)
 
 
 def split_row(B: int, S: int, Lq: int, split_ms: dict) -> dict:
@@ -2770,7 +3385,7 @@ def main() -> None:
                          "steps and write the op tables and a trace here")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3, 8, 12, "
-                         "13); prints no result line")
+                         "13, 19); prints no result line")
     ap.add_argument("--old-forms", type=pathlib.Path, metavar="DIR",
                     help="also time the dense kernels of an earlier commit, "
                          "whose gvl_tpu_torch package DIR holds (phases 3, "
@@ -2785,9 +3400,11 @@ def main() -> None:
           "bwd": phase_bwd_kernel_vs_plain(dev, old),
           "banded_fwd": phase_banded_kernel_vs_plain(dev),
           "banded_bwd": phase_banded_bwd_kernel_vs_plain(dev)}
+    kv.update(phase_bf16_taps_vs_plain(dev))
     if args.kernels_only:
         return
     launches = {}
+    f32_train = None
     for w in (ANET, LONG):
         if w is LONG:
             phase_msda_ref_route(dev)
@@ -2803,7 +3420,12 @@ def main() -> None:
         if args.profile:
             phase_profile(w, cfg, model, runner, args.profile)
         if w is ANET:
+            launches.update(phase_eval_options(w, model,
+                                               runner.text_encoder))
             launches["anet_eval_cli"] = phase_eval_cli(w, dev)
+        else:
+            launches["longvideo_full_bf16"] = phase_longvideo_full_bf16(
+                w, model, runner.text_encoder)
         del model, runner
         if w is ANET:
             torch.cuda.empty_cache()
@@ -2814,11 +3436,19 @@ def main() -> None:
                                 state.text_encoder if w.trains_text else None)
         launches[f"{w.name}_train"] = phase_train_main_path(
             w, tmodel, state, step, weights, batches)
-        phase_train_time(w, state, step, weights, batches)
+        f32_train = phase_train_time(w, state, step, weights, batches)
         if args.profile:
             phase_train_profile(w, state, step, weights, batches, args.profile)
         del tmodel, state, step
         torch.cuda.empty_cache()
+        if w is ANET:
+            text = load_text(ANET, dev)
+            launches.update(phase_heads(dev, text))
+            launches.update(phase_head_layouts(dev, text))
+            launches["anet_cap_bf16_train"] = phase_caption_bf16_train(
+                dev, text, f32_train)
+            del text
+            torch.cuda.empty_cache()
     rows = []
     for key, row, rname, source, replaces in (
             ("fwd", dense_row, "ms_deform_attn_fwd",
@@ -2832,10 +3462,17 @@ def main() -> None:
              "gvl_tpu/ops/ms_deform_attn_banded.py:65"),
             ("banded_bwd", banded_row, "ms_deform_attn_banded_bwd",
              "gvl_tpu_torch/csrc/ms_deform_attn_banded_bwd.cu",
-             "gvl_tpu/ops/ms_deform_attn_banded.py:92")):
+             "gvl_tpu/ops/ms_deform_attn_banded.py:92"),
+            ("fwd_bf16", bf16_row, "ms_deform_attn_fwd_bf16taps",
+             "gvl_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+             "gvl_tpu/ops/ms_deform_attn.py:217"),
+            ("banded_fwd_bf16", bf16_row, "ms_deform_attn_banded_fwd_bf16taps",
+             "gvl_tpu_torch/csrc/ms_deform_attn_banded_fwd.cu",
+             "gvl_tpu/ops/ms_deform_attn_banded.py:65")):
         by_path = {path: counts[key] for path, counts in launches.items()}
         rows.append(row(rname, source, replaces, by_path, kv[key],
-                        key.endswith("bwd")))
+                        key.startswith("banded") if row is bf16_row
+                        else key.endswith("bwd")))
     # each kernel of a path was launched on that path
     paths = {f"{w.name}_{'train' if train else 'eval'}": (w, train)
              for w in (ANET, LONG) for train in (False, True)}

@@ -11,6 +11,30 @@ RoBERTa tree of the text encoder onto HF `RobertaModel` names under
 parameters, so it maps the tree's gradients too. Takes numpy, so it runs
 wherever the JAX parameters can be saved as arrays (e.g. an .npz of the
 flattened tree).
+
+Heads (flax path -> state_dict name; i a decoder layer, k a caption head
+index, j a layer of an MLP; a shared flax module, index 0, fills every port
+index):
+- class heads: `class_head_{i}` -> `class_head.{i}` (Linear), or with
+  support_mlp_class_head `class_head_{i}/layers_{j}` ->
+  `class_head.{i}.layers.{j}`; `count_head_{i}`, `bbox_head_{i}/layers_{j}`
+  likewise; without box refinement one shared head, `*_0`.
+- 'standard' caption head: the reference LSTM_DSA names (`embed`, `logit`,
+  `core.rnn.weight_ih_l0` / `weight_hh_l0` <- `cell/ih`, `cell/hh`,
+  `core.deformable_att.{sampling_offsets,value_proj}` <- `dsa/*`,
+  `core.{ctx2att,h2att,alpha_net}` <- `dsa/*`).
+- 'light': `embed`, `logit`, `cell.weight_ih_l0` / `cell.weight_hh_l0` <-
+  `cell/ih`, `cell/hh` (the Flax paths).
+- 'transformer': `embed`, `logits`, and for each layer n
+  `self_attn.{n}.{query,key,value,out}` <- `self_attn_{n}/*` (DenseGeneral
+  kernels (E, H, Dh) and (H, Dh, E) flattened), `dim_project.{n}`,
+  `cross_attn.{n}.{sampling_offsets,attention_weights,value_proj,
+  output_proj}`, `norm{1,2,3}.{n}`, `ffn{1,2}.{n}` <- the `_{n}` paths.
+- 'none': no parameters.
+The JAX package's `import_pytorch_state_dict` maps only Linear class heads
+(checkpoint.py:263-264) and the 'standard' caption head (:326-352); the
+other heads' keys are the ones it leaves unused and unfilled
+(tests/test_torch_caption_heads.py names them).
 """
 
 from __future__ import annotations
@@ -103,26 +127,25 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
         dense(f"{fp}/ffn/linear2", f"{tp}.linear2")
         norm(f"{fp}/ffn/norm", f"{tp}.norm3")
 
-    # ---- queries + per-layer heads
+    # ---- queries + per-layer heads (shared without box refinement)
     sd["query_embed.weight"] = take("query_embed")
     for i in range(arch.dec_layers):
-        dense(f"class_head_{i}", f"class_head.{i}")
-        dense(f"count_head_{i}", f"count_head.{i}")
+        fi = i if arch.with_box_refine else 0
+        if arch.support_mlp_class_head:
+            for j in range(3):
+                dense(f"class_head_{fi}/layers_{j}",
+                      f"class_head.{i}.layers.{j}")
+        else:
+            dense(f"class_head_{fi}", f"class_head.{i}")
+        dense(f"count_head_{fi}", f"count_head.{i}")
         for j in range(3):
-            dense(f"bbox_head_{i}/layers_{j}", f"bbox_head.{i}.layers.{j}")
+            dense(f"bbox_head_{fi}/layers_{j}", f"bbox_head.{i}.layers.{j}")
 
-    # ---- caption heads (LSTM-DSA); a shared head repeats one flax module
+    # ---- caption heads; a shared head repeats one flax module
     for k in range(arch.dec_layers):
         fp = f"caption_head_{0 if arch.share_caption_head else k}"
-        tp = f"caption_head.{k}"
-        sd[f"{tp}.embed.weight"] = take(f"{fp}/embed/embedding")
-        dense(f"{fp}/logit", f"{tp}.logit")
-        sd[f"{tp}.core.rnn.weight_ih_l0"] = take(f"{fp}/cell/ih/kernel").T
-        sd[f"{tp}.core.rnn.weight_hh_l0"] = take(f"{fp}/cell/hh/kernel").T
-        for sub in ("sampling_offsets", "value_proj"):
-            dense(f"{fp}/dsa/{sub}", f"{tp}.core.deformable_att.{sub}")
-        for sub in ("ctx2att", "h2att", "alpha_net"):
-            dense(f"{fp}/dsa/{sub}", f"{tp}.core.{sub}")
+        _caption_head(arch, fp, f"caption_head.{k}", take, dense, norm, msda,
+                      sd)
 
     if arch.enable_contrastive:
         _text_side(arch, take, dense, norm, sd)
@@ -132,6 +155,44 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
         raise KeyError(f"flax parameters with no place in the port: {unmapped}")
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def _caption_head(arch: GVLArch, fp: str, tp: str, take, dense, norm, msda,
+                  sd) -> None:
+    """One caption head of caption_decoder_type (the map in the module
+    docstring)."""
+    kind = arch.caption_decoder_type
+    if kind == "none":
+        return
+    sd[f"{tp}.embed.weight"] = take(f"{fp}/embed/embedding")
+    if kind in ("standard", "light"):
+        cell = "core.rnn" if kind == "standard" else "cell"
+        dense(f"{fp}/logit", f"{tp}.logit")
+        sd[f"{tp}.{cell}.weight_ih_l0"] = take(f"{fp}/cell/ih/kernel").T
+        sd[f"{tp}.{cell}.weight_hh_l0"] = take(f"{fp}/cell/hh/kernel").T
+    if kind == "standard":
+        for sub in ("sampling_offsets", "value_proj"):
+            dense(f"{fp}/dsa/{sub}", f"{tp}.core.deformable_att.{sub}")
+        for sub in ("ctx2att", "h2att", "alpha_net"):
+            dense(f"{fp}/dsa/{sub}", f"{tp}.core.{sub}")
+    if kind != "transformer":
+        return
+    dense(f"{fp}/logits", f"{tp}.logits")
+    for n in range(arch.cap_num_layers):
+        fa, ta = f"{fp}/self_attn_{n}", f"{tp}.self_attn.{n}"
+        for sub in ("query", "key", "value"):
+            w = take(f"{fa}/{sub}/kernel")                     # (E, H, Dh)
+            sd[f"{ta}.{sub}.weight"] = w.reshape(w.shape[0], -1).T
+            sd[f"{ta}.{sub}.bias"] = take(f"{fa}/{sub}/bias").reshape(-1)
+        w = take(f"{fa}/out/kernel")                           # (H, Dh, E)
+        sd[f"{ta}.out.weight"] = w.reshape(-1, w.shape[-1]).T
+        sd[f"{ta}.out.bias"] = take(f"{fa}/out/bias")
+        dense(f"{fp}/dim_project_{n}", f"{tp}.dim_project.{n}")
+        msda(f"{fp}/cross_attn_{n}", f"{tp}.cross_attn.{n}")
+        for m in (1, 2, 3):
+            norm(f"{fp}/norm{m}_{n}", f"{tp}.norm{m}.{n}")
+        dense(f"{fp}/ffn1_{n}", f"{tp}.ffn1.{n}")
+        dense(f"{fp}/ffn2_{n}", f"{tp}.ffn2.{n}")
 
 
 def _text_side(arch: GVLArch, take, dense, norm, sd) -> None:
@@ -227,13 +288,15 @@ def jax_grads_to_named(grads_np: Mapping, arch: GVLArch
                        ) -> Dict[str, torch.Tensor]:
     """Map a gradient tree of the flax parameters onto the names of
     GVLModel(arch).named_parameters(), by the mapping of the parameters
-    themselves. A shared caption head or contrastive projection is one
-    module in both packages, so its gradient appears once, under index 0,
+    themselves. A shared caption head, class, count or bbox head, or
+    contrastive projection is one module in both packages, so its gradient appears once, under index 0,
     as named_parameters() lists it."""
     named = jax_params_to_state_dict(grads_np, arch)
     shared = []
     if arch.share_caption_head:
         shared.append("caption_head.")
+    if not arch.with_box_refine:
+        shared += ["class_head.", "count_head.", "bbox_head."]
     if arch.enable_contrastive and not arch.disable_cl_proj_layer_share_weight:
         shared += ["contrastive_projection_event.",
                    "contrastive_projection_text."]

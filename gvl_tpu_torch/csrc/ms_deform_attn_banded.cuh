@@ -52,7 +52,8 @@ inline cudaError_t make_geometry(int S, int H, int Dh, int L, int P,
                                  const int* band_base, Geometry* gm) {
   if (L < 1 || L > kMaxLevels || P < 1 || L * P > kThreads)
     return cudaErrorInvalidValue;
-  if (Dh < 4 || Dh % 4 != 0 || Dh > 64 * kMaxVec) return cudaErrorInvalidValue;
+  if (Dh < 4 || Dh % 4 != 0 || Dh > 64 * kBandedMaxVec)
+    return cudaErrorInvalidValue;
   if (static_cast<long long>(S) * H * Dh > INT_MAX)
     return cudaErrorInvalidValue;
   *gm = Geometry{};

@@ -55,6 +55,10 @@
 //
 // Layouts (all contiguous f32, 16-byte aligned): value (B, S, H, Dh); loc,
 // attn (B, S, H, L, P); out (B, S, H * Dh).
+//
+// The bf16-tap form (msda_banded_fwd_bf16taps) reads loc and attn as float
+// or bf16 each and prepares a tap in phase A by the JAX rule for those types
+// (tap_weights, ms_deform_attn_common.cuh); the rest is the f32 kernel.
 
 #include "ms_deform_attn_banded.cuh"
 
@@ -65,11 +69,11 @@ namespace {
 // Three blocks of 512 threads on an SM, 40 registers a thread: left to
 // itself ptxas takes 32 for a fourth block, spills, and the kernel runs 15%
 // slower.
-template <int NV>
+template <int NV, typename LocT, typename AttnT>
 __global__ void __launch_bounds__(kThreads, 3)
 msda_banded_fwd_kernel(const float* __restrict__ value,
-                       const float* __restrict__ loc,
-                       const float* __restrict__ attn,
+                       const LocT* __restrict__ loc,
+                       const AttnT* __restrict__ attn,
                        float* __restrict__ out, int S, int H, int Dh, int L,
                        int P, Geometry gm) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -90,7 +94,7 @@ msda_banded_fwd_kernel(const float* __restrict__ value,
   // fixed and its loads do not wait on one another.
   const TapOwner me = tap_owner(K, P);
   {
-    const float Tf = static_cast<float>(gm.T[me.live ? me.l : 0]);
+    const int T = gm.T[me.live ? me.l : 0];
     int i0_min = INT_MAX;
     if (me.live) {
 #pragma unroll 4
@@ -98,11 +102,10 @@ msda_banded_fwd_kernel(const float* __restrict__ value,
         const int idx = q * K + me.k;
         const long long g =
             ((static_cast<long long>(b) * S + q_first + q) * H + h) * K + me.k;
-        const Tap tap = tap_at(loc[g], Tf);
-        const float a = attn[g];
+        const TapW tap = tap_weights(loc[g], attn[g], T);
         i0_min = min(i0_min, tap.i0);
         s_row[idx] = make_int2(tap.i0, 0);
-        s_w[idx] = make_float2(a * (1.f - tap.f), a * tap.f);
+        s_w[idx] = make_float2(tap.w0, tap.w1);
       }
     }
     const bool has_tap = i0_min != INT_MAX;
@@ -149,19 +152,29 @@ msda_banded_fwd_kernel(const float* __restrict__ value,
   }
 }
 
-template <int NV>
-cudaError_t launch(const float* value, const float* loc, const float* attn,
+template <int NV, typename LocT, typename AttnT>
+cudaError_t launch(const float* value, const LocT* loc, const AttnT* attn,
                    float* out, int B, int S, int H, int Dh, int L, int P,
                    const Geometry& gm, long long shared, cudaStream_t stream) {
   int blocks = 0;
   const cudaError_t err = plan_launch(gm, B, H, L, shared,
                                       16LL * kTileQ * L * P,
-                                      msda_banded_fwd_kernel<NV>, &blocks);
+                                      msda_banded_fwd_kernel<NV, LocT, AttnT>,
+                                      &blocks);
   if (err != cudaSuccess || blocks == 0) return err;
-  msda_banded_fwd_kernel<NV><<<blocks, kThreads, static_cast<size_t>(shared),
-                               stream>>>(value, loc, attn, out, S, H, Dh, L, P,
-                                         gm);
+  msda_banded_fwd_kernel<NV, LocT, AttnT>
+      <<<blocks, kThreads, static_cast<size_t>(shared), stream>>>(
+          value, loc, attn, out, S, H, Dh, L, P, gm);
   return cudaGetLastError();
+}
+
+template <typename LocT, typename AttnT>
+cudaError_t dispatch(const float* value, const LocT* loc, const AttnT* attn,
+                     float* out, int B, int S, int H, int Dh, int L, int P,
+                     const Geometry& gm, long long shared, cudaStream_t st) {
+  return Dh <= 64
+      ? launch<1>(value, loc, attn, out, B, S, H, Dh, L, P, gm, shared, st)
+      : launch<2>(value, loc, attn, out, B, S, H, Dh, L, P, gm, shared, st);
 }
 
 }  // namespace
@@ -179,9 +192,34 @@ extern "C" int msda_banded_fwd_f32(const float* value, const float* loc,
   Geometry gm;
   cudaError_t err = make_geometry(S, H, Dh, L, P, level_T, band, nullptr, &gm);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(dispatch(value, loc, attn, out, B, S, H, Dh, L,
+                                   P, gm, shared,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16-tap form: loc is bf16 when loc_bf16, else f32; attn likewise.
+extern "C" int msda_banded_fwd_bf16taps(
+    const float* value, const void* loc, const void* attn, float* out, int B,
+    int S, int H, int Dh, int L, int P, const int* level_T, const int* band,
+    int shared, int loc_bf16, int attn_bf16, void* stream) {
+  Geometry gm;
+  cudaError_t err = make_geometry(S, H, Dh, L, P, level_T, band, nullptr, &gm);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = Dh <= 64
-      ? launch<1>(value, loc, attn, out, B, S, H, Dh, L, P, gm, shared, st)
-      : launch<2>(value, loc, attn, out, B, S, H, Dh, L, P, gm, shared, st);
+  using bf = __nv_bfloat16;
+  if (loc_bf16 && attn_bf16)
+    err = dispatch(value, static_cast<const bf*>(loc),
+                   static_cast<const bf*>(attn), out, B, S, H, Dh, L, P, gm,
+                   shared, st);
+  else if (loc_bf16)
+    err = dispatch(value, static_cast<const bf*>(loc),
+                   static_cast<const float*>(attn), out, B, S, H, Dh, L, P,
+                   gm, shared, st);
+  else if (attn_bf16)
+    err = dispatch(value, static_cast<const float*>(loc),
+                   static_cast<const bf*>(attn), out, B, S, H, Dh, L, P, gm,
+                   shared, st);
+  else
+    err = cudaErrorInvalidValue;    // the f32 form is msda_banded_fwd_f32
   return static_cast<int>(err);
 }

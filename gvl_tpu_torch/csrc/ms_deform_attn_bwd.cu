@@ -61,7 +61,7 @@
 // Layouts (all contiguous f32, value, grad_value and grad_out 16-byte
 // aligned): value, grad_value (B, S, H, Dh); loc, attn, grad_loc, grad_attn
 // (B, Lq, H, L, P); grad_out (B, Lq, H * Dh). Dh is a multiple of 4, at most
-// 128.
+// 512.
 
 #include <climits>
 
@@ -351,6 +351,23 @@ cudaError_t launch(const float* grad_out, const float* value, const float* loc,
   return cudaGetLastError();
 }
 
+// The value kernel's shared memory allowed, then both kernels launched.
+template <int NV>
+cudaError_t launch_nv(const float* grad_out, const float* value,
+                      const float* loc, const float* attn, float* grad_value,
+                      float* grad_loc, float* grad_attn, int B, int S, int H,
+                      int Dh, int Lq, int L, int P, const Levels& lv,
+                      const Grid& gr, long long value_blocks,
+                      long long dot_blocks, int shared, cudaStream_t st) {
+  if (value_blocks > 0) {
+    const cudaError_t err = allow_shared(msda_bwd_value_kernel<NV>, shared);
+    if (err != cudaSuccess) return err;
+  }
+  return launch<NV>(grad_out, value, loc, attn, grad_value, grad_loc,
+                    grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
+                    dot_blocks, shared, st);
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. `level_T` is a host array of L level lengths.
@@ -385,18 +402,23 @@ extern "C" int msda_bwd_f32(const float* grad_out, const float* value,
   if (value_blocks > INT_MAX || dot_blocks > INT_MAX ||
       (grad_value && shared < value_shared(L * P, Dh, gr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (value_blocks > 0) {
-    err = allow_shared(Dh <= 64 ? msda_bwd_value_kernel<1>
-                                : msda_bwd_value_kernel<2>, shared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = Dh <= 64
-      ? launch<1>(grad_out, value, loc, attn, grad_value, grad_loc,
-                  grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                  dot_blocks, shared, st)
-      : launch<2>(grad_out, value, loc, attn, grad_value, grad_loc,
-                  grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                  dot_blocks, shared, st);
+  // NV, the 16-byte pieces of a lane's row, from Dh
+  if (Dh <= 64)
+    err = launch_nv<1>(grad_out, value, loc, attn, grad_value, grad_loc,
+                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
+                       dot_blocks, shared, st);
+  else if (Dh <= 128)
+    err = launch_nv<2>(grad_out, value, loc, attn, grad_value, grad_loc,
+                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
+                       dot_blocks, shared, st);
+  else if (Dh <= 256)
+    err = launch_nv<4>(grad_out, value, loc, attn, grad_value, grad_loc,
+                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
+                       dot_blocks, shared, st);
+  else
+    err = launch_nv<8>(grad_out, value, loc, attn, grad_value, grad_loc,
+                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
+                       dot_blocks, shared, st);
   return static_cast<int>(err);
 }

@@ -5,20 +5,26 @@
 //
 // A value row of one head is Dh contiguous floats. Half a warp covers 64 of
 // them in one 16-byte access per lane, so one warp instruction reaches both
-// rows of a tap: lanes 0-15 the lower row, lanes 16-31 the upper one. Dh up
-// to 128 takes two such accesses (kMaxVec), Dh must be a multiple of 4, and
+// rows of a tap: lanes 0-15 the lower row, lanes 16-31 the upper one. A
+// row of Dh floats takes ceil(Dh / 64) such accesses: the dense kernels take
+// Dh up to 512 (kMaxVec; the transformer caption head's one head of 512),
+// the banded ones up to 128 (kBandedMaxVec). Dh must be a multiple of 4, and
 // every row must start on 16 bytes (the wrappers check the tensors).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace msda {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 512;    // a block of the backward and banded kernels
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxVec = 2;       // 16-byte pieces of a lane's row: Dh <= 128
+constexpr int kMaxVec = 8;       // 16-byte pieces of a lane's row: Dh <= 512
+constexpr int kBandedMaxVec = 2;  // the banded kernels': Dh <= 128
 constexpr long long kSharedOptIn = 48 * 1024;    // dynamic, without opting in
 constexpr long long kSharedLimit = 232448;       // a block's most on sm_90
 constexpr unsigned kFull = 0xffffffffu;
@@ -41,6 +47,64 @@ __device__ inline Tap tap_at(float loc, float Tf) {
   t.f = x - fl;
   t.i0 = static_cast<int>(fl);
   return t;
+}
+
+// The bf16-tap forms of the forward kernels (1 and 3) read loc and attn as
+// float or bf16 each, and prepare a tap by the JAX package's rule for those
+// types (_prep_taps, gvl_tpu/ops/ms_deform_attn.py:56-81, with the weights
+// packed to f32 afterwards, :349-358): the position, its clamp and the lerp
+// fraction are computed in loc's type, each operation rounded to it; the
+// weights attn * (1 - f) and attn * f in the promoted type of attn and loc,
+// then widened to f32. With f32 loc that is the f32 tap over attn widened,
+// the case of the decoder under eval_full_bf16. With bf16 loc the caller
+// checks that every T and T - 1 is a bf16 value, so no level length rounds.
+__device__ inline float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ inline float to_f32(float x) { return x; }
+__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ inline T ldg_t(const T* p) { return __ldg(p); }
+template <>
+__device__ inline __nv_bfloat16 ldg_t<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __ushort_as_bfloat16(bits);
+}
+
+// A tap's lower row (level-local) and the weights of its two rows.
+struct TapW {
+  int i0;
+  float w0, w1;
+};
+
+template <typename LocT, typename AttnT>
+__device__ inline TapW tap_weights(LocT loc, AttnT attn, int T) {
+  constexpr bool kLoc16 = !std::is_same<LocT, float>::value;
+  constexpr bool kAttn16 = !std::is_same<AttnT, float>::value;
+  const float a = to_f32(attn);
+  const float Tf = static_cast<float>(T);
+  TapW w;
+  if (!kLoc16) {
+    const Tap t = tap_at(to_f32(loc), Tf);
+    w.i0 = t.i0;
+    w.w0 = a * (1.f - t.f);
+    w.w1 = a * t.f;
+    return w;
+  }
+  // every step rounded to bf16, as XLA computes the bf16 chain
+  const float xr =
+      round_bf16(__fsub_rn(round_bf16(__fmul_rn(to_f32(loc), Tf)), 0.5f));
+  const float x = fminf(fmaxf(xr, 0.f), Tf - 1.f);
+  const float fl = floorf(x);
+  const float f = x - fl;                 // exact in bf16
+  const float om = round_bf16(1.f - f);
+  w.i0 = static_cast<int>(fl);
+  w.w0 = kAttn16 ? round_bf16(__fmul_rn(a, om)) : __fmul_rn(a, om);
+  w.w1 = kAttn16 ? round_bf16(__fmul_rn(a, f)) : __fmul_rn(a, f);
+  return w;
 }
 
 // Entry l of a table that a kernel takes by value, read without indexing

@@ -36,7 +36,13 @@
 //
 // Layouts (all contiguous f32, value and out 16-byte aligned): value
 // (B, S, H, Dh); loc, attn (B, Lq, H, L, P); out (B, Lq, H * Dh). Dh is a
-// multiple of 4, at most 128.
+// multiple of 4, at most 512.
+//
+// The bf16-tap form (msda_fwd_bf16taps) is the same kernel with loc and attn
+// read as float or bf16 each and the tap prepared by the JAX rule for those
+// types (tap_weights, ms_deform_attn_common.cuh): under eval_full_bf16 the
+// decoder's attn is bf16 (its query is), loc f32 (the reference points are
+// scaled by the f32 valid ratios). The value and the sum stay f32.
 
 #include <climits>
 
@@ -48,12 +54,13 @@ namespace {
 
 constexpr int kFwdWarps = 8;   // (b, q, h) per block
 
-// kK16: K = L * P = 16, known at compile time.
-template <int NV, bool kK16>
+// kK16: K = L * P = 16, known at compile time. LocT, AttnT: float or
+// __nv_bfloat16.
+template <int NV, bool kK16, typename LocT, typename AttnT>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 msda_fwd_kernel(const float* __restrict__ value,
-                const float* __restrict__ loc,
-                const float* __restrict__ attn, float* __restrict__ out,
+                const LocT* __restrict__ loc,
+                const AttnT* __restrict__ attn, float* __restrict__ out,
                 int B, int S, int H, int Dh, int Lq, int L, int P,
                 Levels lv) {
   const long long warp =
@@ -67,8 +74,8 @@ msda_fwd_kernel(const float* __restrict__ value,
   const int row = H * Dh;  // stride of a value row
   const float* v_bh =
       value + static_cast<long long>(b) * S * row + h * Dh + me.c0;
-  const float* loc_q = loc + warp * K;
-  const float* attn_q = attn + warp * K;
+  const LocT* loc_q = loc + warp * K;
+  const AttnT* attn_q = attn + warp * K;
 
   float4 acc[NV];
 #pragma unroll
@@ -82,11 +89,10 @@ msda_fwd_kernel(const float* __restrict__ value,
     if (kK16 || k < K) {
       const int l = k / P;
       const int T = pick(lv.T, l);
-      const Tap t = tap_at(__ldg(loc_q + k), static_cast<float>(T));
-      const float a = __ldg(attn_q + k);
+      const TapW t = tap_weights(ldg_t(loc_q + k), ldg_t(attn_q + k), T);
       off = (pick(lv.start, l) + (me.half ? min(t.i0 + 1, T - 1) : t.i0)) *
             row;
-      w = me.half ? a * t.f : a * (1.f - t.f);
+      w = me.half ? t.w1 : t.w0;
     }
     const int n = kK16 ? 16 : min(16, K - k0);
 #pragma unroll
@@ -111,46 +117,92 @@ msda_fwd_kernel(const float* __restrict__ value,
   }
 }
 
-template <int NV, bool kK16>
-cudaError_t launch(const float* value, const float* loc, const float* attn,
+template <int NV, bool kK16, typename LocT, typename AttnT>
+cudaError_t launch(const float* value, const LocT* loc, const AttnT* attn,
                    float* out, int B, int S, int H, int Dh, int Lq, int L,
                    int P, const Levels& lv, cudaStream_t stream) {
   const long long warps = static_cast<long long>(B) * Lq * H;
   const long long blocks = (warps + kFwdWarps - 1) / kFwdWarps;
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  msda_fwd_kernel<NV, kK16><<<static_cast<int>(blocks), kFwdWarps * 32, 0,
-                              stream>>>(value, loc, attn, out, B, S, H, Dh,
-                                        Lq, L, P, lv);
+  msda_fwd_kernel<NV, kK16, LocT, AttnT>
+      <<<static_cast<int>(blocks), kFwdWarps * 32, 0, stream>>>(
+          value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv);
   return cudaGetLastError();
+}
+
+template <int NV, typename LocT, typename AttnT>
+cudaError_t launch_nv(const float* value, const LocT* loc, const AttnT* attn,
+                      float* out, int B, int S, int H, int Dh, int Lq, int L,
+                      int P, const Levels& lv, cudaStream_t st) {
+  return L * P == 16
+      ? launch<NV, true>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st)
+      : launch<NV, false>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv,
+                          st);
+}
+
+// NV, the 16-byte pieces of a lane's row, from Dh.
+template <typename LocT, typename AttnT>
+cudaError_t dispatch(const float* value, const LocT* loc, const AttnT* attn,
+                     float* out, int B, int S, int H, int Dh, int Lq, int L,
+                     int P, const Levels& lv, cudaStream_t st) {
+  if (Dh <= 64)
+    return launch_nv<1>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+  if (Dh <= 128)
+    return launch_nv<2>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+  if (Dh <= 256)
+    return launch_nv<4>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+  return launch_nv<8>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+}
+
+cudaError_t check_sizes(int S, int H, int Dh, int L, int P,
+                        const int* level_T, Levels* lv) {
+  if (P < 1 || Dh < 4 || Dh % 4 != 0 || Dh > 64 * kMaxVec ||
+      static_cast<long long>(S) * H * Dh > INT_MAX)
+    return cudaErrorInvalidValue;
+  return make_levels(L, S, level_T, lv);
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. `level_T` is a host array of L level lengths.
-// Launches on `stream` and returns the CUDA error of the launch (0 =
+// Plain C entries for ctypes. `level_T` is a host array of L level lengths.
+// Each launches on `stream` and returns the CUDA error of the launch (0 =
 // launched); refuses sizes the kernel does not take.
 extern "C" int msda_fwd_f32(const float* value, const float* loc,
                             const float* attn, float* out, int B, int S,
                             int H, int Dh, int Lq, int L, int P,
                             const int* level_T, void* stream) {
-  if (P < 1 || Dh < 4 || Dh % 4 != 0 || Dh > 64 * kMaxVec ||
-      static_cast<long long>(S) * H * Dh > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
-  cudaError_t err = make_levels(L, S, level_T, &lv);
+  cudaError_t err = check_sizes(S, H, Dh, L, P, level_T, &lv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(dispatch(value, loc, attn, out, B, S, H, Dh, Lq, L,
+                                   P, lv, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16-tap form: loc is bf16 when loc_bf16, else f32; attn likewise.
+extern "C" int msda_fwd_bf16taps(const float* value, const void* loc,
+                                 const void* attn, float* out, int B, int S,
+                                 int H, int Dh, int Lq, int L, int P,
+                                 const int* level_T, int loc_bf16,
+                                 int attn_bf16, void* stream) {
+  Levels lv;
+  cudaError_t err = check_sizes(S, H, Dh, L, P, level_T, &lv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool k16 = L * P == 16;
-  if (Dh <= 64)
-    err = k16 ? launch<1, true>(value, loc, attn, out, B, S, H, Dh, Lq, L, P,
-                                lv, st)
-              : launch<1, false>(value, loc, attn, out, B, S, H, Dh, Lq, L,
-                                 P, lv, st);
+  using bf = __nv_bfloat16;
+  if (loc_bf16 && attn_bf16)
+    err = dispatch(value, static_cast<const bf*>(loc),
+                   static_cast<const bf*>(attn), out, B, S, H, Dh, Lq, L, P,
+                   lv, st);
+  else if (loc_bf16)
+    err = dispatch(value, static_cast<const bf*>(loc),
+                   static_cast<const float*>(attn), out, B, S, H, Dh, Lq, L,
+                   P, lv, st);
+  else if (attn_bf16)
+    err = dispatch(value, static_cast<const float*>(loc),
+                   static_cast<const bf*>(attn), out, B, S, H, Dh, Lq, L, P,
+                   lv, st);
   else
-    err = k16 ? launch<2, true>(value, loc, attn, out, B, S, H, Dh, Lq, L, P,
-                                lv, st)
-              : launch<2, false>(value, loc, attn, out, B, S, H, Dh, Lq, L,
-                                 P, lv, st);
+    err = cudaErrorInvalidValue;    // the f32 form is msda_fwd_f32
   return static_cast<int>(err);
 }

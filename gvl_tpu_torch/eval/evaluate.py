@@ -15,8 +15,14 @@ each ranked prediction's generated caption is encoded again and its cosine
 with its query's event embedding is its `cl_score`, which the reranking
 weighs by eval_matching_score_weight. As in the JAX package, the chunks past
 G and the matching-score pass use the f32 weights even under eval_use_amp
-(evaluate.py:283-324). Not ported: the bf16 decode options, beam search,
-zero-shot TAL, the TAL JSON and the plot hooks.
+(evaluate.py:283-324). Decode options (evaluate.py:199-241): eval_beam_size
+(beam search, the LSTM-DSA head), eval_decode_early_exit, eval_decode_bf16
+(the caption head's weights, query and memory in bf16, the chosen-token
+logprobs f32) and eval_full_bf16 (the trunk too: its weights and the
+features in bf16, its outputs cast back to f32 for the losses, matcher and
+postprocessing, the text pass over bf16-rounded weights, then the bf16
+decode; evaluate.py:107-145). Not ported: the gpt2 head's decode, zero-shot
+TAL, the TAL JSON and the plot hooks.
 
 DVC JSON: {"results": {vid: [{timestamp, raw_box, label, proposal_score,
 sentence, sentence_score, cl_score, query_id, vid_duration,
@@ -28,6 +34,7 @@ in `_aux`, from the one before (eval_utils.py:322-330).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from collections import OrderedDict
@@ -41,6 +48,7 @@ from gvl_tpu_torch.eval.postprocess import (GroundingSpec, detection_outputs,
 from gvl_tpu_torch.models.text_encoder import effective_max_gt_events
 from gvl_tpu_torch.models.transformer import pyramid_shapes
 from gvl_tpu_torch.train.criterion import LossSpec, compute_criterion
+from gvl_tpu_torch.utils.amp import BF16, bf16_parameters, cast_floats, to_bf16
 
 
 def save_dvc_json(out_json: Dict, path: str, verbose: bool = False):
@@ -85,11 +93,6 @@ def _check_ported(cfg: Any) -> None:
     def get(name, default):
         return getattr(cfg, name, default)
 
-    for flag in ("eval_decode_bf16", "eval_full_bf16"):
-        if get(flag, False):
-            raise NotImplementedError(f"{flag} is not ported yet")
-    if int(get("eval_beam_size", 1)) > 1:
-        raise NotImplementedError("eval_beam_size > 1 is not ported yet")
     if get("caption_decoder_type", "standard") == "gpt2":
         raise NotImplementedError("the gpt2 caption head is not ported yet")
     if get("transformer_input_type", "queries") != "queries":
@@ -126,8 +129,13 @@ class EvalRunner:
             getattr(cfg, "eval_enable_grounding", True))
         self.matching = self.contrastive and bool(
             getattr(cfg, "eval_enable_matching_score", False))
-        self.text_bf16 = self.contrastive and bool(
-            getattr(cfg, "eval_use_amp", False))
+        self.full_bf16 = bool(getattr(cfg, "eval_full_bf16", False))
+        self.decode_bf16 = self.full_bf16 or bool(
+            getattr(cfg, "eval_decode_bf16", False))
+        self.beam_size = int(getattr(cfg, "eval_beam_size", 1))
+        self.early_exit = bool(getattr(cfg, "eval_decode_early_exit", False))
+        self.text_bf16 = self.contrastive and (
+            self.full_bf16 or bool(getattr(cfg, "eval_use_amp", False)))
         self.G = effective_max_gt_events(cfg)
         self.max_text_len = int(getattr(cfg, "max_text_input_len", 32))
 
@@ -161,9 +169,9 @@ class EvalRunner:
 
     def _eval_step(self, arrs: Dict[str, np.ndarray]
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        """Trunk, text pass, greedy captions, eval losses, detection and
-        grounding outputs for one (padded, tokenized) batch, on the model's
-        device. Port of evaluate.py:101-281 (standard head). Returns
+        """Trunk, text pass, captions, eval losses, detection and grounding
+        outputs for one (padded, tokenized) batch, on the model's device,
+        under the decode options. Port of evaluate.py:101-281. Returns
         (result, the trunk tensors the sentences past G are grounded
         against and the matching-score pass reads). The decode is enqueued
         before the losses, whose matcher waits for the device."""
@@ -172,7 +180,12 @@ class EvalRunner:
         mask = self._tensor(arrs["video_mask"], torch.bool)
         duration = self._tensor(arrs["duration"])
         shapes = pyramid_shapes(feats.shape[1], cfg.num_feature_levels)
-        out = self.model(feats, mask, duration)
+        if self.full_bf16:
+            with bf16_parameters(self.model, promote=True):
+                out = self.model(feats.to(BF16), mask, duration)
+            out = cast_floats(out, BF16, torch.float32)
+        else:
+            out = self.model(feats, mask, duration)
         result: Dict[str, Any] = {}
         text_out = gt_mask = None
         if "gt_mask" in arrs:
@@ -187,9 +200,16 @@ class EvalRunner:
             query = out["hs"][-1]
             if self.model.arch.enable_pos_emb_for_captioner:
                 query = torch.cat([query, out["query_pos"]], -1)
-            seq, lps = self.model.caption_sample(
-                cfg.dec_layers - 1, query, out["layer_refs"][-1],
-                out["memory"], out["mask_flat"], shapes, out["valid_ratios"])
+            memory = out["memory"]
+            bf16 = contextlib.nullcontext()
+            if self.decode_bf16:
+                bf16 = self.model.caption_bf16()
+                query, memory = to_bf16(query), to_bf16(memory)
+            with bf16:
+                seq, lps = self.model.caption_sample(
+                    cfg.dec_layers - 1, query, out["layer_refs"][-1], memory,
+                    out["mask_flat"], shapes, out["valid_ratios"],
+                    beam_size=self.beam_size, early_exit=self.early_exit)
             result["seq"] = seq                                # (B, Nq, Lc)
             result["cap_scores"] = ((seq > 0) * lps.float()).sum(-1)
         result["det"] = detection_outputs(out, duration)

@@ -20,10 +20,11 @@ matmuls and convolutions run in f32 as in the JAX package.
 
 Refused by name (NotImplementedError) before any data is read:
 `--eval_data_parallel` (several GPUs, ROADMAP Queue 1 item 10),
-`--eval_enable_zeroshot_tal` (item 9), `--eval_use_amp` (the JAX CLI maps it
-to eval_decode_bf16, the bf16 decode of item 7), and every option of the
-restored config that the model, the text encoder or EvalRunner does not run
-yet (`check_config`). `--eval_not_strict_load` is accepted and changes
+`--eval_enable_zeroshot_tal` (item 9), and every option of the restored
+config that the model, the text encoder or EvalRunner does not run yet
+(`check_config`; the gpt2 caption head among them). `--eval_use_amp` sets
+eval_decode_bf16 besides the bf16 text pass, as the JAX CLI does
+(eval.py:134-135). `--eval_not_strict_load` is accepted and changes
 nothing, as in the JAX CLI. The plot hook of the JAX EvalRunner is not run
 (item 9).
 
@@ -114,7 +115,8 @@ def eval_parser() -> argparse.ArgumentParser:
                    default=None, help="not ported yet: refused")
     p.add_argument("--eval_prompt", type=str, default=None)
     p.add_argument("--eval_use_amp", action="store_true", default=None,
-                   help="not ported yet (the bf16 decode): refused")
+                   help="the bf16 text pass and the bf16 decode "
+                   "(eval_decode_bf16)")
     p.add_argument("--eval_debug", action="store_true", default=None)
     p.add_argument("--eval_num_queries", type=int, default=0)
     p.add_argument("--eval_not_strict_load", action="store_true",
@@ -147,6 +149,8 @@ def restore_config(args: argparse.Namespace) -> Config:
         cfg.ec_alpha = args.eval_ec_alpha
     if args.eval_disable_contrastive:
         cfg.enable_contrastive = False
+    if args.eval_use_amp:
+        cfg.eval_decode_bf16 = True
     if args.eval_debug:
         cfg.debug = True
     if args.eval_num_queries > 0:
@@ -176,8 +180,6 @@ _REFUSED = (
      "ROADMAP Queue 1 item 10; the port evaluates on one card"),
     ("eval_enable_zeroshot_tal", "--eval_enable_zeroshot_tal",
      "ROADMAP Queue 1 item 9"),
-    ("eval_use_amp", "--eval_use_amp (the JAX CLI maps it to "
-     "eval_decode_bf16, the bf16 decode)", "ROADMAP Queue 1 item 7"),
     ("only_ft_class_head", "only_ft_class_head (the TAL probe's JSON)",
      "ROADMAP Queue 1 item 9"),
 )

@@ -1,12 +1,16 @@
 """The GVL model in query mode: PDVC-style deformable-transformer event
-detector with iterative box refinement and the LSTM-DSA caption head.
+detector, its heads and its caption head.
 
 Port of gvl_tpu/models/gvl.py for the dense-captioning eval path, the
 train step (trunk in train mode, teacher-forced captions) and the
-contrastive text head (event projections in the trunk, `encode_text`). Not
-ported yet, and refused by `build_model`: caption heads other than
-'standard', MLP class heads, heads shared across decoder layers (no box
-refinement), and beam search. Two-stage / proposal queries are refused by
+contrastive text head (event projections in the trunk, `encode_text`).
+Heads: linear or 3-layer MLP class heads (support_mlp_class_head); one
+class, count and bbox head per decoder layer with box refinement, one head
+shared by every layer without it (with_box_refine=0, gvl.py:249-262); the
+caption heads 'standard' (LSTM-DSA), 'light', 'transformer' and 'none'
+(gvl.py:316-344), with greedy, sampled, early-exit and (LSTM-DSA) beam
+decode. Not ported yet, and refused by `build_model`: the 'gpt2' caption
+head (ROADMAP Queue 1 item 7). Two-stage / proposal queries are refused by
 the EvalRunner. Parameter names follow the reference pdvc/pdvc.py
 state_dict. The text encoder itself lives beside the model
 (gvl_tpu_torch/models/text_encoder.py), as in the JAX package.
@@ -23,13 +27,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from gvl_tpu_torch.models.base_encoder import BasePyramidEncoder
-from gvl_tpu_torch.models.captioner import LSTMDSACaptioner
+from gvl_tpu_torch.models.captioner import (LightCaptioner, LSTMDSACaptioner,
+                                            PuppetCaptioner,
+                                            TransformerDSACaptioner,
+                                            caption_nll)
 from gvl_tpu_torch.models.layers import MLP, init_params
 from gvl_tpu_torch.models.text import (SentenceContextBlock, bert_head_count,
                                        pool_words)
 from gvl_tpu_torch.models.transformer import (DeformableTransformer,
                                               expand_reference_for_levels,
                                               flatten_levels)
+from gvl_tpu_torch.utils.amp import bf16_parameters
 from gvl_tpu_torch.utils.boxes import inverse_sigmoid
 
 
@@ -61,6 +69,7 @@ class GVLArch:
     cap_nheads: int = 1
     cap_dec_n_points: int = 4
     cap_num_feature_levels: int = 4
+    cap_num_layers: int = 1
     enable_pos_emb_for_captioner: bool = False
     enable_contrastive: bool = True
     contrastive_hidden_size: int = 128
@@ -109,6 +118,7 @@ class GVLArch:
             cap_nheads=cfg.cap_nheads,
             cap_dec_n_points=get("cap_dec_n_points", 4),
             cap_num_feature_levels=cfg.cap_num_feature_levels,
+            cap_num_layers=int(get("num_layers", 1)),
             enable_pos_emb_for_captioner=bool(
                 get("enable_pos_emb_for_captioner", False)),
             enable_contrastive=bool(get("enable_contrastive", False)),
@@ -147,21 +157,16 @@ class GVLArch:
 def _check_ported(a: GVLArch) -> None:
     if a.msda_impl not in ("pallas", "ref"):
         raise ValueError(f"unknown msda_impl: {a.msda_impl}")
-    if a.caption_decoder_type != "standard":
+    if a.caption_decoder_type == "gpt2":
         raise NotImplementedError(
-            f"caption head '{a.caption_decoder_type}' is not ported yet; "
-            "only 'standard' (LSTM-DSA) is")
-    if a.support_mlp_class_head:
-        raise NotImplementedError("MLP class heads are not ported yet")
-    if not a.with_box_refine:
-        raise NotImplementedError("heads shared across decoder layers "
-                                  "(with_box_refine=0) are not ported yet")
+            "the 'gpt2' caption head is not ported yet (ROADMAP Queue 1 "
+            "item 7); 'standard', 'light', 'transformer' and 'none' are")
 
 
 class GVLModel(nn.Module):
-    """Trunk (`forward`), text head (`encode_text`), greedy or sampled
-    caption decode (`caption_sample`) and teacher forcing (`caption_train`,
-    `caption_train_nll`). Dropout is live
+    """Trunk (`forward`), text head (`encode_text`), greedy, sampled,
+    early-exit or beam caption decode (`caption_sample`) and teacher forcing
+    (`caption_train`, `caption_train_nll`). Dropout is live
     under `.train()` only; its draws come from the device's default
     generator, which the caller seeds (`torch.manual_seed`).
 
@@ -186,31 +191,57 @@ class GVLModel(nn.Module):
         self.query_embed = nn.Embedding(a.num_queries, a.hidden_dim * 2,
                                         device=device)
 
-        # one head per decoder layer (box refinement clones them)
-        self.class_head = nn.ModuleList(
-            nn.Linear(a.hidden_dim, a.num_classes, device=device)
-            for _ in range(num_pred))
-        self.count_head = nn.ModuleList(
-            nn.Linear(a.hidden_dim, a.max_eseq_length + 1, device=device)
-            for _ in range(num_pred))
-        self.bbox_head = nn.ModuleList(
-            MLP(a.hidden_dim, a.hidden_dim, 2, 3, device=device)
-            for _ in range(num_pred))
+        # one class, count and bbox head per decoder layer with box
+        # refinement; one module shared by every layer without it
+        # (gvl.py:235-262, reference pdvc.py:124-146)
+        def class_head():
+            if a.support_mlp_class_head:
+                return MLP(a.hidden_dim, a.hidden_dim, a.num_classes, 3,
+                           device=device)
+            return nn.Linear(a.hidden_dim, a.num_classes, device=device)
 
-        def captioner(i):
+        def heads(make):
+            if a.with_box_refine:
+                return nn.ModuleList(make() for _ in range(num_pred))
+            return nn.ModuleList([make()] * num_pred)
+
+        self.class_head = heads(class_head)
+        self.count_head = heads(lambda: nn.Linear(
+            a.hidden_dim, a.max_eseq_length + 1, device=device))
+        self.bbox_head = heads(lambda: MLP(a.hidden_dim, a.hidden_dim, 2, 3,
+                                           device=device))
+
+        if a.share_caption_head:
+            self.caption_head = nn.ModuleList([self._captioner(device)]
+                                              * num_pred)
+        else:
+            self.caption_head = nn.ModuleList(self._captioner(device)
+                                              for _ in range(num_pred))
+        if a.enable_contrastive:
+            self._init_text_side(device)
+
+    def _captioner(self, device) -> nn.Module:
+        """The caption head of caption_decoder_type (gvl.py:316-344)."""
+        a = self.arch
+        query_dim = a.hidden_dim * (2 if a.enable_pos_emb_for_captioner
+                                    else 1)
+        if a.caption_decoder_type == "standard":
             return LSTMDSACaptioner(
                 a.vocab_size, a.input_encoding_size, a.rnn_size, a.hidden_dim,
                 a.cap_num_feature_levels, a.cap_nheads, a.cap_dec_n_points,
                 a.att_hid_size, a.max_caption_len,
                 a.enable_pos_emb_for_captioner, a.drop_prob, device=device)
-
-        if a.share_caption_head:
-            self.caption_head = nn.ModuleList([captioner(0)] * num_pred)
-        else:
-            self.caption_head = nn.ModuleList(captioner(i)
-                                              for i in range(num_pred))
-        if a.enable_contrastive:
-            self._init_text_side(device)
+        if a.caption_decoder_type == "light":
+            return LightCaptioner(a.vocab_size, a.input_encoding_size,
+                                  a.rnn_size, a.max_caption_len, query_dim,
+                                  a.drop_prob, device=device)
+        if a.caption_decoder_type == "transformer":
+            return TransformerDSACaptioner(
+                a.vocab_size, a.input_encoding_size, a.hidden_dim,
+                a.cap_num_layers, a.cap_num_feature_levels, a.cap_nheads,
+                a.cap_dec_n_points, a.max_caption_len, query_dim, a.drop_prob,
+                device=device)
+        return PuppetCaptioner(a.vocab_size, a.max_caption_len)
 
     def _init_text_side(self, device) -> None:
         """Contrastive projections (shared across layers unless
@@ -260,8 +291,11 @@ class GVLModel(nn.Module):
                             generator=generator)
         nn.init.normal_(self.query_embed.weight, 0.0, 1.0, generator=generator)
         focal = -math.log((1 - 0.01) / 0.01)
-        for i, (ch, bh) in enumerate(zip(self.class_head, self.bbox_head)):
-            ch.bias.fill_(focal)
+        # a shared head is one module: initialised once, as head 0
+        for ch in dict.fromkeys(self.class_head):
+            if isinstance(ch, nn.Linear):          # MLP heads keep zeros
+                ch.bias.fill_(focal)
+        for i, bh in enumerate(dict.fromkeys(self.bbox_head)):
             last = bh.layers[-1]
             last.weight.zero_()
             last.bias.zero_()
@@ -294,7 +328,8 @@ class GVLModel(nn.Module):
                         qmask)
             hs_list.append(out)
             ref_before_list.append(ref)
-            ref = self._refine(self.bbox_head[lid](out), ref).detach()
+            if a.with_box_refine:
+                ref = self._refine(self.bbox_head[lid](out), ref).detach()
 
         logits, counts, coords, event_embeds = [], [], [], []
         for lid, h in enumerate(hs_list):
@@ -363,40 +398,89 @@ class GVLModel(nn.Module):
                 "final_pre": final_pre}
 
     # ------------------------------------------------------------ captioning
+    def caption_bf16(self):
+        """A context in which the caption heads' parameters read as bf16
+        (`bf16_cast_caption_params`, gvl_tpu/utils/amp.py:21-32). The
+        caller casts the query and the memory. The LSTM heads then run bf16
+        throughout; the transformer head adds f32 position encodings to its
+        embeddings, so its layers promote (utils/amp.py)."""
+        lstm = isinstance(self.caption_head[0], (LSTMDSACaptioner,
+                                                 LightCaptioner))
+        return bf16_parameters(self.caption_head, promote=not lstm)
+
     def caption_train(self, layer_id: int, query, reference, memory,
                       memory_mask, temporal_shapes, valid_ratios, seq,
                       ss_prob: float = 0.0, ref_prepared: bool = False):
         """Teacher-forced logprobs (B, Ne, Lc-1, V+1) of the layer's caption
-        head (gvl.py:474-489)."""
-        return self.caption_head[layer_id](
-            query, reference, memory, memory_mask, temporal_shapes,
-            valid_ratios, seq, ss_prob=ss_prob, ref_prepared=ref_prepared)
+        head (gvl.py:474-489). Prepared references (ref_prepared) are read by
+        the LSTM-DSA head and ignored by the light one, which reads no
+        reference; the other heads refuse them."""
+        head = self.caption_head[layer_id]
+        args = (query, reference, memory, memory_mask, temporal_shapes,
+                valid_ratios, seq)
+        if isinstance(head, LSTMDSACaptioner):
+            return head(*args, ss_prob=ss_prob, ref_prepared=ref_prepared)
+        _refuse_prepared(head, ref_prepared)
+        return head(*args)
 
     def caption_train_nll(self, layer_id: int, query, reference, memory,
                           memory_mask, temporal_shapes, valid_ratios, seq,
                           seq_mask, ref_prepared: bool = False):
-        """Fused teacher-forcing NLL (B, Ne): caption_train + caption_nll
-        without the normalised logprob tensor (gvl.py:491-519)."""
-        return self.caption_head[layer_id].teacher_forced_nll(
-            query, reference, memory, memory_mask, temporal_shapes,
-            valid_ratios, seq, seq_mask, ref_prepared=ref_prepared)
+        """Teacher-forcing NLL (B, Ne) (gvl.py:491-519): fused (picked logit
+        minus logsumexp, no normalised logprob tensor) for the LSTM heads,
+        caption_nll over caption_train's logprobs for the others."""
+        head = self.caption_head[layer_id]
+        args = (query, reference, memory, memory_mask, temporal_shapes,
+                valid_ratios, seq, seq_mask)
+        if isinstance(head, LSTMDSACaptioner):
+            return head.teacher_forced_nll(*args, ref_prepared=ref_prepared)
+        if isinstance(head, LightCaptioner):
+            return head.teacher_forced_nll(*args)
+        lp = self.caption_train(layer_id, query, reference, memory,
+                                memory_mask, temporal_shapes, valid_ratios,
+                                seq, ref_prepared=ref_prepared)
+        B, Ne = seq.shape[:2]
+        return caption_nll(lp.reshape(B * Ne, *lp.shape[2:]),
+                           seq[:, :, 1:].reshape(B * Ne, -1),
+                           seq_mask[:, :, 1:].reshape(B * Ne, -1)
+                           ).reshape(B, Ne)
 
     def caption_sample(self, layer_id: int, query, reference, memory,
                        memory_mask, temporal_shapes, valid_ratios,
                        beam_size: int = 1, greedy: bool = True,
                        temperature: float = 1.0,
                        generator: torch.Generator = None,
+                       early_exit: bool = False,
                        ref_prepared: bool = False):
-        """Greedy or sampled decode with the layer's caption head
-        (gvl.py:521-550); with ref_prepared, `reference` is already
+        """Decode with the layer's caption head (gvl.py:521-550): beam search
+        (beam_size > 1, the LSTM-DSA head, plain references), else greedy or
+        sampled, with early_exit for the LSTM-DSA, light and transformer
+        heads. With ref_prepared, `reference` is already
         prepare_dsa_reference's (B, Ne, L, 2), which the fused SCST path
         concatenates across layers. The head's dropout follows its mode."""
+        head = self.caption_head[layer_id]
+        args = (query, reference, memory, memory_mask, temporal_shapes,
+                valid_ratios)
         if beam_size > 1:
-            raise NotImplementedError("beam search is not ported yet")
-        return self.caption_head[layer_id].sample(
-            query, reference, memory, memory_mask, temporal_shapes,
-            valid_ratios, greedy=greedy, temperature=temperature,
-            generator=generator, ref_prepared=ref_prepared)
+            if not isinstance(head, LSTMDSACaptioner) or ref_prepared:
+                raise ValueError("beam search is implemented for the LSTM-DSA "
+                                 "head over plain references")
+            return head.sample_beam(*args, beam_size=beam_size)
+        kwargs = dict(greedy=greedy, temperature=temperature,
+                      generator=generator, early_exit=early_exit)
+        if isinstance(head, LSTMDSACaptioner):
+            kwargs["ref_prepared"] = ref_prepared
+        else:
+            _refuse_prepared(head, ref_prepared)
+        return head.sample(*args, **kwargs)
+
+
+def _refuse_prepared(head: nn.Module, ref_prepared: bool) -> None:
+    """Only the LSTM-DSA head reads prepared references; the light head
+    reads none (gvl.py:481-487)."""
+    if ref_prepared and not isinstance(head, LightCaptioner):
+        raise ValueError("ref_prepared is only supported by the "
+                         "standard/light caption heads")
 
 
 def build_model(cfg: Any, text_hidden_dim: int = 768, device=None,

@@ -75,6 +75,9 @@ def library() -> ctypes.CDLL:
     lib.msda_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                  ctypes.POINTER(ctypes.c_int), p]
     lib.msda_fwd_f32.restype = i
+    lib.msda_fwd_bf16taps.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                      ctypes.POINTER(ctypes.c_int), i, i, p]
+    lib.msda_fwd_bf16taps.restype = i
     lib.msda_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                  ctypes.POINTER(ctypes.c_int), i, i, i, p]
     lib.msda_bwd_f32.restype = i
@@ -82,6 +85,9 @@ def library() -> ctypes.CDLL:
     lib.msda_banded_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                         ints, ints, i, p]
     lib.msda_banded_fwd_f32.restype = i
+    lib.msda_banded_fwd_bf16taps.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                             ints, ints, i, i, i, p]
+    lib.msda_banded_fwd_bf16taps.restype = i
     lib.msda_banded_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                         ints, ints, ints, i, p]
     lib.msda_banded_bwd_f32.restype = i

@@ -25,6 +25,19 @@ call, the yardstick the kernels are timed against.
 Gradient of loc at the clamp: zero where the clamp is active and on its two
 bounds (x = 0 and x = T_l - 1 exactly), in the kernel, in its plain version
 and under autograd of `ms_deform_attn_1d_ref` alike.
+
+bf16 taps. loc and attn may each be float32 or bfloat16 (eval_full_bf16
+gives the decoder a bf16 attn beside an f32 loc; train_caption_bf16 the
+transformer caption head's cross-attention). The taps then follow the JAX
+rule, which the jitted JAX step keeps (tests/test_torch_decode_options.py):
+the position, clamp and lerp fraction in loc's type, every operation rounded
+to it; the weights in the promoted type of attn and loc; then the weights
+widened to f32 for the sum, value upcast to f32 (ms_deform_attn.py:56-81,
+349-364). `prep_taps` computes that by torch's promotion, which is JAX's for
+these tensors; on the card bf16 taps go to the kernel's bf16-tap form
+(`msda_fwd_bf16taps`, counted by `ms_deform_attn_1d.bf16_launches`), never
+to an f32 form. The bf16-tap form is a forward: its backward runs kernel 2
+on attn widened, which is exact when loc is f32, and refuses a bf16 loc.
 """
 
 from __future__ import annotations
@@ -154,16 +167,18 @@ def ms_deform_attn_1d_sampled_values(value: torch.Tensor,
                                      loc: torch.Tensor) -> torch.Tensor:
     """Raw per-tap lerped values, not weighted or summed: (B, Lq, H, L*P, Dh).
     The LSTM-DSA captioner's sampling op, as the plain gather of
-    `ms_deform_attn_1d_sampled_values` (ms_deform_attn.py:117-207)."""
+    `ms_deform_attn_1d_sampled_values` (ms_deform_attn.py:117-207): the
+    lerp in f32 and the result in value's dtype, as its 'twohot' matmul
+    computes it."""
     g0, g1, w0, w1 = prep_taps(temporal_shapes, loc, torch.ones_like(loc))
     B, Lq, H, L, P = loc.shape
+    v32 = value.float()
 
     def flat(w):
-        return w.to(value.dtype).permute(0, 2, 1, 3, 4).reshape(
-            B, H, Lq, L * P, 1)
+        return w.float().permute(0, 2, 1, 3, 4).reshape(B, H, Lq, L * P, 1)
 
-    out = _gather_taps(value, g0) * flat(w0) + _gather_taps(value, g1) * flat(w1)
-    return out.permute(0, 2, 1, 3, 4)
+    out = _gather_taps(v32, g0) * flat(w0) + _gather_taps(v32, g1) * flat(w1)
+    return out.permute(0, 2, 1, 3, 4).to(value.dtype)
 
 
 def tap_grads(grad_out: torch.Tensor, value: torch.Tensor, g0: torch.Tensor,
@@ -211,7 +226,8 @@ def ms_deform_attn_1d_bwd_ref(grad_out: torch.Tensor, value: torch.Tensor,
 # limits of the CUDA kernels (csrc/ms_deform_attn_common.cuh)
 KERNEL_THREADS = 512          # a block of the banded and value kernels
 KERNEL_WARPS = KERNEL_THREADS // 32
-KERNEL_MAX_DH = 128           # two 16-byte accesses per lane and row
+KERNEL_MAX_DH = 512           # eight 16-byte accesses per lane and row
+BANDED_MAX_DH = 128           # the banded kernels': two
 KERNEL_MAX_TAPS = KERNEL_THREADS   # taps per query: one thread per tap at least
 MAX_SHARED_BYTES = 232448     # the most shared memory a block may take, sm_90
 # The backward's value kernel (csrc/ms_deform_attn_bwd.cu) gives a block
@@ -233,10 +249,31 @@ def check_aligned(**tensors) -> None:
                              "aligned; its rows are read in 16-byte pieces")
 
 
-def check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
+def bf16_taps(loc: torch.Tensor, attn: torch.Tensor) -> bool:
+    """Whether loc or attn is bfloat16: the taps of the bf16-tap form."""
+    return torch.bfloat16 in (loc.dtype, attn.dtype)
+
+
+def check_bf16_levels(temporal_shapes: Sequence[int]) -> None:
+    """Raises unless every level length T and T - 1 is a bfloat16 value: with
+    a bf16 loc the JAX rule computes the clamp in bf16, where a longer level
+    would round (T <= 257 always passes)."""
+    for t in temporal_shapes:
+        t = int(t)
+        for v in (t, t - 1):
+            if float(torch.tensor(float(v), dtype=torch.bfloat16)) != v:
+                raise ValueError(
+                    f"ms_deform_attn kernel: level length {t} with a bf16 loc;"
+                    f" {v} is not a bfloat16 value, so the clamp would round")
+
+
+def check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None,
+                        bf16_taps_ok: bool = False):
     """Raises on what the CUDA kernels do not take: shapes that do not match,
     sizes past the kernels' limits, rows that do not start on 16 bytes, and
-    tensors that are not contiguous float32 on one CUDA device."""
+    tensors that are not contiguous float32 on one CUDA device; with
+    bf16_taps_ok (the forwards' bf16-tap form) loc and attn may also be
+    bfloat16, and a bf16 loc needs levels `check_bf16_levels` passes."""
     if value.dim() != 4 or loc.dim() != 5 or attn.shape != loc.shape:
         raise ValueError("ms_deform_attn kernel: want value (B,S,H,Dh) and "
                          f"loc, attn (B,Lq,H,L,P); got {tuple(value.shape)}, "
@@ -272,10 +309,15 @@ def check_kernel_inputs(value, temporal_shapes, loc, attn, grad_out=None):
     tensors = [("value", value), ("loc", loc), ("attn", attn)]
     if grad_out is not None:
         tensors.append(("grad_out", grad_out))
+    if bf16_taps_ok and loc.dtype == torch.bfloat16:
+        check_bf16_levels(temporal_shapes)
     for name, t in tensors:
         if not t.is_cuda:
             raise ValueError(f"ms_deform_attn kernel: {name} is on {t.device}")
-        if t.dtype != torch.float32:
+        if bf16_taps_ok and name in ("loc", "attn") and \
+                t.dtype == torch.bfloat16:
+            pass
+        elif t.dtype != torch.float32:
             raise TypeError(f"ms_deform_attn kernel: {name} is {t.dtype}, "
                             "the kernel takes float32")
         if not t.is_contiguous():
@@ -322,22 +364,34 @@ def _level_array(temporal_shapes: Sequence[int]) -> ctypes.Array:
 
 def ms_deform_attn_1d_cuda(value: torch.Tensor, temporal_shapes: Sequence[int],
                            loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. float32 CUDA tensors only;
-    raises on anything else, and if the launch is refused."""
+    """Launch the CUDA kernel on the current stream: the f32 form, or the
+    bf16-tap form when loc or attn is bfloat16. value float32, contiguous
+    CUDA tensors only; raises on anything else, and if the launch is
+    refused."""
     from gvl_tpu_torch.ops._build import library
 
-    check_kernel_inputs(value, temporal_shapes, loc, attn)
+    check_kernel_inputs(value, temporal_shapes, loc, attn, bf16_taps_ok=True)
     B, S, H, Dh = value.shape
     _, Lq, _, L, P = loc.shape
     out = torch.empty((B, Lq, H * Dh), dtype=torch.float32, device=value.device)
+    half = bf16_taps(loc, attn)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().msda_fwd_f32(
-            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            B, S, H, Dh, Lq, L, P, _level_array(temporal_shapes), stream)
+        args = (value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+                out.data_ptr(), B, S, H, Dh, Lq, L, P,
+                _level_array(temporal_shapes))
+        if half:
+            err = library().msda_fwd_bf16taps(
+                *args, int(loc.dtype == torch.bfloat16),
+                int(attn.dtype == torch.bfloat16), stream)
+        else:
+            err = library().msda_fwd_f32(*args, stream)
     if err != 0:
         raise RuntimeError(f"ms_deform_attn kernel launch failed: CUDA error {err}")
-    ms_deform_attn_1d.launches += 1
+    if half:
+        ms_deform_attn_1d.bf16_launches += 1
+    else:
+        ms_deform_attn_1d.launches += 1
     return out
 
 
@@ -375,9 +429,22 @@ def ms_deform_attn_1d_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
     return grad_value, grad_loc, grad_attn
 
 
+def bf16_attn_backward(loc: torch.Tensor, attn: torch.Tensor,
+                       what: str) -> torch.Tensor:
+    """The f32 attn the backward kernels take in place of a bf16 one: exact
+    when loc is f32, since the JAX rule then prepares the taps in f32 over
+    attn widened; a bf16 loc is refused (the bf16-tap form is a forward)."""
+    if loc.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} backward: a bf16 loc has no backward kernel (the bf16-"
+            "tap form is a forward)")
+    return attn.float()
+
+
 class _MSDeformAttnCUDA(torch.autograd.Function):
     """Forward and backward are the two CUDA kernels; neither gives way to
-    the plain version."""
+    the plain version. A bf16 attn goes back through kernel 2 widened, its
+    gradient rounded back to bf16."""
 
     @staticmethod
     def forward(ctx, value, temporal_shapes, loc, attn):
@@ -392,12 +459,14 @@ class _MSDeformAttnCUDA(torch.autograd.Function):
         if grad_out.dtype != torch.float32:
             raise TypeError(f"ms_deform_attn backward: grad_out is "
                             f"{grad_out.dtype}, the kernel takes float32")
+        attn32 = attn if attn.dtype == torch.float32 else \
+            bf16_attn_backward(loc, attn, "ms_deform_attn")
         # autograd hands over views (of an expand, a transpose) as often as not
         grad_value, grad_loc, grad_attn = ms_deform_attn_1d_bwd_cuda(
-            grad_out.contiguous(), value, ctx.temporal_shapes, loc, attn,
+            grad_out.contiguous(), value, ctx.temporal_shapes, loc, attn32,
             need_value=need_value)
         return (grad_value, None, grad_loc if need_loc else None,
-                grad_attn if need_attn else None)
+                grad_attn.to(attn.dtype) if need_attn else None)
 
 
 def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
@@ -405,8 +474,9 @@ def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
     """Deformable attention: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor. As in the JAX op, value is computed in float32
     and the result cast back to value's dtype. `ms_deform_attn_1d.launches`
-    counts launches of the forward kernel, `.bwd_launches` of the backward
-    kernel."""
+    counts launches of the forward kernel's f32 form, `.bf16_launches` of its
+    bf16-tap form (bf16 loc or attn; see the module docstring),
+    `.bwd_launches` of the backward kernel."""
     shapes = tuple(int(t) for t in temporal_shapes)
     v32 = value.float()
     if value.is_cuda:
@@ -417,4 +487,5 @@ def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
 
 
 ms_deform_attn_1d.launches = 0
+ms_deform_attn_1d.bf16_launches = 0
 ms_deform_attn_1d.bwd_launches = 0

@@ -46,9 +46,11 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-# KERNEL_*, MAX_SHARED_BYTES: limits of the CUDA kernels
-from gvl_tpu_torch.ops.ms_deform_attn import (KERNEL_MAX_DH, KERNEL_THREADS,
-                                              MAX_SHARED_BYTES, check_aligned,
+# BANDED_MAX_DH, KERNEL_THREADS, MAX_SHARED_BYTES: limits of the CUDA kernels
+from gvl_tpu_torch.ops.ms_deform_attn import (BANDED_MAX_DH, KERNEL_THREADS,
+                                              MAX_SHARED_BYTES,
+                                              bf16_attn_backward, bf16_taps,
+                                              check_aligned,
                                               check_kernel_inputs,
                                               level_tensor, prep_taps,
                                               tap_grads, tap_parts,
@@ -201,11 +203,11 @@ def kernel_plan(temporal_shapes: Tuple[int, ...], margin: int, H: int, P: int,
     kernels refuse."""
     shapes = [int(t) for t in temporal_shapes]
     L, K = len(shapes), len(shapes) * P
-    if Dh < 4 or Dh % 4 or Dh > KERNEL_MAX_DH:
+    if Dh < 4 or Dh % 4 or Dh > BANDED_MAX_DH:
         raise ValueError(
             f"banded ms_deform_attn kernel: head width {Dh}; the kernels read "
             f"rows in 16-byte pieces and take multiples of 4 up to "
-            f"{KERNEL_MAX_DH}")
+            f"{BANDED_MAX_DH}")
     if not 1 <= L <= 8 or P < 1 or K > KERNEL_THREADS:
         raise ValueError(
             f"banded ms_deform_attn kernel: {L} levels x {P} points; 1..8 "
@@ -251,26 +253,37 @@ def ms_deform_attn_1d_banded_cuda(value: torch.Tensor,
                                   loc: torch.Tensor, attn: torch.Tensor,
                                   margin: int = 32) -> torch.Tensor:
     """Launch the banded forward CUDA kernel on the current stream, once for
-    all query levels. float32 contiguous CUDA tensors only; raises on
-    anything else, and if the launch is refused."""
+    all query levels: the f32 form, or the bf16-tap form when loc or attn is
+    bfloat16 (the dense op's rule, ops/ms_deform_attn.py). value float32,
+    contiguous CUDA tensors only; raises on anything else, and if the launch
+    is refused."""
     from gvl_tpu_torch.ops._build import library
 
-    check_kernel_inputs(value, temporal_shapes, loc, attn)
+    check_kernel_inputs(value, temporal_shapes, loc, attn, bf16_taps_ok=True)
     _check_token_queries(value, temporal_shapes, loc)
     B, S, H, Dh = value.shape
     _, _, _, L, P = loc.shape
     plan = _plan_for(value, temporal_shapes, loc, margin)
     out = torch.empty((B, S, H * Dh), dtype=torch.float32, device=value.device)
+    half = bf16_taps(loc, attn)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().msda_banded_fwd_f32(
-            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            B, S, H, Dh, L, P, plan.shapes, plan.bands, plan.shared_fwd,
-            stream)
+        args = (value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+                out.data_ptr(), B, S, H, Dh, L, P, plan.shapes, plan.bands,
+                plan.shared_fwd)
+        if half:
+            err = library().msda_banded_fwd_bf16taps(
+                *args, int(loc.dtype == torch.bfloat16),
+                int(attn.dtype == torch.bfloat16), stream)
+        else:
+            err = library().msda_banded_fwd_f32(*args, stream)
     if err != 0:
         raise RuntimeError("banded ms_deform_attn kernel launch failed: CUDA "
                            f"error {err}")
-    ms_deform_attn_1d_banded.launches += 1
+    if half:
+        ms_deform_attn_1d_banded.bf16_launches += 1
+    else:
+        ms_deform_attn_1d_banded.launches += 1
     return out
 
 
@@ -330,11 +343,13 @@ class _BandedMSDeformAttnCUDA(torch.autograd.Function):
         if grad_out.dtype != torch.float32:
             raise TypeError(f"banded ms_deform_attn backward: grad_out is "
                             f"{grad_out.dtype}, the kernel takes float32")
+        attn32 = attn if attn.dtype == torch.float32 else \
+            bf16_attn_backward(loc, attn, "banded ms_deform_attn")
         grad_value, grad_loc, grad_attn = ms_deform_attn_1d_banded_bwd_cuda(
-            grad_out.contiguous(), value, ctx.temporal_shapes, loc, attn,
+            grad_out.contiguous(), value, ctx.temporal_shapes, loc, attn32,
             ctx.margin, need_value=need_value)
         return (grad_value, None, grad_loc if need_loc else None,
-                grad_attn if need_attn else None, None)
+                grad_attn.to(attn.dtype) if need_attn else None, None)
 
 
 def ms_deform_attn_1d_banded(value: torch.Tensor,
@@ -345,7 +360,8 @@ def ms_deform_attn_1d_banded(value: torch.Tensor,
     for a CUDA tensor, the plain version for a CPU tensor. value is computed
     in float32 and the result cast back to value's dtype.
     `ms_deform_attn_1d_banded.launches` counts launches of the forward
-    kernel, `.bwd_launches` of the backward kernel."""
+    kernel's f32 form, `.bf16_launches` of its bf16-tap form, `.bwd_launches`
+    of the backward kernel."""
     shapes = tuple(int(t) for t in temporal_shapes)
     v32 = value.float()
     if value.is_cuda:
@@ -356,4 +372,5 @@ def ms_deform_attn_1d_banded(value: torch.Tensor,
 
 
 ms_deform_attn_1d_banded.launches = 0
+ms_deform_attn_1d_banded.bf16_launches = 0
 ms_deform_attn_1d_banded.bwd_launches = 0

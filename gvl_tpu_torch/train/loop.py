@@ -27,7 +27,7 @@ torch.profiler into `<run>/trace`.
 
 Refused by name (NotImplementedError) before any work starts
 (`check_config`): the gpt2 head, two-stage queries, the caption cost,
-scheduled sampling, train_caption_bf16, several devices and the
+scheduled sampling, several devices and the
 sequence-parallel mesh (ROADMAP Queue 1 item 10), and every option the eval
 side refuses (gvl_tpu_torch.eval_cli.check_config).
 """
@@ -88,8 +88,6 @@ _REFUSED = (
     (lambda c: any(ss_prob_at_epoch(c, e) > 0 for e in range(c.epoch)),
      "scheduled sampling (ss_prob > 0 in some epoch)",
      "ROADMAP Queue 1 item 8"),
-    (lambda c: c.get("train_caption_bf16", False), "train_caption_bf16 (the "
-     "bf16 teacher forcing and rollouts)", "ROADMAP Queue 1 item 7"),
     (lambda c: len(c.gpu_id) > 1, "a mesh of more than one device "
      "(several gpu_id)", "ROADMAP Queue 1 item 10; the port trains on one "
      "card"),

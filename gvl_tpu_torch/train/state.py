@@ -17,13 +17,18 @@ given `seed` seeds both from it (`step_seed(cfg.seed, global_step)` in the
 train loop), so a resumed run draws at step n what an unbroken run draws
 there; without one, both draw from the device's default generator.
 
+Under caption_bf16 (train_caption_bf16, state.py:252-265) the caption head's
+weights read as bf16 inside autograd and its query and memory are cast, for
+teacher forcing and both SCST rollout chains; the NLL's logsumexp and the
+chosen-token logprobs stay f32 inside the heads.
+
 Refused by name (NotImplementedError): `caption_cost`, `caption_gpt`,
-`two_stage`, `caption_bf16` (also the bf16 rollouts of SCST), and scheduled
-sampling (`ss_prob > 0`).
+`two_stage`, and scheduled sampling (`ss_prob > 0`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -38,6 +43,7 @@ from gvl_tpu_torch.models.text_encoder import (TextEncoder,
 from gvl_tpu_torch.models.transformer import pyramid_shapes
 from gvl_tpu_torch.train.criterion import LossSpec, compute_criterion
 from gvl_tpu_torch.train.rl import rl_policy_loss
+from gvl_tpu_torch.utils.amp import to_bf16
 
 Schedule = Callable[[int], float]
 
@@ -182,7 +188,7 @@ class StepStatics:
     caption_bf16: bool = False
 
 
-_NOT_PORTED = ("caption_cost", "caption_gpt", "two_stage", "caption_bf16")
+_NOT_PORTED = ("caption_cost", "caption_gpt", "two_stage")
 
 
 def _check_statics(statics: StepStatics, text_encoder) -> None:
@@ -311,8 +317,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
     st = statics
     Ld = model.arch.dec_layers
     grad_clip = float(getattr(cfg, "grad_clip", 100.0))
+    # the LSTM heads treat events independently, so a shared one folds the
+    # layers into the event axis (state.py:314-316, 208-210)
     fuse = (bool(getattr(cfg, "fuse_caption_layers", True))
-            and model.arch.share_caption_head)
+            and model.arch.share_caption_head
+            and model.arch.caption_decoder_type in ("standard", "light"))
     cap_levels = model.arch.cap_num_feature_levels
     cap_points = model.arch.cap_dec_n_points
     rate = int(getattr(cfg, "rl_m2o_rate", 4)) if st.caption_rl else 0
@@ -339,12 +348,14 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                 for k, v in batch.items()
                 if isinstance(v, (np.ndarray, torch.Tensor))}
 
+    cap_cast = to_bf16 if st.caption_bf16 else (lambda x: x)
+
     def caption_query(out, layer, mq):
         query = gather_matched(out["hs"][layer], mq)
         if st.enable_pos_emb_for_captioner:
             query = torch.cat(
                 [query, gather_matched(out["query_pos"], mq)], dim=-1)
-        return query
+        return cap_cast(query)
 
     def prepared_ref(out, layer, mq, shapes):
         return prepare_dsa_reference(
@@ -371,7 +382,7 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
     def scst_losses(db, out, shapes, rl_matches, seed):
         """The SCST caption losses (state.py:371-427 fused, :446-483 per
         layer)."""
-        common = (out["memory"], out["mask_flat"], shapes,
+        common = (cap_cast(out["memory"]), out["mask_flat"], shapes,
                   out["valid_ratios"])
         groups = [rl_layers] if rl_fused else [[l] for l in rl_layers]
         dev = out["memory"].device
@@ -434,14 +445,22 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         tick("trunk")
         if not st.caption_loss:
             return losses
-        if st.caption_rl:
-            losses.update(scst_losses(db, out, shapes, rl_matches, seed))
-            return losses
+        with model.caption_bf16() if st.caption_bf16 else \
+                contextlib.nullcontext():
+            losses.update(caption_losses(db, out, shapes, match_qs,
+                                         rl_matches, seed))
+        return losses
 
+    def caption_losses(db, out, shapes, match_qs, rl_matches, seed):
+        """The caption losses: SCST's, or the teacher-forced NLL of each
+        layer (state.py:329-507)."""
+        if st.caption_rl:
+            return scst_losses(db, out, shapes, rl_matches, seed)
+        losses = {}
         layers = [Ld - 1] if st.disable_mid_caption_heads else list(range(Ld))
         validf = db["gt_mask"].float()
         denom = validf.sum().clamp(min=1)
-        common = (out["memory"], out["mask_flat"], shapes,
+        common = (cap_cast(out["memory"]), out["mask_flat"], shapes,
                   out["valid_ratios"])
         if fuse and len(layers) > 1:
             # one teacher-forcing pass for all layers: the shared head treats

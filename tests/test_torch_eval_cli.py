@@ -488,7 +488,6 @@ def test_cli_takes_or_refuses_each_config(tmp_path, yml, route):
 
 REFUSED = {"--eval_data_parallel": "item 10",
            "--eval_enable_zeroshot_tal": "item 9",
-           "--eval_use_amp": "item 7",
            "only_ft_class_head": "item 9"}
 
 

@@ -1,64 +1,122 @@
 """gvl_tpu_torch imports torch and never JAX, flax, optax, transformers or
-gvl_tpu, and on a CPU tensor its deformable-attention wrapper launches no
-kernel."""
+gvl_tpu, and on a CPU tensor its deformable-attention wrappers launch no
+kernel.
 
+The import checks run in one fresh process (`report`), which imports the
+modules of each group one at a time, in the order below, and records after
+each import which forbidden packages `sys.modules` holds; then it imports
+every submodule and calls the wrappers on CPU tensors. A module that brings
+in a forbidden package is the first after which one appears, whichever
+group it is in, as it would be alone in a process of its own. Each test
+reads its group's entries.
+"""
+
+import json
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu")
+
+GROUPS = {
+    "train": ("gvl_tpu_torch.train.state", "gvl_tpu_torch.train.criterion",
+              "gvl_tpu_torch.train.lap", "gvl_tpu_torch.convert",
+              "chip_smoke"),
+    "text_side": ("gvl_tpu_torch.models.text_encoder",
+                  "gvl_tpu_torch.models.text", "gvl_tpu_torch.models.gvl",
+                  "gvl_tpu_torch.eval.postprocess",
+                  "gvl_tpu_torch.eval.evaluate",
+                  "gvl_tpu_torch.train.criterion", "gvl_tpu_torch.convert"),
+    "eval_cli": ("gvl_tpu_torch.eval_cli", "gvl_tpu_torch.config",
+                 "gvl_tpu_torch.cli", "gvl_tpu_torch.data",
+                 "gvl_tpu_torch.data.features",
+                 "gvl_tpu_torch.data.synthetic",
+                 "gvl_tpu_torch.eval.metrics",
+                 "gvl_tpu_torch.eval.metrics.spice",
+                 "gvl_tpu_torch.utils.logging",
+                 "gvl_tpu_torch.train.checkpoint"),
+    "train_cli": ("gvl_tpu_torch.train_cli", "gvl_tpu_torch.train.loop",
+                  "gvl_tpu_torch.train.rl"),
+    "decode_heads": ("gvl_tpu_torch.utils.amp",
+                     "gvl_tpu_torch.models.gpt_captioner",
+                     "gvl_tpu_torch.models.captioner"),
+}
+
+_REPORT = textwrap.dedent("""
+    import importlib, json, pkgutil, sys
+    FORBIDDEN = %r + ("nltk",)
+    groups = json.loads(sys.argv[1])
+    rep = {"imports": {}}
+
+    def forbidden():
+        return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+
+    for group, mods in groups.items():
+        for mod in mods:
+            importlib.import_module(mod)
+            rep["imports"][group + ":" + mod] = forbidden()
+    from gvl_tpu_torch.ops import ms_deform_attn_1d, ms_deform_attn_1d_banded
+    rep["launches_after_imports"] = [
+        [fn.launches, fn.bf16_launches, fn.bwd_launches]
+        for fn in (ms_deform_attn_1d, ms_deform_attn_1d_banded)]
+    from gvl_tpu_torch.eval.metrics.meteor import _get_stemmer
+    rep["stem"] = _get_stemmer().stem("running")
+    import gvl_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(gvl_tpu_torch.__path__,
+                                                   "gvl_tpu_torch.")]
+    for n in names:
+        importlib.import_module(n)
+    rep["walk"] = [len(names), forbidden()]
+    import torch
+    g = torch.Generator().manual_seed(0)
+    v = torch.randn(2, 12, 2, 4, generator=g)
+    loc = torch.rand(2, 5, 2, 2, 3, generator=g)
+    attn = torch.rand(2, 5, 2, 2, 3, generator=g)
+    outs = [ms_deform_attn_1d(v, (8, 4), loc, attn),
+            ms_deform_attn_1d(v, (8, 4), loc.bfloat16(), attn.bfloat16())]
+    rep["cpu_wrapper"] = [[list(o.shape) for o in outs],
+                          ms_deform_attn_1d.launches,
+                          ms_deform_attn_1d.bf16_launches]
+    print(json.dumps(rep))
+""") % (FORBIDDEN,)
 
 
-def test_port_imports_no_jax_and_launches_nothing_on_cpu():
-    code = textwrap.dedent("""
-        import importlib, pkgutil, sys
-        import gvl_tpu_torch
-        names = [m.name for m in pkgutil.walk_packages(
-            gvl_tpu_torch.__path__, "gvl_tpu_torch.")]
-        for n in names:
-            importlib.import_module(n)
-        bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "transformers", "gvl_tpu"))
-        assert not bad, bad
-        import torch
-        from gvl_tpu_torch.ops import ms_deform_attn_1d
-        g = torch.Generator().manual_seed(0)
-        v = torch.randn(2, 12, 2, 4, generator=g)
-        loc = torch.rand(2, 5, 2, 2, 3, generator=g)
-        attn = torch.rand(2, 5, 2, 2, 3, generator=g)
-        out = ms_deform_attn_1d(v, (8, 4), loc, attn)
-        assert out.shape == (2, 5, 8)
-        assert ms_deform_attn_1d.launches == 0
-        print(len(names))
-    """)
+@pytest.fixture(scope="module")
+def report():
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", _REPORT, json.dumps(GROUPS)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 46      # every submodule was imported
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def test_train_modules_import_without_jax():
-    code = textwrap.dedent("""
-        import sys
-        import gvl_tpu_torch.train.state, gvl_tpu_torch.train.criterion
-        import gvl_tpu_torch.train.lap, gvl_tpu_torch.convert
-        import chip_smoke
-        bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                            "transformers", "gvl_tpu"))
-        assert not bad, bad
-        from gvl_tpu_torch.ops import (ms_deform_attn_1d,
-                                       ms_deform_attn_1d_banded)
-        for fn in (ms_deform_attn_1d, ms_deform_attn_1d_banded):
-            assert fn.launches == fn.bwd_launches == 0
-    """)
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+def _clean(report, group, nltk=False):
+    for mod in GROUPS[group]:
+        bad = report["imports"][f"{group}:{mod}"]
+        if not nltk:
+            bad = [m for m in bad if m.split(".")[0] != "nltk"]
+        assert not bad, (mod, bad)
+
+
+def test_port_imports_no_jax_and_launches_nothing_on_cpu(report):
+    """Every submodule imports; on CPU tensors, f32 or bf16 taps, the
+    deformable-attention wrapper runs its plain version and counts no
+    launch."""
+    n, bad = report["walk"]
+    assert n >= 48 and not [m for m in bad if m.split(".")[0] != "nltk"], bad
+    shapes, launches, bf16_launches = report["cpu_wrapper"]
+    assert shapes == [[2, 5, 8], [2, 5, 8]]
+    assert launches == bf16_launches == 0
+
+
+def test_train_modules_import_without_jax(report):
+    _clean(report, "train")
+    assert report["launches_after_imports"] == [[0, 0, 0], [0, 0, 0]]
 
 
 def _tiny_namespace(**kw):
@@ -74,7 +132,6 @@ def _tiny_namespace(**kw):
 def test_build_model_defaults_to_the_card_and_raises_without_one():
     """With no device given the model is built on the CUDA device; on a
     machine without one that raises instead of building on the CPU."""
-    import pytest
     import torch
     from gvl_tpu_torch.models.gvl import build_model
     if torch.cuda.is_available():
@@ -89,34 +146,34 @@ def test_build_model_defaults_to_the_card_and_raises_without_one():
 
 
 def test_model_options_not_ported_raise_by_name():
-    import pytest
+    """The gpt2 caption head is the one head the port does not build yet;
+    the light, transformer and none heads, MLP class heads and heads shared
+    across layers build."""
+    import torch
     from gvl_tpu_torch.models.gvl import build_model
-    for kw, match in ((dict(caption_decoder_type="light"), "light"),
-                      (dict(support_mlp_class_head=True), "MLP class heads"),
-                      (dict(with_box_refine=0), "with_box_refine")):
-        with pytest.raises(NotImplementedError, match=match):
-            build_model(_tiny_namespace(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="gpt2"):
+        build_model(_tiny_namespace(caption_decoder_type="gpt2"),
+                    device="cpu")
+    for kw in (dict(caption_decoder_type="light"),
+               dict(caption_decoder_type="transformer", input_encoding_size=32,
+                    num_layers=1),
+               dict(caption_decoder_type="none"),
+               dict(support_mlp_class_head=True, with_box_refine=0)):
+        model = build_model(_tiny_namespace(**kw), device="cpu",
+                            generator=torch.Generator().manual_seed(0))
+        assert all(p.isfinite().all() for p in model.parameters()), kw
 
 
-def test_text_side_modules_import_without_jax():
-    """Each module of the contrastive text side, alone in a fresh process,
-    imports none of JAX, flax, optax, transformers or gvl_tpu."""
-    for mod in ("gvl_tpu_torch.models.text_encoder",
-                "gvl_tpu_torch.models.text", "gvl_tpu_torch.models.gvl",
-                "gvl_tpu_torch.eval.postprocess",
-                "gvl_tpu_torch.eval.evaluate", "gvl_tpu_torch.train.criterion",
-                "gvl_tpu_torch.convert"):
-        code = textwrap.dedent(f"""
-            import sys
-            import {mod}
-            bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-                "jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu"))
-            assert not bad, bad
-        """)
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 0, (mod, proc.stderr)
+def test_text_side_modules_import_without_jax(report):
+    """Each module of the contrastive text side imports none of JAX, flax,
+    optax, transformers or gvl_tpu."""
+    _clean(report, "text_side")
+
+
+def test_decode_and_head_modules_import_without_jax(report):
+    """The bf16 casts, the cached self-attention and the caption heads
+    import none of JAX, flax, optax, transformers or gvl_tpu."""
+    _clean(report, "decode_heads")
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -124,7 +181,6 @@ def test_chip_smoke_fails_without_a_card():
     torch.cuda.is_available() is false."""
     import torch
     if torch.cuda.is_available():
-        import pytest
         pytest.skip("this machine has a CUDA device")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
@@ -133,40 +189,19 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in proc.stdout
 
 
-def test_eval_cli_modules_import_without_jax():
+def test_eval_cli_modules_import_without_jax(report):
     """The eval CLI and the framework-free modules it runs on (config, cli,
-    data layer, metric harness, logging, checkpoint), each alone in a fresh
-    process, import none of JAX, flax, optax, transformers or gvl_tpu; nor
-    does the metric harness import nltk, which the card's machine lacks."""
-    for mod in ("gvl_tpu_torch.eval_cli", "gvl_tpu_torch.config",
-                "gvl_tpu_torch.cli", "gvl_tpu_torch.data",
-                "gvl_tpu_torch.data.features",
-                "gvl_tpu_torch.data.synthetic", "gvl_tpu_torch.eval.metrics",
-                "gvl_tpu_torch.eval.metrics.spice",
-                "gvl_tpu_torch.utils.logging",
-                "gvl_tpu_torch.train.checkpoint"):
-        code = textwrap.dedent(f"""
-            import sys
-            import {mod}
-            from gvl_tpu_torch.eval.metrics.meteor import _get_stemmer
-            assert _get_stemmer().stem("running") == "run"
-            bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-                "jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu",
-                "nltk"))
-            assert not bad, bad
-        """)
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 0, (mod, proc.stderr)
+    data layer, metric harness, logging, checkpoint) import none of JAX,
+    flax, optax, transformers or gvl_tpu; nor does the metric harness import
+    nltk, which the card's machine lacks: it stems with its own copy."""
+    _clean(report, "eval_cli", nltk=True)
+    assert report["stem"] == "run"
 
 
 def test_eval_cli_on_cuda_raises_without_a_card(tmp_path):
     """`--eval_device cuda` (the default) on a machine without a CUDA device
     raises before it reads the run directory, and nothing runs on the CPU:
     the run directory gains no file."""
-    import json
-    import pytest
     import torch
     from gvl_tpu_torch import eval_cli
     if torch.cuda.is_available():
@@ -181,21 +216,7 @@ def test_eval_cli_on_cuda_raises_without_a_card(tmp_path):
     assert sorted(os.listdir(run)) == ["opts.json"]
 
 
-def test_train_cli_modules_import_without_jax():
-    """The train CLI, the train loop and the SCST module, each alone in a
-    fresh process, import none of JAX, flax, optax, transformers, gvl_tpu
-    or nltk."""
-    for mod in ("gvl_tpu_torch.train_cli", "gvl_tpu_torch.train.loop",
-                "gvl_tpu_torch.train.rl"):
-        code = textwrap.dedent(f"""
-            import sys
-            import {mod}
-            bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-                "jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu",
-                "nltk"))
-            assert not bad, bad
-        """)
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 0, (mod, proc.stderr)
+def test_train_cli_modules_import_without_jax(report):
+    """The train CLI, the train loop and the SCST module import none of JAX,
+    flax, optax, transformers, gvl_tpu or nltk."""
+    _clean(report, "train_cli", nltk=True)

@@ -109,7 +109,7 @@ def tensors(Dh=8, P=4, shapes=(13, 7), H=2, Lq=5, offset=0):
 @pytest.mark.parametrize("kw,match", [
     (dict(Dh=6), "head width 6"),
     (dict(Dh=2), "head width 2"),
-    (dict(Dh=132), "head width 132"),
+    (dict(Dh=516), "head width 516"),
     (dict(P=300), "2 levels x 300 points"),
     (dict(offset=1), "value is not 16-byte aligned"),
     (dict(shapes=(13, 7, 1, 1, 1, 1, 1, 1, 1)), "9 levels"),

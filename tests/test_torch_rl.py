@@ -448,13 +448,13 @@ def test_scst_step_matches_jax(fuse, monkeypatch):
 
 
 def test_caption_rl_is_ported_and_bf16_rollouts_are_refused():
-    """caption_rl is no longer refused; bf16 rollouts still are, by name."""
+    """caption_rl is no longer refused, and since the bf16 rollouts were
+    ported (the name is from when they were refused) nor is caption_rl with
+    caption_bf16: both steps build. The bf16 rollouts are held to JAX in
+    tests/test_torch_decode_options.py."""
     cfg, _, _, port, _ = jax_world(**RL_SIDE)
-    ok = pstate.StepStatics(spec=LossSpec.from_config(cfg),
-                            **dict(statics_kw(cfg), caption_rl=True))
-    pstate.make_train_step(port, cfg, ok)
-    bf16 = pstate.StepStatics(spec=LossSpec.from_config(cfg),
-                              **dict(statics_kw(cfg), caption_rl=True,
-                                     caption_bf16=True))
-    with pytest.raises(NotImplementedError, match="caption_bf16"):
-        pstate.make_train_step(port, cfg, bf16)
+    for bf16 in (False, True):
+        st = pstate.StepStatics(spec=LossSpec.from_config(cfg),
+                                **dict(statics_kw(cfg), caption_rl=True,
+                                       caption_bf16=bf16))
+        assert callable(pstate.make_train_step(port, cfg, st))
