@@ -281,12 +281,13 @@ class Config:
                                     # (long sequences, S>=512): taps beyond
                                     # it clamp to the band edge; 0 forces
                                     # the exact dense kernel
-    remat_trunk: bool = False       # jax.checkpoint the enc/dec layers:
-                                    # recompute activations in the backward
-                                    # instead of storing (B,S,C) per layer —
-                                    # exact, trades ~1 extra fwd of FLOPs
-                                    # for ~1/enc_layers activation HBM; for
-                                    # long-video training at large T
+    remat_trunk: bool = False       # checkpoint the enc/dec layers
+                                    # (torch.utils.checkpoint): recompute
+                                    # activations in the backward instead
+                                    # of storing (B,S,C) per layer — exact,
+                                    # trades ~1 extra fwd of FLOPs for
+                                    # activation memory; for long-video
+                                    # training at large T
     compute_dtype: str = "float32"  # note: XLA on TPU already feeds f32
                                     # matmuls through the bf16 MXU (the
                                     # effective equivalent of the reference's

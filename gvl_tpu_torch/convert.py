@@ -30,6 +30,19 @@ index):
   kernels (E, H, Dh) and (H, Dh, E) flattened), `dim_project.{n}`,
   `cross_attn.{n}.{sampling_offsets,attention_weights,value_proj,
   output_proj}`, `norm{1,2,3}.{n}`, `ffn{1,2}.{n}` <- the `_{n}` paths.
+- 'gpt2' (the reference ClipCap / HF GPT-2 names, models/gpt_captioner.py):
+  `gpt.transformer.{wte,wpe}` <- `gpt/{wte,wpe}/embedding`; for each block
+  i `gpt.transformer.h.{i}.ln_{1,2}` <- `gpt/ln{1,2}_{i}`,
+  `attn.c_attn` (Conv1D (E, 3E)) <- the `gpt/attn_{i}/{query,key,value}`
+  kernels (E, H, Dh) flattened and concatenated in that order, `attn.c_proj`
+  <- `gpt/attn_{i}/out` ((H, Dh, E) flattened), `mlp.c_fc`, `mlp.c_proj` <-
+  `gpt/fc_{i}`, `gpt/proj_{i}` (Dense kernels are Conv1D's orientation: no
+  transpose); `gpt.transformer.ln_f`. The MLP mapper `clip_project.model.
+  {0,2}` (Linear) <- `clip_project/fc{1,2}`; the transformer mapper the
+  Flax paths (`Dense_0`, `prefix_const`, `attn_{i}` as the transformer
+  head's self_attn, `ln1_{i}`, `ffn1_{i}`, `ffn2_{i}`, `ln2_{i}`).
+  gvl_tpu/train/checkpoint.py:366-455 import_hf_gpt2_state_dict is the
+  bridge back.
 - 'none': no parameters.
 The JAX package's `import_pytorch_state_dict` maps only Linear class heads
 (checkpoint.py:263-264) and the 'standard' caption head (:326-352); the
@@ -68,20 +81,7 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
     src = _flatten(params_np)
     sd: Dict[str, np.ndarray] = {}
     read = set()
-
-    def take(key: str) -> np.ndarray:
-        if key not in src:
-            raise KeyError(f"flax parameter {key} missing")
-        read.add(key)
-        return src[key]
-
-    def dense(fp: str, tp: str):
-        sd[f"{tp}.weight"] = take(f"{fp}/kernel").T
-        sd[f"{tp}.bias"] = take(f"{fp}/bias")
-
-    def norm(fp: str, tp: str):
-        sd[f"{tp}.weight"] = take(f"{fp}/scale")
-        sd[f"{tp}.bias"] = take(f"{fp}/bias")
+    take, dense, norm = _readers(src, sd, read)
 
     def msda(fp: str, tp: str):
         for sub in ("sampling_offsets", "attention_weights", "value_proj",
@@ -150,11 +150,54 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
     if arch.enable_contrastive:
         _text_side(arch, take, dense, norm, sd)
 
+    return _finish(src, sd, read)
+
+
+def _readers(src: Dict[str, np.ndarray], sd: Dict, read: set):
+    """take(flax key), dense(flax path, port name) and norm(...) over the
+    flattened tree `src`, writing into `sd` and recording what was read."""
+    def take(key: str) -> np.ndarray:
+        if key not in src:
+            raise KeyError(f"flax parameter {key} missing")
+        read.add(key)
+        return src[key]
+
+    def dense(fp: str, tp: str):
+        sd[f"{tp}.weight"] = take(f"{fp}/kernel").T
+        sd[f"{tp}.bias"] = take(f"{fp}/bias")
+
+    def norm(fp: str, tp: str):
+        sd[f"{tp}.weight"] = take(f"{fp}/scale")
+        sd[f"{tp}.bias"] = take(f"{fp}/bias")
+
+    return take, dense, norm
+
+
+def _finish(src: Dict, sd: Dict, read: set) -> Dict[str, torch.Tensor]:
     unmapped = sorted(set(src) - read)
     if unmapped:
         raise KeyError(f"flax parameters with no place in the port: {unmapped}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def jax_gpt2_head_to_state_dict(params_np: Mapping, spec
+                                ) -> Dict[str, torch.Tensor]:
+    """A GPT2Captioner's own flax tree ({'params': ...} or its inner dict)
+    -> the state_dict names of gvl_tpu_torch.models.gpt_captioner
+    .GPT2Captioner(spec), by the 'gpt2' map of the module docstring."""
+    if "params" in params_np and isinstance(params_np["params"], Mapping):
+        params_np = params_np["params"]
+    src = _flatten(params_np)
+    sd: Dict[str, np.ndarray] = {}
+    read = set()
+    take, dense, norm = _readers(src, sd, read)
+    arch = GVLArch(caption_decoder_type="gpt2", gpt_n_embd=spec.n_embd,
+                   gpt_n_layer=spec.n_layer, gpt_n_head=spec.n_head,
+                   gpt_mapping_type=spec.mapping_type,
+                   prefix_num_mapping_layer=spec.prefix_num_mapping_layer)
+    _gpt2_head(arch, "", "", take, dense, norm, sd)
+    return _finish(src, sd, read)
 
 
 def _caption_head(arch: GVLArch, fp: str, tp: str, take, dense, norm, msda,
@@ -163,6 +206,9 @@ def _caption_head(arch: GVLArch, fp: str, tp: str, take, dense, norm, msda,
     docstring)."""
     kind = arch.caption_decoder_type
     if kind == "none":
+        return
+    if kind == "gpt2":
+        _gpt2_head(arch, fp + "/", tp + ".", take, dense, norm, sd)
         return
     sd[f"{tp}.embed.weight"] = take(f"{fp}/embed/embedding")
     if kind in ("standard", "light"):
@@ -179,20 +225,65 @@ def _caption_head(arch: GVLArch, fp: str, tp: str, take, dense, norm, msda,
         return
     dense(f"{fp}/logits", f"{tp}.logits")
     for n in range(arch.cap_num_layers):
-        fa, ta = f"{fp}/self_attn_{n}", f"{tp}.self_attn.{n}"
-        for sub in ("query", "key", "value"):
-            w = take(f"{fa}/{sub}/kernel")                     # (E, H, Dh)
-            sd[f"{ta}.{sub}.weight"] = w.reshape(w.shape[0], -1).T
-            sd[f"{ta}.{sub}.bias"] = take(f"{fa}/{sub}/bias").reshape(-1)
-        w = take(f"{fa}/out/kernel")                           # (H, Dh, E)
-        sd[f"{ta}.out.weight"] = w.reshape(-1, w.shape[-1]).T
-        sd[f"{ta}.out.bias"] = take(f"{fa}/out/bias")
+        _dense_general_attn(f"{fp}/self_attn_{n}", f"{tp}.self_attn.{n}",
+                            take, sd)
         dense(f"{fp}/dim_project_{n}", f"{tp}.dim_project.{n}")
         msda(f"{fp}/cross_attn_{n}", f"{tp}.cross_attn.{n}")
         for m in (1, 2, 3):
             norm(f"{fp}/norm{m}_{n}", f"{tp}.norm{m}.{n}")
         dense(f"{fp}/ffn1_{n}", f"{tp}.ffn1.{n}")
         dense(f"{fp}/ffn2_{n}", f"{tp}.ffn2.{n}")
+
+
+def _dense_general_attn(fa: str, ta: str, take, sd) -> None:
+    """Flax attention with DenseGeneral projections -> CachedSelfAttention's
+    Linear `query`, `key`, `value`, `out`."""
+    for sub in ("query", "key", "value"):
+        w = take(f"{fa}/{sub}/kernel")                         # (E, H, Dh)
+        sd[f"{ta}.{sub}.weight"] = w.reshape(w.shape[0], -1).T
+        sd[f"{ta}.{sub}.bias"] = take(f"{fa}/{sub}/bias").reshape(-1)
+    w = take(f"{fa}/out/kernel")                               # (H, Dh, E)
+    sd[f"{ta}.out.weight"] = w.reshape(-1, w.shape[-1]).T
+    sd[f"{ta}.out.bias"] = take(f"{fa}/out/bias")
+
+
+def _gpt2_head(arch: GVLArch, fp: str, tp: str, take, dense, norm,
+               sd) -> None:
+    """The ClipCap head (the map in the module docstring); fp and tp are
+    the head's flax path and port name prefixes, '' or with their
+    separator."""
+    E = arch.gpt_n_embd
+    g, tg = f"{fp}gpt", f"{tp}gpt.transformer"
+    sd[f"{tg}.wte.weight"] = take(f"{g}/wte/embedding")
+    sd[f"{tg}.wpe.weight"] = take(f"{g}/wpe/embedding")
+    for i in range(arch.gpt_n_layer):
+        th, fa = f"{tg}.h.{i}", f"{g}/attn_{i}"
+        norm(f"{g}/ln1_{i}", f"{th}.ln_1")
+        norm(f"{g}/ln2_{i}", f"{th}.ln_2")
+        qkv = ("query", "key", "value")
+        sd[f"{th}.attn.c_attn.weight"] = np.concatenate(
+            [take(f"{fa}/{n}/kernel").reshape(E, E) for n in qkv], axis=1)
+        sd[f"{th}.attn.c_attn.bias"] = np.concatenate(
+            [take(f"{fa}/{n}/bias").reshape(E) for n in qkv])
+        sd[f"{th}.attn.c_proj.weight"] = take(f"{fa}/out/kernel").reshape(E, E)
+        sd[f"{th}.attn.c_proj.bias"] = take(f"{fa}/out/bias")
+        for src, dst in (("fc", "c_fc"), ("proj", "c_proj")):
+            sd[f"{th}.mlp.{dst}.weight"] = take(f"{g}/{src}_{i}/kernel")
+            sd[f"{th}.mlp.{dst}.bias"] = take(f"{g}/{src}_{i}/bias")
+    norm(f"{g}/ln_f", f"{tg}.ln_f")
+    m, tm = f"{fp}clip_project", f"{tp}clip_project"
+    if arch.gpt_mapping_type == "mlp":
+        dense(f"{m}/fc1", f"{tm}.model.0")
+        dense(f"{m}/fc2", f"{tm}.model.2")
+        return
+    dense(f"{m}/Dense_0", f"{tm}.Dense_0")
+    sd[f"{tm}.prefix_const"] = take(f"{m}/prefix_const")
+    for i in range(arch.prefix_num_mapping_layer):
+        _dense_general_attn(f"{m}/attn_{i}", f"{tm}.attn_{i}", take, sd)
+        for n in ("ln1", "ln2"):
+            norm(f"{m}/{n}_{i}", f"{tm}.{n}_{i}")
+        for n in ("ffn1", "ffn2"):
+            dense(f"{m}/{n}_{i}", f"{tm}.{n}_{i}")
 
 
 def _text_side(arch: GVLArch, take, dense, norm, sd) -> None:

@@ -1,9 +1,9 @@
-"""Dense-captioning and grounding evaluation: runs the eval step over a batch
-iterable, writes the reference's DVC result JSON, reranks it, and writes the
-grounding JSONs.
+"""Dense-captioning, grounding and TAL evaluation: runs the eval step over a
+batch iterable, writes the reference's DVC result JSON, reranks it, and
+writes the grounding JSONs and, for the TAL linear probe, the TAL JSON.
 
-Port of gvl_tpu/eval/evaluate.py (`_eval_step` for the standard caption
-head, `_grounding_chunk`, `_matching_scores`, `run`, `_assemble`,
+Port of gvl_tpu/eval/evaluate.py (`_eval_step`, `_grounding_chunk`,
+`_matching_scores`, `run`, `_assemble`,
 `_assemble_grounding`, `save_dvc_json`, `reranking`), serial: one batch is
 computed, copied to the host and assembled before the next. With the
 contrastive side on, the text encoder and `encode_text` run on the batch's
@@ -21,8 +21,23 @@ G and the matching-score pass use the f32 weights even under eval_use_amp
 logprobs f32) and eval_full_bf16 (the trunk too: its weights and the
 features in bf16, its outputs cast back to f32 for the losses, matcher and
 postprocessing, the text pass over bf16-rounded weights, then the bf16
-decode; evaluate.py:107-145). Not ported: the gpt2 head's decode, zero-shot
-TAL, the TAL JSON and the plot hooks.
+decode; evaluate.py:107-145).
+
+The gpt2 head (evaluate.py:164-189) decodes greedily from the last layer's
+query features with its stop token (early exit as for the other heads);
+under eval_use_amp, eval_decode_bf16 or eval_full_bf16 every parameter of
+the model reads as bf16 and the query features are cast, as the JAX branch
+casts the whole tree. Each caption is its tokens up to the stop (the
+decode's mask), made a sentence by `gpt_decode` when given (the train
+loop's, which drops the special ids 0-2), else "w<id>" for every id
+(evaluate.py:561-570); its score is the sum of its steps' token
+probabilities. Zero-shot TAL (`enable_zeroshot_tal`, evaluate.py:270-282,
+627-633): every prediction carries `tal_cl_scores` and `aux_tal_cl_scores`,
+the cosines of its query's event embedding (last layer, the one before)
+with each class name's embedding. Under only_ft_class_head, with the
+batches' dataset holding a class map (`batches.ds.name_map`), `run` also
+writes the TAL JSON `<dvc>.tal.json` and sets `last_tal_json`
+(evaluate.py:491-504). Not ported: the plot hooks.
 
 DVC JSON: {"results": {vid: [{timestamp, raw_box, label, proposal_score,
 sentence, sentence_score, cl_score, query_id, vid_duration,
@@ -90,13 +105,21 @@ def reranking(p_src: str, alpha: float, cl_score_weight: float,
 def _check_ported(cfg: Any) -> None:
     """Raise NotImplementedError naming the first eval option of `cfg`
     that the port does not run yet."""
-    def get(name, default):
-        return getattr(cfg, name, default)
-
-    if get("caption_decoder_type", "standard") == "gpt2":
-        raise NotImplementedError("the gpt2 caption head is not ported yet")
-    if get("transformer_input_type", "queries") != "queries":
+    if getattr(cfg, "transformer_input_type", "queries") != "queries":
         raise NotImplementedError("only query-mode eval is ported")
+
+
+def tal_submission(out_json: Dict, name_map) -> Dict:
+    """The TAL JSON of a DVC result dict (evaluate.py:491-504, reference
+    eval_utils.collect_tal_result): each prediction's class index named by
+    `name_map`, its timestamp as `segment` and its proposal score; video
+    ids without their `v_` prefix."""
+    return {"results": {
+        vid[2:]: [{"label": name_map.convert_idx2name(p["label"]),
+                   "segment": p["timestamp"], "score": p["proposal_score"]}
+                  for p in items]
+        for vid, items in out_json["results"].items()},
+        "version": "VERSION 1.3", "external_data": {}}
 
 
 class EvalRunner:
@@ -104,7 +127,8 @@ class EvalRunner:
 
     cfg: any object with the JAX Config's attribute names; translator:
     anything with `.rtranslate(ids) -> str`; text_encoder: the
-    `TextEncoder` (required with enable_contrastive). Batches (for `run`):
+    `TextEncoder` (required with enable_contrastive); gpt_decode: token ids
+    -> sentence for the gpt2 head. Batches (for `run`):
     numpy dicts with `keys`, `video_feats` (B, T, D), `video_mask` (B, T)
     and `duration` (B,), as gvl_tpu.data.dataset.Batcher yields them; with
     `gt_boxes`, `gt_labels` and `gt_mask` (B, G) the eval losses are
@@ -112,7 +136,8 @@ class EvalRunner:
     (every GT sentence of each video) are required.
     """
 
-    def __init__(self, cfg: Any, model, translator, text_encoder=None):
+    def __init__(self, cfg: Any, model, translator, text_encoder=None,
+                 gpt_decode=None):
         _check_ported(cfg)
         if getattr(cfg, "enable_contrastive", False) and text_encoder is None:
             raise ValueError("EvalRunner: enable_contrastive needs the text "
@@ -121,6 +146,10 @@ class EvalRunner:
         self.model = model
         self.translator = translator
         self.text_encoder = text_encoder
+        self.gpt_decode = gpt_decode
+        self.gpt = getattr(cfg, "caption_decoder_type", "standard") == "gpt2"
+        self.class_embeds = None          # (n_class, Dcl), zero-shot TAL
+        self.last_tal_json = None
         self.device = next(model.parameters()).device
         self.spec = LossSpec.from_config(cfg)
         self.gspec = GroundingSpec.from_config(cfg)
@@ -134,8 +163,8 @@ class EvalRunner:
             getattr(cfg, "eval_decode_bf16", False))
         self.beam_size = int(getattr(cfg, "eval_beam_size", 1))
         self.early_exit = bool(getattr(cfg, "eval_decode_early_exit", False))
-        self.text_bf16 = self.contrastive and (
-            self.full_bf16 or bool(getattr(cfg, "eval_use_amp", False)))
+        self.amp = bool(getattr(cfg, "eval_use_amp", False))
+        self.text_bf16 = self.contrastive and (self.full_bf16 or self.amp)
         self.G = effective_max_gt_events(cfg)
         self.max_text_len = int(getattr(cfg, "max_text_input_len", 32))
 
@@ -148,9 +177,16 @@ class EvalRunner:
             return tuple(EvalRunner._to_host(v) for v in res)
         return res.cpu().numpy()
 
-    def enable_zeroshot_tal(self, *args, **kwargs):
-        raise NotImplementedError("zero-shot TAL (enable_zeroshot_tal) is not "
-                                  "ported yet")
+    def enable_zeroshot_tal(self, class_names: List[str],
+                            max_len: int = 8) -> None:
+        """Embed the action classes' names, so that every prediction
+        carries tal_cl_scores (evaluate.py:627-633)."""
+        from gvl_tpu_torch.eval.zeroshot_tal import embed_class_names
+        if self.text_encoder is None:
+            raise ValueError("enable_zeroshot_tal needs the text encoder "
+                             "(enable_contrastive)")
+        self.class_embeds = embed_class_names(self.model, self.text_encoder,
+                                              class_names, max_len)
 
     # ------------------------------------------------------------ device side
     def _tensor(self, x, dtype=None) -> torch.Tensor:
@@ -195,8 +231,23 @@ class EvalRunner:
                                   self._tensor(arrs["text_mask"]), gt_mask,
                                   out["memory"], out["mask_flat"],
                                   bf16_weights=self.text_bf16)
-        if cfg.caption_loss_coef > 0 and not cfg.eval_disable_captioning \
-                and cfg.caption_decoder_type != "none":
+        captions = cfg.caption_loss_coef > 0 and \
+            not cfg.eval_disable_captioning
+        if captions and self.gpt:
+            hs, bf16 = out["hs"][-1], contextlib.nullcontext()
+            if self.amp or self.decode_bf16:
+                bf16 = bf16_parameters(self.model)
+                hs = to_bf16(hs)
+            with bf16:
+                toks, probs, genmask = self.model.caption_sample_gpt(
+                    cfg.dec_layers - 1, hs, entry_length=cfg.max_caption_len,
+                    early_exit=self.early_exit)
+            # the ids past each caption's stop are the fixed loop's argmaxes
+            # (or the early exit's zeros); the assembly cuts at the mask
+            result["gpt_tokens"] = toks
+            result["gpt_genmask"] = genmask
+            result["cap_scores"] = (probs.float() * genmask).sum(-1)
+        elif captions and cfg.caption_decoder_type != "none":
             query = out["hs"][-1]
             if self.model.arch.enable_pos_emb_for_captioner:
                 query = torch.cat([query, out["query_pos"]], -1)
@@ -213,6 +264,8 @@ class EvalRunner:
             result["seq"] = seq                                # (B, Nq, Lc)
             result["cap_scores"] = ((seq > 0) * lps.float()).sum(-1)
         result["det"] = detection_outputs(out, duration)
+        if self.class_embeds is not None:
+            result.update(self._tal_cl_scores(out, result["det"]))
         if "gt_boxes" in arrs:
             texts = None
             if self.contrastive:
@@ -237,6 +290,24 @@ class EvalRunner:
                                        "event_embed", "memory", "mask_flat")}
             aux["duration"] = duration
         return result, aux
+
+    def _tal_cl_scores(self, out, det) -> Dict[str, torch.Tensor]:
+        """Each ranked prediction's cosine with every class embedding, from
+        the event embedding of the last decoder layer (tal_cl_scores) and
+        of the one before (aux_tal_cl_scores), (B, ranks, n_class)
+        (evaluate.py:270-282)."""
+        def unit(x):
+            return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+                        + 1e-12)
+        c = unit(self.class_embeds)
+        res = {}
+        for which, layer in (("tal_cl_scores", -1), ("aux_tal_cl_scores", -2)):
+            scores = torch.einsum("bqd,kd->bqk", unit(out["event_embed"][layer]),
+                                  c)
+            res[which] = torch.gather(
+                scores, 1, det["query_idx"][..., None].expand(
+                    -1, -1, scores.shape[-1]))
+        return res
 
     def _grounding_chunk(self, aux, ids, tmask, smask):
         """Grounding of one G-sized slice of sentences against the saved
@@ -295,14 +366,16 @@ class EvalRunner:
     def run(self, batches: Iterable[Dict], dvc_json_path: str, logger=None,
             debug: bool = False):
         """Evaluate every batch; write the DVC JSON, the reranked one (when
-        count_loss_coef > 0) and the two grounding JSONs beside the final
-        one. A partial last batch is padded to the iterable's `batch_size`,
-        where it has one. With `debug` the run stops after the batch that
-        takes the DVC JSON past 5 videos (evaluate.py:480-482); the eval
-        losses go to `logger.info` when a logger is given. Returns (path of
-        the final DVC JSON, the un-reranked result dict, the grounding and
-        aux grounding dicts, the eval losses averaged over the real videos,
-        rounded to 3 places), as the JAX package's run (evaluate.py:539)."""
+        count_loss_coef > 0), the two grounding JSONs beside the final one
+        and, under only_ft_class_head with a class map, the TAL JSON
+        (`last_tal_json`). A partial last batch is padded to the iterable's
+        `batch_size`, where it has one. With `debug` the run stops after the
+        batch that takes the DVC JSON past 5 videos (evaluate.py:480-482);
+        the eval losses go to `logger.info` when a logger is given. Returns
+        (path of the final DVC JSON, the un-reranked result dict, the
+        grounding and aux grounding dicts, the eval losses averaged over the
+        real videos, rounded to 3 places), as the JAX package's run
+        (evaluate.py:539)."""
         cfg = self.cfg
         out_json = {"results": {}, "version": "VERSION 1.0",
                     "external_data": {"used:": True, "details": None}}
@@ -334,6 +407,11 @@ class EvalRunner:
             loss_sum[k] = round(loss_sum[k] / (n_rows + 1e-5), 3)
         if logger is not None:
             logger.info("eval loss: {}".format(dict(loss_sum)))
+        name_map = getattr(getattr(batches, "ds", None), "name_map", None)
+        if getattr(cfg, "only_ft_class_head", False) and name_map is not None:
+            self.last_tal_json = dvc_json_path[:-5] + ".tal.json"
+            save_dvc_json(tal_submission(out_json, name_map),
+                          self.last_tal_json)
         save_dvc_json(out_json, dvc_json_path, verbose=True)
         if cfg.count_loss_coef > 0:
             dvc_json_path = reranking(
@@ -379,6 +457,8 @@ class EvalRunner:
         det = res["det"]
         Nq = det["scores"].shape[1]
         have_caps = "seq" in res
+        have_gpt = "gpt_tokens" in res
+        tal = "tal_cl_scores" in res
         for b, vid in enumerate(batch["keys"]):
             duration = float(batch["duration"][b])
             raw_boxes = det["raw_boxes"][b]
@@ -392,9 +472,23 @@ class EvalRunner:
                 if have_caps:
                     sent = self.translator.rtranslate(res["seq"][b, q])
                     sent_score = float(res["cap_scores"][b, q])
+                elif have_gpt:
+                    n = int(res["gpt_genmask"][b, q].sum())
+                    ids = res["gpt_tokens"][b, q][:n]
+                    if self.gpt_decode is not None:
+                        sent = self.gpt_decode(ids)
+                    else:
+                        # the ids before the stop: id 0 is a word here
+                        sent = " ".join(f"w{int(i)}" for i in ids)
+                    sent_score = float(res["cap_scores"][b, q])
                 else:
                     sent, sent_score = "", -1e5
+                extra = {}
+                if tal:
+                    extra = {k: res[k][b, pid].tolist() for k in
+                             ("tal_cl_scores", "aux_tal_cl_scores")}
                 items.append({
+                    **extra,
                     "timestamp": det["boxes"][b, pid].tolist(),
                     "raw_box": raw_boxes[pid].tolist(),
                     "label": int(det["labels"][b, pid]),

@@ -19,14 +19,19 @@ never falls back to the CPU. On the card TF32 is turned off, so that
 matmuls and convolutions run in f32 as in the JAX package.
 
 Refused by name (NotImplementedError) before any data is read:
-`--eval_data_parallel` (several GPUs, ROADMAP Queue 1 item 10),
-`--eval_enable_zeroshot_tal` (item 9), and every option of the restored
-config that the model, the text encoder or EvalRunner does not run yet
-(`check_config`; the gpt2 caption head among them). `--eval_use_amp` sets
-eval_decode_bf16 besides the bf16 text pass, as the JAX CLI does
-(eval.py:134-135). `--eval_not_strict_load` is accepted and changes
-nothing, as in the JAX CLI. The plot hook of the JAX EvalRunner is not run
-(item 9).
+`--eval_data_parallel` (several GPUs, ROADMAP Queue 1 item 10) and every
+option of the restored config that the model, the text encoder or
+EvalRunner does not run yet (`check_config`; the pretrained text and GPT-2
+weights among them). `--eval_use_amp` sets eval_decode_bf16 besides the
+bf16 text pass, as the JAX CLI does (eval.py:134-135).
+`--eval_enable_zeroshot_tal` embeds the names of the classes in
+action_classes_path, each after `--eval_prompt` (default "a video of"), so
+that every prediction carries its class scores (eval.py:195-202); a run
+trained with only_ft_class_head (the TAL linear probe) also gets its TAL
+JSON beside the DVC JSON. A gpt2 run's captions are "w<id>" for each
+token before the stop, as eval.py gives no decoder.
+`--eval_not_strict_load` is accepted and changes nothing, as in the JAX
+CLI. The plot hook of the JAX EvalRunner is not run (item 9).
 
 The wall time of each stage is logged (and returned by `main`): config and
 data, model build, checkpoint load, the eval run with the batcher's share of
@@ -112,7 +117,8 @@ def eval_parser() -> argparse.ArgumentParser:
                    default=None)
     p.add_argument("--eval_for_multi_anno", action="store_true", default=None)
     p.add_argument("--eval_enable_zeroshot_tal", action="store_true",
-                   default=None, help="not ported yet: refused")
+                   default=None, help="per-class scores of every prediction "
+                   "against the prompted names of action_classes_path")
     p.add_argument("--eval_prompt", type=str, default=None)
     p.add_argument("--eval_use_amp", action="store_true", default=None,
                    help="the bf16 text pass and the bf16 decode "
@@ -178,10 +184,6 @@ def restore_config(args: argparse.Namespace) -> Config:
 _REFUSED = (
     ("eval_data_parallel", "--eval_data_parallel (eval over several GPUs)",
      "ROADMAP Queue 1 item 10; the port evaluates on one card"),
-    ("eval_enable_zeroshot_tal", "--eval_enable_zeroshot_tal",
-     "ROADMAP Queue 1 item 9"),
-    ("only_ft_class_head", "only_ft_class_head (the TAL probe's JSON)",
-     "ROADMAP Queue 1 item 9"),
 )
 
 
@@ -220,6 +222,7 @@ class TimedBatches:
 
     def __init__(self, batcher):
         self.batcher = batcher
+        self.ds = batcher.ds
         self.batch_size = batcher.batch_size
         self.seconds = 0.0
         self.batches = 0
@@ -241,6 +244,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     "times" (seconds per stage), "dvc_json" (the final DVC JSON's path),
     "videos", "batches"}."""
     from gvl_tpu_torch.data.dataset import Batcher, DenseVideoDataset
+    from gvl_tpu_torch.data.vocabulary import ClassMap
     from gvl_tpu_torch.eval.evaluate import EvalRunner
     from gvl_tpu_torch.eval.metrics import (eval_metrics,
                                             eval_metrics_grounding)
@@ -299,6 +303,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                 f"on {dev}")
 
     runner = EvalRunner(cfg, model, ds.translator, text)
+    if args.eval_enable_zeroshot_tal:
+        cmap = ClassMap(cfg.action_classes_path)
+        prompt = args.eval_prompt or "a video of"
+        runner.enable_zeroshot_tal([f"{prompt} {cmap.idx2name[i]}"
+                                    for i in range(len(cmap))])
     dvc_path = os.path.join(folder, f"eval_{args.eval_checkpoint}.json")
     with stage("eval_run"):
         out_path, out_json, *_ = runner.run(batcher, dvc_path, logger=logger,

@@ -7,13 +7,15 @@ contrastive text head (event projections in the trunk, `encode_text`).
 Heads: linear or 3-layer MLP class heads (support_mlp_class_head); one
 class, count and bbox head per decoder layer with box refinement, one head
 shared by every layer without it (with_box_refine=0, gvl.py:249-262); the
-caption heads 'standard' (LSTM-DSA), 'light', 'transformer' and 'none'
-(gvl.py:316-344), with greedy, sampled, early-exit and (LSTM-DSA) beam
-decode. Not ported yet, and refused by `build_model`: the 'gpt2' caption
-head (ROADMAP Queue 1 item 7). Two-stage / proposal queries are refused by
-the EvalRunner. Parameter names follow the reference pdvc/pdvc.py
-state_dict. The text encoder itself lives beside the model
-(gvl_tpu_torch/models/text_encoder.py), as in the JAX package.
+caption heads 'standard' (LSTM-DSA), 'light', 'transformer', 'gpt2'
+(ClipCap, gvl_tpu_torch/models/gpt_captioner.py; `caption_train_gpt`,
+`caption_sample_gpt`) and 'none' (gvl.py:316-344), with greedy, sampled,
+early-exit and (LSTM-DSA) beam decode. With remat_trunk each encoder and
+decoder layer is checkpointed (models/transformer.py run_layer).
+Two-stage / proposal queries are refused by the EvalRunner. Parameter names
+follow the reference pdvc/pdvc.py state_dict. The text encoder itself lives
+beside the model (gvl_tpu_torch/models/text_encoder.py), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -31,12 +33,14 @@ from gvl_tpu_torch.models.captioner import (LightCaptioner, LSTMDSACaptioner,
                                             PuppetCaptioner,
                                             TransformerDSACaptioner,
                                             caption_nll)
+from gvl_tpu_torch.models.gpt_captioner import (GPT2Captioner, GPT2Spec,
+                                                load_gpt2_spec)
 from gvl_tpu_torch.models.layers import MLP, init_params
 from gvl_tpu_torch.models.text import (SentenceContextBlock, bert_head_count,
                                        pool_words)
 from gvl_tpu_torch.models.transformer import (DeformableTransformer,
                                               expand_reference_for_levels,
-                                              flatten_levels)
+                                              flatten_levels, run_layer)
 from gvl_tpu_torch.utils.amp import bf16_parameters
 from gvl_tpu_torch.utils.boxes import inverse_sigmoid
 
@@ -89,15 +93,42 @@ class GVLArch:
     feature_dim: int = 500
     msda_impl: str = "pallas"     # 'ref': the dense kernel at every S
     msda_band_margin: int = 32
+    remat_trunk: bool = False     # checkpoint each encoder / decoder layer
     dropout: float = 0.1          # transformer_dropout_prob
     drop_prob: float = 0.5        # caption head, on the cell output
+    # the gpt2 caption head's spec (gvl.py:100-124), from load_gpt2_spec
+    gpt_vocab_size: int = 1000
+    gpt_n_embd: int = 128
+    gpt_n_layer: int = 2
+    gpt_n_head: int = 4
+    gpt_n_positions: int = 1024
+    prefix_length: int = 10
+    prefix_size: int = 512
+    gpt_mapping_type: str = "mlp"
+    prefix_num_mapping_layer: int = 2
+    gpt_stop_token_id: int = 13
 
     @classmethod
-    def from_config(cls, cfg: Any, text_hidden_dim: int = 768) -> "GVLArch":
+    def from_config(cls, cfg: Any, text_hidden_dim: int = 768,
+                    gpt_spec: GPT2Spec = None) -> "GVLArch":
+        """The arch of `cfg`; with the gpt2 caption head, its spec is
+        `gpt_spec`, by default load_gpt2_spec(cfg) (gvl.py:617-621), which
+        refuses the pretrained GPT-2 by name."""
         def get(name, default):
             return getattr(cfg, name, default)
 
-        return cls(
+        gpt_kw = {}
+        if get("caption_decoder_type", "standard") == "gpt2":
+            s = gpt_spec or load_gpt2_spec(cfg)
+            gpt_kw = dict(
+                gpt_vocab_size=s.vocab_size, gpt_n_embd=s.n_embd,
+                gpt_n_layer=s.n_layer, gpt_n_head=s.n_head,
+                gpt_n_positions=s.n_positions,
+                prefix_length=s.prefix_length, prefix_size=s.prefix_size,
+                gpt_mapping_type=s.mapping_type,
+                prefix_num_mapping_layer=s.prefix_num_mapping_layer,
+                gpt_stop_token_id=s.stop_token_id)
+        return cls(**gpt_kw,
             hidden_dim=cfg.hidden_dim, nheads=cfg.nheads,
             enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
             ff_dim=cfg.transformer_ff_dim,
@@ -149,6 +180,7 @@ class GVLArch:
             feature_dim=cfg.feature_dim,
             msda_impl=get("msda_impl", "pallas"),
             msda_band_margin=int(get("msda_band_margin", 32)),
+            remat_trunk=bool(get("remat_trunk", False)),
             dropout=float(get("transformer_dropout_prob", 0.1)),
             drop_prob=float(get("drop_prob", 0.5)),
         )
@@ -157,10 +189,7 @@ class GVLArch:
 def _check_ported(a: GVLArch) -> None:
     if a.msda_impl not in ("pallas", "ref"):
         raise ValueError(f"unknown msda_impl: {a.msda_impl}")
-    if a.caption_decoder_type == "gpt2":
-        raise NotImplementedError(
-            "the 'gpt2' caption head is not ported yet (ROADMAP Queue 1 "
-            "item 7); 'standard', 'light', 'transformer' and 'none' are")
+
 
 
 class GVLModel(nn.Module):
@@ -187,7 +216,7 @@ class GVLModel(nn.Module):
         self.transformer = DeformableTransformer(
             a.hidden_dim, a.ff_dim, a.enc_layers, a.dec_layers,
             a.num_feature_levels, a.nheads, a.enc_n_points, a.dec_n_points,
-            band_margin, a.dropout, device=device)
+            band_margin, a.dropout, a.remat_trunk, device=device)
         self.query_embed = nn.Embedding(a.num_queries, a.hidden_dim * 2,
                                         device=device)
 
@@ -241,6 +270,17 @@ class GVLModel(nn.Module):
                 a.cap_num_layers, a.cap_num_feature_levels, a.cap_nheads,
                 a.cap_dec_n_points, a.max_caption_len, query_dim, a.drop_prob,
                 device=device)
+        if a.caption_decoder_type == "gpt2":
+            # (gvl.py:334-343) the prefix is the event feature, hidden_dim
+            # wide: Flax infers the mapper's input width from it, whatever
+            # prefix_size says
+            return GPT2Captioner(GPT2Spec(
+                vocab_size=a.gpt_vocab_size, n_embd=a.gpt_n_embd,
+                n_layer=a.gpt_n_layer, n_head=a.gpt_n_head,
+                n_positions=a.gpt_n_positions, prefix_length=a.prefix_length,
+                prefix_size=a.hidden_dim, mapping_type=a.gpt_mapping_type,
+                prefix_num_mapping_layer=a.prefix_num_mapping_layer,
+                stop_token_id=a.gpt_stop_token_id), device=device)
         return PuppetCaptioner(a.vocab_size, a.max_caption_len)
 
     def _init_text_side(self, device) -> None:
@@ -324,8 +364,8 @@ class GVLModel(nn.Module):
         out = tgt
         for lid, layer in enumerate(tr.decoder.layers):
             ref_input = expand_reference_for_levels(ref, valid_ratios)
-            out = layer(out, query_pos, ref_input, memory, mask_flat, shapes,
-                        qmask)
+            out = run_layer(layer, a.remat_trunk, out, query_pos, ref_input,
+                            memory, mask_flat, shapes, qmask)
             hs_list.append(out)
             ref_before_list.append(ref)
             if a.with_box_refine:
@@ -398,6 +438,26 @@ class GVLModel(nn.Module):
                 "final_pre": final_pre}
 
     # ------------------------------------------------------------ captioning
+    def caption_train_gpt(self, layer_id: int, query, tokens, token_mask):
+        """The ClipCap loss of each (video, event) pair (gvl.py:553-563):
+        query (B, Ne, C) the prefixes, tokens and token_mask (B, Ne, Lg).
+        Returns (B, Ne)."""
+        B, Ne, C = query.shape
+        loss, _ = self.caption_head[layer_id](
+            query.reshape(B * Ne, C), tokens.reshape(B * Ne, -1),
+            token_mask.reshape(B * Ne, -1).float())
+        return loss.reshape(B, Ne)
+
+    def caption_sample_gpt(self, layer_id: int, query, entry_length: int = 30,
+                           early_exit: bool = False):
+        """Greedy ClipCap decode of every event (gvl.py:565-575): (tokens,
+        probs, gen_mask), each (B, Ne, L)."""
+        B, Ne, C = query.shape
+        out = self.caption_head[layer_id].sample(
+            query.reshape(B * Ne, C), entry_length=entry_length,
+            early_exit=early_exit)
+        return tuple(x.reshape(B, Ne, -1) for x in out)
+
     def caption_bf16(self):
         """A context in which the caption heads' parameters read as bf16
         (`bf16_cast_caption_params`, gvl_tpu/utils/amp.py:21-32). The
@@ -484,13 +544,15 @@ def _refuse_prepared(head: nn.Module, ref_prepared: bool) -> None:
 
 
 def build_model(cfg: Any, text_hidden_dim: int = 768, device=None,
-                generator: torch.Generator = None) -> GVLModel:
+                generator: torch.Generator = None,
+                gpt_spec: GPT2Spec = None) -> GVLModel:
     """GVLModel for `cfg`, in eval mode, on `device`: the current CUDA device
     when none is given (raising where there is none), so a CPU caller asks
     for "cpu". text_hidden_dim is the text encoder's width (its
-    `hidden_size`), read only with enable_contrastive. With a generator,
-    its parameters are drawn with the JAX package's initializers; without
-    one they are left uninitialised for `load_state_dict`."""
+    `hidden_size`), read only with enable_contrastive; gpt_spec the gpt2
+    head's, by default load_gpt2_spec(cfg). With a generator, its
+    parameters are drawn with the JAX package's initializers; without one
+    they are left uninitialised for `load_state_dict`."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -498,7 +560,7 @@ def build_model(cfg: Any, text_hidden_dim: int = 768, device=None,
                 "device='cpu' to build the model on the CPU")
         device = torch.device("cuda", torch.cuda.current_device())
     with torch.device("meta"):
-        model = GVLModel(GVLArch.from_config(cfg, text_hidden_dim),
+        model = GVLModel(GVLArch.from_config(cfg, text_hidden_dim, gpt_spec),
                          device="meta")
     model = model.to_empty(device=device)
     if generator is not None:

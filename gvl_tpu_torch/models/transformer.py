@@ -1,8 +1,12 @@
 """Deformable transformer encoder/decoder over the temporal pyramid.
 
 Port of gvl_tpu/models/transformer.py (query mode; the two-stage proposal
-embedding and remat are not ported). Dropout sits where the JAX modules have
-it and is live under `.train()` only. As in the JAX package, the decoder loop
+embedding is not ported). Dropout sits where the JAX modules have it and is
+live under `.train()` only. With `remat` (the config's remat_trunk,
+transformer.py:128-139, gvl.py:209-214) each encoder and decoder layer runs
+under `torch.utils.checkpoint` (`run_layer`): its activations are recomputed
+in the backward instead of stored, with the random state of the forward, so
+dropout draws the same masks. As in the JAX package, the decoder loop
 and box refinement live in the top-level model (gvl.py); here the decoder is
 only the container of its layers, so that parameter names follow the
 reference pdvc/deformable_transformer.py state_dict
@@ -17,8 +21,18 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gvl_tpu_torch.models.layers import MSDeformAttn1D, lecun_normal_
+
+
+def run_layer(layer: nn.Module, remat: bool, *args):
+    """layer(*args); with `remat` and autograd recording, under a
+    checkpoint that recomputes the layer in the backward (nn.remat's role)
+    and restores the forward's random state for its dropout draws."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
 
 
 def pyramid_shapes(T: int, num_levels: int):
@@ -104,8 +118,10 @@ class DeformableEncoderLayer(FFN):
 class DeformableEncoder(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, num_layers: int,
                  n_levels: int, n_heads: int, n_points: int,
-                 band_margin: int = 32, dropout: float = 0.1, device=None):
+                 band_margin: int = 32, dropout: float = 0.1,
+                 remat: bool = False, device=None):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
                                    band_margin, dropout, device=device)
@@ -115,7 +131,8 @@ class DeformableEncoder(nn.Module):
         ref = encoder_reference_points(temporal_shapes, valid_ratios)
         out = src
         for layer in self.layers:
-            out = layer(out, pos, ref, mask_flat, temporal_shapes)
+            out = run_layer(layer, self.remat, out, pos, ref, mask_flat,
+                            temporal_shapes)
         return out
 
 
@@ -194,13 +211,14 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, enc_layers: int,
                  dec_layers: int, n_levels: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int,
-                 band_margin: int = 32, dropout: float = 0.1, device=None):
+                 band_margin: int = 32, dropout: float = 0.1,
+                 remat: bool = False, device=None):
         super().__init__()
         self.level_embed = nn.Parameter(
             torch.empty(n_levels, d_model, device=device))
         self.encoder = DeformableEncoder(d_model, d_ffn, enc_layers, n_levels,
                                          n_heads, enc_n_points, band_margin,
-                                         dropout, device=device)
+                                         dropout, remat, device=device)
         self.decoder = DeformableDecoder(
             [DeformableDecoderLayer(d_model, d_ffn, n_levels, n_heads,
                                     dec_n_points, dropout, device=device)

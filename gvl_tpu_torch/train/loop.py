@@ -14,7 +14,12 @@ train.py:151-595):
   save_checkpoint_every epochs from min_epoch_when_save, per-task best
   checkpoints (grounding = sum R@1@IoU{.1,.3,.5,.7}; dvc = METEOR + soda_c;
   pc = para_METEOR + para_CIDEr + para_Bleu_4) and model-best by
-  criteria_for_best_ckpt (train.py:475-559);
+  criteria_for_best_ckpt (train.py:475-559); under only_ft_class_head (the
+  TAL linear probe) validation also scores the TAL JSON against
+  tal_gt_file when that file exists (loop.py:404-407);
+- the gpt2 caption head (`make_gpt_tokenize`, loop.py:90-128): its offline
+  spec, each batch's captions hashed into gpt_tokens / gpt_mask, and the
+  validation captions decoded as `w<id>` words;
 - info.json with the opts, the loss and score histories and the bests
   (train.py:561-578); `debug` stops each epoch after 5 steps.
 
@@ -26,7 +31,7 @@ device's default generator, SCST sampling from its own generator.
 torch.profiler into `<run>/trace`.
 
 Refused by name (NotImplementedError) before any work starts
-(`check_config`): the gpt2 head, two-stage queries, the caption cost,
+(`check_config`): two-stage queries, the caption cost,
 scheduled sampling, several devices and the
 sequence-parallel mesh (ROADMAP Queue 1 item 10), and every option the eval
 side refuses (gvl_tpu_torch.eval_cli.check_config).
@@ -78,8 +83,6 @@ def ss_prob_at_epoch(cfg: Config, epoch: int) -> float:
 
 # (option set, what it asks for, where it is planned)
 _REFUSED = (
-    (lambda c: c.caption_decoder_type == "gpt2", "the gpt2 caption head",
-     "ROADMAP Queue 1 item 7"),
     (lambda c: c.transformer_input_type == "gt_proposals",
      "two-stage queries (transformer_input_type='gt_proposals')",
      "ROADMAP Queue 1 item 8"),
@@ -106,6 +109,36 @@ def check_config(cfg: Config) -> None:
             raise NotImplementedError(
                 f"train: {what} is not ported yet ({where})")
     eval_cli.check_config(cfg)
+
+
+def make_gpt_tokenize(cfg: Config):
+    """(spec, batch tokenizer, decoder) of the gpt2 caption head, or three
+    Nones for another head (loop.py:90-128): the offline spec
+    (models/gpt_captioner.py load_gpt2_spec), the hash tokenizer over
+    spec.vocab_size ids writing each batch's `gpt_tokens` and `gpt_mask`
+    (B, G, max_caption_len) from its raw captions, and ids -> "w<id>" words
+    with the special ids 0-2 dropped (the validation runner's decode)."""
+    if cfg.caption_decoder_type != "gpt2":
+        return None, None, None
+    from gvl_tpu_torch.models.gpt_captioner import load_gpt2_spec
+    from gvl_tpu_torch.models.text_encoder import (HashTokenizer,
+                                                   _batch_tokenize,
+                                                   effective_max_gt_events)
+    spec = load_gpt2_spec(cfg)
+    tok = HashTokenizer(spec.vocab_size)
+
+    def decode_fn(ids):
+        return " ".join(f"w{int(i)}" for i in ids if int(i) > 2)
+
+    def add_gpt_inputs(batch):
+        ids, mask = _batch_tokenize(tok, batch["captions_raw"],
+                                    effective_max_gt_events(cfg),
+                                    cfg.max_caption_len)
+        batch["gpt_tokens"] = ids
+        batch["gpt_mask"] = mask
+        return batch
+
+    return spec, add_gpt_inputs, decode_fn
 
 
 def init_weights(cfg: Config, model, text_encoder, probe_batch) -> None:
@@ -190,7 +223,9 @@ def train(cfg: Config) -> str:
     val_batcher = Batcher(val_ds, cfg, cfg.eval_batch_size, shuffle=False)
 
     text = load_text_encoder(cfg, device=dev)
-    model = build_model(cfg, text.hidden_size if text else 768, device=dev)
+    gpt_spec, add_gpt_inputs, gpt_decode = make_gpt_tokenize(cfg)
+    model = build_model(cfg, text.hidden_size if text else 768, device=dev,
+                        gpt_spec=gpt_spec)
     # the JAX loop reads the first batch for its init: the same draw keeps
     # the two packages' batch sequences equal
     probe = add_text_inputs(next(iter(train_batcher)), text, cfg)
@@ -239,7 +274,8 @@ def train(cfg: Config) -> str:
             logger.info(f"resumed from epoch {start_epoch} (update "
                         f"{state.step})")
 
-    runner = EvalRunner(cfg, model, train_ds.translator, text)
+    runner = EvalRunner(cfg, model, train_ds.translator, text,
+                        gpt_decode=gpt_decode)
     base_weights = make_weight_dict(cfg)
     history: Dict[str, Dict] = {"val_scores": {}, "train_loss": {}}
     best = {t: -1e18 for t in TASKS}
@@ -274,6 +310,8 @@ def train(cfg: Config) -> str:
             profiler = _start_profiler(os.path.join(folder, "trace"), dev)
         for batch in train_batcher:
             batch = add_text_inputs(batch, text, cfg)
+            if add_gpt_inputs is not None:
+                batch = add_gpt_inputs(batch)
             losses = step(state, batch, weights, ss_prob,
                           seed=step_seed(cfg.seed, global_step))
             global_step += 1
@@ -349,9 +387,12 @@ def run_validation(cfg: Config, runner, val_batcher, folder: str, epoch: int,
                    logger, weights: Optional[Dict[str, float]] = None
                    ) -> Dict[str, float]:
     """Evaluate the runner's model (in eval mode) on the val batches and
-    score the result JSONs; with `weights`, also the weighted total of the
-    eval losses, 'val_loss_total' (loop.py:374-422)."""
-    from gvl_tpu_torch.eval.metrics import eval_metrics, eval_metrics_grounding
+    score the result JSONs (under only_ft_class_head also the TAL JSON, by
+    eval_tal against tal_gt_file, when that file exists); with `weights`,
+    also the weighted total of the eval losses, 'val_loss_total'
+    (loop.py:374-422)."""
+    from gvl_tpu_torch.eval.metrics import (eval_metrics,
+                                            eval_metrics_grounding, eval_tal)
     runner.model.eval()
     if runner.text_encoder is not None:
         runner.text_encoder.eval()
@@ -373,6 +414,9 @@ def run_validation(cfg: Config, runner, val_batcher, folder: str, epoch: int,
         aux_scores = eval_metrics_grounding(
             out_path + "_aux.grounding.json", cfg.eval_gt_file_for_grounding)
         scores.update({"aux_" + k: v for k, v in aux_scores.items()})
+    if cfg.only_ft_class_head and os.path.exists(cfg.tal_gt_file) and \
+            getattr(runner, "last_tal_json", None):
+        scores.update(eval_tal(cfg.tal_gt_file, runner.last_tal_json))
     scores.update({"val_" + k: v for k, v in loss_sum.items()})
     if weights is not None:
         scores["val_loss_total"] = float(sum(

@@ -4,9 +4,12 @@ Port of gvl_tpu/train/state.py for the dense-captioning train step:
 forward in train mode, the text branch when the contrastive side is on (the
 text encoder, frozen and without gradients or trained with an optimizer and
 schedule of its own, over f32 or bf16-rounded weights; then `encode_text`),
-set criterion, the caption loss (teacher-forced NLL, or under caption_rl the
-SCST policy loss of a sampled rollout against a greedy one, rewarded on the
-host; gvl_tpu_torch/train/rl.py), weighted loss sum, one backward, a
+set criterion, the caption loss (teacher-forced NLL; under caption_gpt the
+ClipCap head's loss of each matched event, state.py:437-445, also when
+caption_rl is set, as the JAX step's gpt2 branch comes first; otherwise
+under caption_rl the SCST policy loss of a sampled rollout against a greedy
+one, rewarded on the host; gvl_tpu_torch/train/rl.py), weighted loss sum,
+one backward, a
 global-norm gradient clip of each parameter set, optimizer and schedule
 steps. The model, the text encoder, the optimizers and the batch live on the
 model's device; batches arrive as numpy arrays.
@@ -20,10 +23,11 @@ there; without one, both draw from the device's default generator.
 Under caption_bf16 (train_caption_bf16, state.py:252-265) the caption head's
 weights read as bf16 inside autograd and its query and memory are cast, for
 teacher forcing and both SCST rollout chains; the NLL's logsumexp and the
-chosen-token logprobs stay f32 inside the heads.
+chosen-token logprobs stay f32 inside the heads. It is a no-op for the
+gpt2 head (state.py:262).
 
-Refused by name (NotImplementedError): `caption_cost`, `caption_gpt`,
-`two_stage`, and scheduled sampling (`ss_prob > 0`).
+Refused by name (NotImplementedError): `caption_cost`, `two_stage`, and
+scheduled sampling (`ss_prob > 0`).
 """
 
 from __future__ import annotations
@@ -188,7 +192,7 @@ class StepStatics:
     caption_bf16: bool = False
 
 
-_NOT_PORTED = ("caption_cost", "caption_gpt", "two_stage")
+_NOT_PORTED = ("caption_cost", "two_stage")
 
 
 def _check_statics(statics: StepStatics, text_encoder) -> None:
@@ -283,8 +287,10 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
 
     batch: numpy arrays video_feats (B, T, D), video_mask (B, T), duration
     (B,), gt_boxes (B, G, 2), gt_labels (B, G), gt_mask (B, G), captions
-    (B, G, Lc), caption_mask (B, G, Lc), and with enable_contrastive
-    text_ids and text_mask (B, G, Ltok) (`add_text_inputs`); moved to the
+    (B, G, Lc), caption_mask (B, G, Lc), with enable_contrastive
+    text_ids and text_mask (B, G, Ltok) (`add_text_inputs`), and under
+    caption_gpt gpt_tokens and gpt_mask (B, G, Lc) (the train loop's
+    `make_gpt_tokenize`); moved to the
     model's device inside. weights: loss name -> float
     (`make_weight_dict`, the contrastive weight from `cl_weight_at_epoch`);
     the matcher's contrastive cost is on when weights['contrastive_loss'] >
@@ -348,7 +354,8 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                 for k, v in batch.items()
                 if isinstance(v, (np.ndarray, torch.Tensor))}
 
-    cap_cast = to_bf16 if st.caption_bf16 else (lambda x: x)
+    cap_bf16 = st.caption_bf16 and not st.caption_gpt
+    cap_cast = to_bf16 if cap_bf16 else (lambda x: x)
 
     def caption_query(out, layer, mq):
         query = gather_matched(out["hs"][layer], mq)
@@ -378,6 +385,21 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             word.float().reshape(B, G, Ltok, -1), tmask.bool(), db["gt_mask"],
             out["memory"], out["mask_flat"])
         return [text_out["aux"]] * (Ld - 1) + [text_out["final"]]
+
+    def gpt_losses(db, out, match_qs):
+        """The ClipCap loss of each layer's matched events, its mean over
+        the valid GT slots (state.py:437-445)."""
+        layers = [Ld - 1] if st.disable_mid_caption_heads else list(range(Ld))
+        gt = db["gt_mask"].float()
+        losses = {}
+        for l in layers:
+            pair = model.caption_train_gpt(
+                l, gather_matched(out["hs"][l], match_qs[l]),
+                db["gpt_tokens"], db["gpt_mask"])
+            suffix = "" if l == Ld - 1 else f"_{l}"
+            losses["loss_caption" + suffix] = \
+                (pair * gt).sum() / gt.sum().clamp(min=1)
+        return losses
 
     def scst_losses(db, out, shapes, rl_matches, seed):
         """The SCST caption losses (state.py:371-427 fused, :446-483 per
@@ -445,15 +467,17 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         tick("trunk")
         if not st.caption_loss:
             return losses
-        with model.caption_bf16() if st.caption_bf16 else \
+        with model.caption_bf16() if cap_bf16 else \
                 contextlib.nullcontext():
             losses.update(caption_losses(db, out, shapes, match_qs,
                                          rl_matches, seed))
         return losses
 
     def caption_losses(db, out, shapes, match_qs, rl_matches, seed):
-        """The caption losses: SCST's, or the teacher-forced NLL of each
-        layer (state.py:329-507)."""
+        """The caption losses: the gpt2 head's, SCST's, or the
+        teacher-forced NLL of each layer (state.py:329-507)."""
+        if st.caption_gpt:
+            return gpt_losses(db, out, match_qs)
         if st.caption_rl:
             return scst_losses(db, out, shapes, rl_matches, seed)
         losses = {}

@@ -486,9 +486,30 @@ def test_cli_takes_or_refuses_each_config(tmp_path, yml, route):
         GVLModel(GVLArch.from_config(restored, 32), device="meta")
 
 
-REFUSED = {"--eval_data_parallel": "item 10",
-           "--eval_enable_zeroshot_tal": "item 9",
-           "only_ft_class_head": "item 9"}
+REFUSED = {"--eval_data_parallel": "item 10"}
+
+
+@pytest.mark.parametrize("option", ["--eval_enable_zeroshot_tal",
+                                    "only_ft_class_head"])
+def test_cli_takes_the_tal_options_once_refused(tmp_path, option):
+    """Zero-shot TAL and the TAL probe's JSON, refused until they were
+    ported, pass the CLI's checks on the flagship config (their runs
+    against eval.py: tests/test_torch_tal.py)."""
+    cfg = config.load_config(os.path.join(ROOT, "cfgs",
+                                          "anet_tsp_msvg_dvc.yml"))
+    cfg.update(OFFLINE)
+    flags = []
+    if option.startswith("--"):
+        flags = [option]
+    else:
+        cfg.set(option, True)
+    args = eval_cli.eval_parser().parse_args(write_run(tmp_path,
+                                                       cfg.to_dict()) + flags)
+    restored = eval_cli.restore_config(args)
+    assert restored.get(option.lstrip("-")) is True
+    eval_cli.check_config(restored)
+    assert "refused" not in eval_cli.eval_parser().format_help().split(
+        "--eval_enable_zeroshot_tal")[1].split("--eval_prompt")[0]
 
 
 @pytest.mark.parametrize("option", sorted(REFUSED))

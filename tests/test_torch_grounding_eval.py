@@ -178,9 +178,10 @@ def test_eval_losses_match_jax(runs):
 
 
 def test_text_side_eval_options_not_ported_raise_by_name(runs, tmp_path):
-    """Zero-shot TAL is refused by name, and the contrastive side without
-    its text encoder; matching scores and eval_use_amp, once refused, build
-    a runner."""
+    """The contrastive side without its text encoder is refused by name;
+    matching scores, eval_use_amp and zero-shot TAL, once refused, run
+    (zero-shot TAL embeds the class names; its parity with JAX:
+    tests/test_torch_tal.py)."""
     cfg, *_ = runs
     port = build_model(cfg, text_hidden_dim=32, device="cpu")
     text = load_text_encoder(cfg, device="cpu")
@@ -192,8 +193,9 @@ def test_text_side_eval_options_not_ported_raise_by_name(runs, tmp_path):
             assert runner.text_bf16 == (name == "eval_use_amp")
         finally:
             setattr(cfg, name, False)
-    with pytest.raises(NotImplementedError, match="zero-shot TAL"):
-        EvalRunner(cfg, port, None, text).enable_zeroshot_tal(["a"])
+    runner = EvalRunner(cfg, port, None, text)
+    runner.enable_zeroshot_tal(["a", "b c"])
+    assert runner.class_embeds.shape == (2, cfg.contrastive_hidden_size)
     with pytest.raises(ValueError, match="text encoder"):
         EvalRunner(cfg, port, None)
 

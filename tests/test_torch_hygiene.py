@@ -44,6 +44,9 @@ GROUPS = {
     "decode_heads": ("gvl_tpu_torch.utils.amp",
                      "gvl_tpu_torch.models.gpt_captioner",
                      "gvl_tpu_torch.models.captioner"),
+    "gpt_tal": ("gvl_tpu_torch.models.gpt_captioner",
+                "gvl_tpu_torch.eval.zeroshot_tal",
+                "gvl_tpu_torch.models.transformer"),
 }
 
 _REPORT = textwrap.dedent("""
@@ -146,15 +149,20 @@ def test_build_model_defaults_to_the_card_and_raises_without_one():
 
 
 def test_model_options_not_ported_raise_by_name():
-    """The gpt2 caption head is the one head the port does not build yet;
-    the light, transformer and none heads, MLP class heads and heads shared
-    across layers build."""
+    """The gpt2 caption head builds with the offline GPT-2 spec and refuses
+    the pretrained GPT-2 by name (its files are not available to the port);
+    the light, transformer and none heads, MLP class heads, heads shared
+    across layers and remat_trunk build."""
     import torch
     from gvl_tpu_torch.models.gvl import build_model
-    with pytest.raises(NotImplementedError, match="gpt2"):
-        build_model(_tiny_namespace(caption_decoder_type="gpt2"),
-                    device="cpu")
-    for kw in (dict(caption_decoder_type="light"),
+    gpt = dict(caption_decoder_type="gpt2", prefix_length=3, prefix_size=48,
+               gpt_model="gpt2")
+    with pytest.raises(NotImplementedError,
+                       match="pretrained GPT-2.*'gpt2'.*item 12"):
+        build_model(_tiny_namespace(**gpt), device="cpu")
+    for kw in (dict(gpt, load_pretrained_language_model_from_config="offline"),
+               dict(remat_trunk=True),
+               dict(caption_decoder_type="light"),
                dict(caption_decoder_type="transformer", input_encoding_size=32,
                     num_layers=1),
                dict(caption_decoder_type="none"),
@@ -162,12 +170,23 @@ def test_model_options_not_ported_raise_by_name():
         model = build_model(_tiny_namespace(**kw), device="cpu",
                             generator=torch.Generator().manual_seed(0))
         assert all(p.isfinite().all() for p in model.parameters()), kw
+        if "prefix_size" in kw:
+            # the prefix is the hidden_dim-wide event feature, as Flax
+            # infers it, whatever prefix_size says
+            assert model.caption_head[0].clip_project.model[0] \
+                .in_features == 32
 
 
 def test_text_side_modules_import_without_jax(report):
     """Each module of the contrastive text side imports none of JAX, flax,
     optax, transformers or gvl_tpu."""
     _clean(report, "text_side")
+
+
+def test_gpt_head_and_tal_modules_import_without_jax(report):
+    """The gpt2 caption head, zero-shot TAL and the checkpointed trunk
+    layers import none of JAX, flax, optax, transformers or gvl_tpu."""
+    _clean(report, "gpt_tal")
 
 
 def test_decode_and_head_modules_import_without_jax(report):

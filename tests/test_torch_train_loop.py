@@ -426,14 +426,20 @@ def test_train_cli_needs_the_card_unless_told_otherwise(tmp_path):
 
 
 REFUSED = {
-    "gpt2": (dict(caption_decoder_type="gpt2"), "gpt2"),
+    # the gpt2 head runs with the offline spec; the pretrained GPT-2 is
+    # refused by name (ROADMAP Queue 1 item 12)
+    "gpt2": (dict(caption_decoder_type="gpt2",
+                  load_pretrained_language_model_from_config=""),
+             "pretrained GPT-2"),
     "two_stage": (dict(transformer_input_type="gt_proposals"), "two-stage"),
     "caption_cost": (dict(set_cost_caption=1.0), "caption cost"),
     "scheduled_sampling": (dict(scheduled_sampling_start=0,
                                 basic_ss_prob=0.1), "scheduled sampling"),
     "several_devices": (dict(gpu_id=["0", "1"]), "more than one device"),
     "sp_mesh": (dict(mesh_shape="dp,sp"), "sequence-parallel"),
-    "eval_side": (dict(only_ft_class_head=True), "only_ft_class_head"),
+    # an option the eval side refuses (eval_cli.check_config); the TAL
+    # probe, once refused there, trains (test_once_refused_options_train)
+    "eval_side": (dict(eval_data_parallel=True), "eval_data_parallel"),
 }
 
 
@@ -448,6 +454,60 @@ def test_unported_train_options_are_refused_before_any_work(tmp_path, case):
     with pytest.raises(NotImplementedError, match=name):
         ploop.train(cfg)
     assert not (tmp_path / "save").exists()
+
+
+def tal_probe_data(root: pathlib.Path, data) -> dict:
+    """Action labels of three classes on every event of `data`'s
+    annotations, the class file and the TAL ground truth: the probe's
+    config keys."""
+    anno = data[0]
+    classes = ["run", "jump", "cook"]
+    ann = json.load(open(anno))
+    gt = {"database": {}, "taxonomy": [], "version": "1.3"}
+    rs = np.random.RandomState(0)
+    for vid, v in ann.items():
+        v["action_labels"] = [classes[rs.randint(3)] for _ in v["timestamps"]]
+        gt["database"][vid[2:]] = {"subset": "validation", "annotations": [
+            {"segment": ts, "label": lab}
+            for ts, lab in zip(v["timestamps"], v["action_labels"])]}
+    json.dump(ann, open(anno, "w"))
+    (root / "classes.txt").write_text("\n".join(classes))
+    (root / "tal_gt.json").write_text(json.dumps(gt))
+    return dict(only_ft_class_head=True, num_classes=3,
+                action_classes_path=str(root / "classes.txt"),
+                tal_gt_file=str(root / "tal_gt.json"))
+
+
+@pytest.mark.parametrize("case", ["gpt2", "tal_probe"])
+def test_once_refused_options_train(tmp_path, case):
+    """The gpt2 caption head (offline spec) and the TAL linear probe, refused
+    until they were ported, train a debug epoch on the CPU and validate it:
+    the gpt2 run's captions are scored, the probe's TAL JSON gets its mAP
+    (their parity with the JAX package: tests/test_torch_gpt_pipeline.py
+    and tests/test_torch_tal.py)."""
+    data = make_synthetic_dataset(str(tmp_path), num_videos=6, feat_dim=16)
+    extra = (dict(caption_decoder_type="gpt2", prefix_length=4,
+                  prefix_size=64) if case == "gpt2"
+             else tal_probe_data(tmp_path, data))
+    cfg = PConfig().update(dict(loop_cfg(tmp_path, data), epoch=1,
+                                device="cpu", save_dir=str(tmp_path / "save"),
+                                **extra))
+    folder = pathlib.Path(ploop.train(cfg))
+    info = json.loads((folder / "info.json").read_text())
+    scores = info["history"]["val_scores"]["0"]
+    assert np.isfinite(info["history"]["train_loss"]["0"]["total_loss"])
+    if case == "gpt2":
+        assert "METEOR" in scores
+        assert info["history"]["train_loss"]["0"]["loss_caption"] > 0
+        pred = json.loads((folder / "pred_epoch0.json").read_text())
+        words = [w for v in pred["results"].values() for p in v
+                 for w in p["sentence"].split()]
+        assert words and all(w[0] == "w" and int(w[1:]) > 2 for w in words)
+    else:
+        assert np.isfinite(scores["TAL_Average_mAP"])
+        tal = json.loads((folder / "pred_epoch0.tal.json").read_text())
+        assert {p["label"] for v in tal["results"].values() for p in v} <= \
+            {"run", "jump", "cook"}
 
 
 def test_profile_steps_write_a_trace(tmp_path):
