@@ -264,6 +264,34 @@ exits non-zero:
      convert_dvc_to_zeroshot_tal writes a submission labelled with class
      names; two probe train steps: kernels 1 and 2 four times a step (every
      parameter gets its gradient), only the class heads move.
+ 26. (after phase 25) the flagship as published, with published files
+     (CUTS['anet_published']: only huggingface_cache_dir, set to the
+     hub cache that this phase writes in its temporary directory and
+     removes with it): a hub cache of roberta-base
+     (models--roberta-base/refs/main, snapshots/<rev>/: config.json with
+     its published values, 768 x 12, 12 heads, FFN 3072, vocab 50265, 514
+     positions, eps 1e-5; random weights from the seed in
+     model.safetensors, an MLM checkpoint's names, by the port's own
+     writer; a byte-level BPE vocabulary of 50265 ids: <s> <pad> </s> <unk>
+     at 0-3, the 256 byte symbols, merges counted from the world's
+     captions, numbered fillers, <mask> at 50264) read by load_text_encoder
+     through gvl_tpu_torch.utils.hf_files and models.bpe, the host time of
+     tokenizing one eval batch (16 videos x G sentences) and the text
+     encoder's device time at vocab 50265; a GPT-2 directory at GPT-2
+     small's widths (vocab 50257, 768 x 12, 1024 positions, its own BPE,
+     eos as the pad token) through load_gpt2_spec / make_gpt_tokenize: the
+     spec, the stop id encode(".")[0], one train step and one eval step of
+     the gpt2 head on its BPE tokens (kernels 1 and 2 counted); a
+     reference-layout .pth of the seeded flagship (its state_dict, the bbox
+     heads again under transformer.decoder.bbox_head, the caption DSA's dead
+     output_proj / attention_weights, text_encoder.*, all under "model")
+     imported by gvl_tpu_torch.import_cli.main (unused and unfilled empty,
+     as the importer's rules predict; the imported weights the seeded ones
+     bit for bit; its seconds); eval_cli.main on the imported run (kernel 1
+     counted, videos/s); the train CLI from it with --pretrain_path (one
+     epoch of 2 steps, kernels 1 and 2 counted); the kernel path against
+     the plain path on the imported weights at phase 5's tolerances, and
+     cap_scores to 1e-4 on the events whose tokens agree.
  15r. (after phase 11 of each workload) remat_trunk (CUTS['anet_remat'],
      CUTS['longvideo_remat']): the seeded train step with and without it,
      dropout on and seeded alike: every named gradient within 1e-6 (the
@@ -274,8 +302,8 @@ exits non-zero:
 With --kernels-only the script stops after phases 1-3, 8, 12, 13 and 19.
 With --profile DIR phases 7 and 11 also profile the long-video steps. The
 last two lines are the kernels' JSON summary (kernels 1-4 and the bf16-tap
-forms of 1 and 3, each with its launches on every path, phases 24, 25 and
-15r included, with the library call's time, library_ms, the dense
+forms of 1 and 3, each with its launches on every path, phases 24, 25,
+26 and 15r included, with the library call's time, library_ms, the dense
 ones with the earlier kernel's, old_ms, null without --old-forms, the
 backward's with each of its two CUDA kernels' time and bound, split, the
 bf16-tap forms with their f32 form's time, f32_form_ms) and {"ok": true,
@@ -402,6 +430,11 @@ CUTS = {
     "anet_remat": dict(OFFLINE_ROBERTA, remat_trunk=True),
     "longvideo_remat": dict(OFFLINE_ROBERTA, eval_batch_size=8,
                             remat_trunk=True),
+    # phase 26: the flagship as published, its pretrained roberta-base read
+    # from the hub cache that the phase writes in its temporary directory
+    # and sets here (random weights at its published widths: the real files
+    # are not in the repo)
+    "anet_published": dict(huggingface_cache_dir=None),
 }
 YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "longvideo": "ym_i3d_msvg_dvc.yml",
@@ -410,7 +443,8 @@ YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "anet_gpt2": "anet_tsp_msvg_dvc.yml",
         "anet_tal": "anet_tsp_msvg_dvc.yml",
         "anet_remat": "anet_tsp_msvg_dvc.yml",
-        "longvideo_remat": "ym_i3d_msvg_dvc.yml"}
+        "longvideo_remat": "ym_i3d_msvg_dvc.yml",
+        "anet_published": "anet_tsp_msvg_dvc.yml"}
 
 
 def workload_cfg(name: str) -> dict:
@@ -479,6 +513,8 @@ GPT2 = dataclasses.replace(ANET, name="anet_gpt2", tag="gpt2",
                            cfg=workload_cfg("anet_gpt2"))
 TAL = dataclasses.replace(ANET, name="anet_tal", tag="tal",
                           cfg=workload_cfg("anet_tal"))
+PUBLISHED = dataclasses.replace(ANET, name="anet_published", tag="pub",
+                                cfg=workload_cfg("anet_published"))
 REMAT = {"anet": workload_cfg("anet_remat"),
          "longvideo": workload_cfg("longvideo_remat")}
 
@@ -3850,6 +3886,364 @@ def phase_remat(w: Workload, dev, text=None) -> dict:
     return {f"{w.name}_remat_train": t1["per_step"]}
 
 
+# ---------------------------------------------------------------- phase 26
+ROBERTA_BASE = dict(        # roberta-base's published config.json
+    architectures=["RobertaForMaskedLM"], model_type="roberta",
+    vocab_size=50265, hidden_size=768, num_hidden_layers=12,
+    num_attention_heads=12, intermediate_size=3072, hidden_act="gelu",
+    hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+    max_position_embeddings=514, type_vocab_size=1, initializer_range=0.02,
+    layer_norm_eps=1e-5, pad_token_id=1, bos_token_id=0, eos_token_id=2)
+GPT2_SMALL = dict(          # GPT-2 small's published config.json
+    architectures=["GPT2LMHeadModel"], model_type="gpt2", vocab_size=50257,
+    n_embd=768, n_layer=12, n_head=12, n_positions=1024, n_ctx=1024,
+    layer_norm_epsilon=1e-5, activation_function="gelu_new",
+    bos_token_id=50256, eos_token_id=50256)
+HUB_REVISION = "0" * 40
+N_TOKENIZE = 5              # phase 26: timed tokenizations of one batch
+
+
+def write_bpe(folder: pathlib.Path, texts, size: int, front, back) -> dict:
+    """vocab.json and merges.txt of a byte-level BPE of `size` ids: the
+    tokens `front`, the 256 byte symbols, merges counted from `texts`
+    (the most frequent pair first, while one occurs twice), numbered
+    fillers, then the tokens `back` (the last ids). Returns the vocab."""
+    from collections import Counter
+    from gvl_tpu_torch.models.bpe import bytes_to_unicode, pre_tokenize
+    table = bytes_to_unicode()
+    vocab = {t: i for i, t in enumerate(front)}
+    for b in range(256):
+        vocab[table[b]] = len(vocab)
+    words = Counter(tuple(table[b] for b in piece.encode("utf-8"))
+                    for t in texts for piece in pre_tokenize(t))
+    merges = []
+    while len(vocab) + len(back) < size:
+        pairs = Counter()
+        for word, n in words.items():
+            for pair in zip(word, word[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        (a, b), n = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        if n < 2:
+            break
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        merged = Counter()
+        for word, n in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if word[i:i + 2] == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    n_merges = len(merges)
+    i = 0
+    while len(vocab) + len(back) < size:
+        vocab[f"<filler{i}>"] = len(vocab)
+        i += 1
+    for t in back:
+        vocab[t] = len(vocab)
+    folder.mkdir(parents=True, exist_ok=True)
+    (folder / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False))
+    (folder / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+        encoding="utf-8")
+    return dict(vocab=len(vocab), merges=n_merges)
+
+
+def write_roberta_base(cache: pathlib.Path, texts, dev) -> tuple:
+    """roberta-base's hub cache under `cache` (see the docstring):
+    the published config.json, random weights from the seed in an MLM
+    checkpoint's names (roberta.*, lm_head.*, no pooler) in
+    model.safetensors, and the BPE files. Returns (the snapshot directory,
+    write_bpe's counts)."""
+    from gvl_tpu_torch.models.text_encoder import RobertaSpec, TextEncoder
+    from gvl_tpu_torch.utils.hf_files import write_safetensors
+    repo = cache / "models--roberta-base"
+    snap = repo / "snapshots" / HUB_REVISION
+    snap.mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text(HUB_REVISION)
+    (snap / "config.json").write_text(json.dumps(ROBERTA_BASE))
+    counts = write_bpe(snap, texts, ROBERTA_BASE["vocab_size"],
+                       ("<s>", "<pad>", "</s>", "<unk>"), ("<mask>",))
+    spec = RobertaSpec.from_hf_config(ROBERTA_BASE)
+    with torch.device("meta"):
+        enc = TextEncoder(spec, device="meta")
+    enc = enc.to_empty(device=dev)
+    enc.text_encoder.flax_init_(torch.Generator(device=dev).manual_seed(
+        SEED + 26))
+    sd = {"roberta." + k: v for k, v in enc.text_encoder.state_dict().items()
+          if not k.startswith("pooler.")}
+    H, V = spec.hidden_size, spec.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    sd.update({"lm_head.dense.weight": torch.randn(H, H, generator=gen,
+                                                   device=dev) * 0.02,
+               "lm_head.dense.bias": torch.zeros(H, device=dev),
+               "lm_head.layer_norm.weight": torch.ones(H, device=dev),
+               "lm_head.layer_norm.bias": torch.zeros(H, device=dev),
+               "lm_head.bias": torch.zeros(V, device=dev)})
+    write_safetensors(sd, str(snap / "model.safetensors"))
+    return snap, counts
+
+
+def write_gpt2_small(folder: pathlib.Path, texts) -> dict:
+    """A GPT-2 directory at GPT-2 small's published widths: config.json,
+    its own BPE (the 256 byte symbols, merges of `texts`, fillers,
+    <|endoftext|> at 50256) and a tokenizer_config.json that names the
+    tokenizer and takes <|endoftext|> as the pad token (GPT-2's own files
+    name none, and padding then raises, as in HF)."""
+    counts = write_bpe(folder, texts, GPT2_SMALL["vocab_size"], (),
+                       ("<|endoftext|>",))
+    (folder / "config.json").write_text(json.dumps(GPT2_SMALL))
+    (folder / "tokenizer_config.json").write_text(json.dumps(dict(
+        tokenizer_class="GPT2Tokenizer", pad_token="<|endoftext|>",
+        add_prefix_space=False, clean_up_tokenization_spaces=False)))
+    return counts
+
+
+def reference_pth(model, path: pathlib.Path, text) -> int:
+    """The model's state_dict as a reference .pth holds it (see the
+    docstring); returns the number of tensors."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for k in list(sd):
+        if k.startswith("bbox_head."):
+            sd["transformer.decoder." + k] = sd[k].clone()
+    gen = torch.Generator().manual_seed(SEED + 28)
+    for k in range(model.arch.dec_layers):
+        p = f"caption_head.{k}.core.deformable_att"
+        w = sd[f"{p}.value_proj.weight"]
+        for sub in ("output_proj", "attention_weights"):
+            sd[f"{p}.{sub}.weight"] = torch.randn(w.shape, generator=gen)
+            sd[f"{p}.{sub}.bias"] = torch.zeros(w.shape[0])
+    sd.update({"text_encoder." + k: v.detach().cpu()
+               for k, v in text.text_encoder.state_dict().items()})
+    torch.save({"model": sd, "epoch": 25}, path)
+    return len(sd)
+
+
+def caption_paths_agree(tag, model, runner, one) -> None:
+    """cap_scores of the LSTM-DSA head on the kernel and the plain path,
+    on the events whose tokens agree, to GPT_SCORE_TOL."""
+    from gvl_tpu_torch.models.layers import set_msda_impl
+    _, _, arrs = runner._prepare(one)
+    res = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "ref"):
+            set_msda_impl(model, impl)
+            res[impl] = runner._to_host(runner._eval_step(arrs))[0]
+    set_msda_impl(model, "kernel")
+    k, p = res["kernel"], res["ref"]
+    tokens = float((k["seq"] == p["seq"]).mean())
+    same = (k["seq"] == p["seq"]).all(-1)
+    score = float(np.abs(k["cap_scores"] - p["cap_scores"])[same].max())
+    check(tokens >= TOKEN_AGREEMENT and score <= GPT_SCORE_TOL
+          and np.isfinite(k["cap_scores"]).all(),
+          f"{tag}: tokens agree {tokens}, cap_scores differ by {score}")
+    log(tag, f"kernel vs plain path, imported weights: tokens "
+             f"{k['seq'].shape} {tokens!r} equal; cap_scores max abs diff "
+             f"{score!r} over the {int(same.sum())} of {same.size} events "
+             f"whose captions agree")
+
+
+def phase_published(dev) -> dict:
+    """Phase 26, the flagship as published with published files (see the
+    docstring). Returns the launch counts of its gpt2 train step, eval CLI
+    and train CLI runs."""
+    free_device_memory()
+    from gvl_tpu_torch import eval_cli, import_cli, train_cli
+    from gvl_tpu_torch.config import Config
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    from gvl_tpu_torch.models.bpe import ByteLevelBPE
+    from gvl_tpu_torch.models.gpt_captioner import GPT2Spec
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.models.text_encoder import RobertaSpec
+    from gvl_tpu_torch.train.checkpoint import CheckpointManager
+    from gvl_tpu_torch.train.loop import make_gpt_tokenize
+    w, tag = PUBLISHED, PUBLISHED.tag
+    launches = {}
+    t_phase = time.perf_counter()
+    check(not w.cfg["load_pretrained_language_model_from_config"]
+          and w.cfg["pretrained_language_model"] == "roberta-base",
+          "the published workload reads roberta-base")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        w = dataclasses.replace(w, cfg=dict(
+            w.cfg, huggingface_cache_dir=str(root / "hf_cache")))
+        t0 = time.perf_counter()
+        data, grounding, anno = write_cli_data(w, root)
+        texts = [s for v in anno.values() for s in v["sentences"]]
+        snap, rcounts = write_roberta_base(root / "hf_cache", texts, dev)
+        gcounts = write_gpt2_small(root / "gpt2", texts)
+        log(tag, f"wrote the roberta-base hub cache ({snap}; "
+                 f"{(snap / 'model.safetensors').stat().st_size / 2**20:.1f}"
+                 f" MiB of weights; BPE {rcounts}), the GPT-2 small "
+                 f"directory (BPE {gcounts}) and the world in "
+                 f"{time.perf_counter() - t0:.3f} s")
+
+        # ---- the text encoder from the hub cache
+        text = load_text(w, dev)
+        check(text.text_encoder.spec == RobertaSpec.from_hf_config(
+            ROBERTA_BASE) and text.text_encoder.spec.layer_norm_eps == 1e-5,
+            "roberta-base's spec")
+        G, L = w.max_gt, w.cfg["max_text_input_len"]
+        raw = [list(v["sentences"]) for v in anno.values()][:w.eval_B]
+        host = []
+        for i in range(N_TOKENIZE):
+            if i == 0:
+                text._tok._cache.clear()
+            t1 = time.perf_counter()
+            ids, mask = text.tokenize(raw, G, L)
+            host.append((time.perf_counter() - t1) * 1e3)
+        check(ids.shape == (w.eval_B, G, L) and int(ids[:, :, 0].min()) == 0
+              and int(ids.max()) < 50265, f"BPE ids {ids.shape}")
+        ids_t = torch.from_numpy(ids.reshape(-1, L)).long().to(dev)
+        mask_t = torch.from_numpy(mask.reshape(-1, L)).to(dev)
+        with torch.inference_mode():
+            out = text(ids_t, mask_t)
+            check(bool(torch.isfinite(out).all()), "text encoder output")
+            enc_ms = device_median_ms(lambda: text(ids_t, mask_t), 10)
+        log(tag, f"({card()}) BPE tokenization of one eval batch "
+                 f"({w.eval_B} videos x G={G} sentences of {L} tokens, "
+                 f"{int(mask.sum())} real tokens): {host[0]!r} ms cold "
+                 f"cache, then {statistics.median(host[1:])!r} ms (median "
+                 f"of {N_TOKENIZE - 1}, host clock); the text encoder at "
+                 f"vocab 50265 on its {ids_t.shape[0]} rows: {enc_ms!r} ms "
+                 "(device median of 10)")
+
+        # ---- GPT-2 small's files through load_gpt2_spec / make_gpt_tokenize
+        gcfg = Config().update(dict(w.cfg, caption_decoder_type="gpt2",
+                                    gpt_model=str(root / "gpt2")))
+        spec, add_gpt_inputs, gpt_decode = make_gpt_tokenize(gcfg)
+        bpe = ByteLevelBPE.from_dir(str(root / "gpt2"))
+        want = GPT2Spec(
+            vocab_size=GPT2_SMALL["vocab_size"], n_embd=GPT2_SMALL["n_embd"],
+            n_layer=GPT2_SMALL["n_layer"], n_head=GPT2_SMALL["n_head"],
+            n_positions=GPT2_SMALL["n_positions"],
+            prefix_length=gcfg.prefix_length, prefix_size=gcfg.prefix_size,
+            prefix_num_mapping_layer=gcfg.prefix_num_mapping_layer,
+            stop_token_id=bpe.encode(".")[0])
+        check(spec == want, f"GPT-2 small spec {spec}")
+        gw = dataclasses.replace(w, name="anet_published_gpt2",
+                                 cfg=gcfg.to_dict())
+        tmodel, state, step, weights, tb = build_train(gw, dev, text,
+                                                       gpt_spec=spec)
+        for b in tb:
+            add_gpt_inputs(b)
+            check(int(b["gpt_tokens"].max()) < spec.vocab_size
+                  and b["gpt_mask"].sum() > 0, "GPT-2 BPE tokens")
+        res = train_steps_timed(tag, gw, state, step, weights, tb, 1)
+        launches["anet_published_gpt2_train"] = res["per_step"]
+        check(res["per_step"] == want_counts(w, 1, train=True),
+              f"{tag}: gpt2 train launches {res['per_step']}")
+        runner = EvalRunner(gcfg, tmodel, WordTranslator(), text,
+                            gpt_decode=gpt_decode)
+        with torch.inference_mode():
+            one = runner._to_host(runner._eval_step(
+                runner._prepare(next(synthetic_batches(w, 1, SEED)))[2])[0])
+        caps = [gpt_decode(one["gpt_tokens"][0, q][:int(
+            one["gpt_genmask"][0, q].sum())]) for q in range(3)]
+        check(np.isfinite(one["cap_scores"]).all()
+              and all(isinstance(c, str) for c in caps),
+              "gpt2 eval step on BPE-decoded captions")
+        log(tag, f"({card()}) gpt_model's files: spec {spec}; stop id "
+                 f"{spec.stop_token_id} = encode('.')[0]; a train step on "
+                 f"its BPE tokens {res['times']!r} ms (CUDA events), peak "
+                 f"{res['peak'] / 2**30!r} GiB, launches {res['per_step']}; "
+                 f"an eval step's first captions decoded: {caps!r}")
+        del tmodel, state, step, runner
+        free_device_memory()
+
+        # ---- a reference .pth of the seeded flagship, imported
+        cfg = dict(w.cfg, **data)
+        yml = write_run_yml(root / "anet_published.yml", cfg)
+        model = build_model(types.SimpleNamespace(**cfg), text.hidden_size,
+                            device=dev, generator=torch.Generator(
+                                device=dev).manual_seed(SEED))
+        n_ref = reference_pth(model, root / "ref.pth", text)
+        seeded = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        free_device_memory()
+        run = root / "save" / "imported"
+        t1 = time.perf_counter()
+        imp = import_cli.main(["--pth", str(root / "ref.pth"), "--cfg_path",
+                               str(yml), "--out", str(run)])
+        import_s = time.perf_counter() - t1
+        check(imp["unused"] == [] and imp["unfilled"] == [],
+              f"import: unused {imp['unused'][:5]}, unfilled "
+              f"{imp['unfilled'][:5]}")
+        payload = CheckpointManager(str(run)).restore_raw("model-best")
+        check(all(torch.equal(payload["model"][k], v)
+                  for k, v in seeded.items())
+              and payload["text_encoder"] is not None,
+              "the imported weights are the seeded ones")
+        log(tag, f"({card()}) import_cli.main of a reference .pth of "
+                 f"{n_ref} tensors: {import_s!r} s; unused [] and unfilled "
+                 "[], as the importer's rules predict; the checkpoint holds "
+                 "the seeded weights bit for bit")
+
+        # ---- the eval CLI on the imported run
+        argv = ["--eval_save_dir", str(run.parent), "--eval_folder",
+                run.name, "--eval_batch_size", str(w.eval_B),
+                "--eval_gt_file_for_grounding", str(grounding)]
+        reset_counts()
+        t1 = time.perf_counter()
+        res = eval_cli.main(argv)
+        wall = time.perf_counter() - t1
+        launches["anet_published_eval_cli"] = got = read_counts()
+        check(got == want_counts(w, res["batches"], train=False)
+              and res["videos"] == CLI_VIDEOS,
+              f"{tag}: eval CLI launches {got}")
+        n_num = check_finite_json("DVC JSON", json.loads(pathlib.Path(
+            res["dvc_json"]).read_text()))
+        log(tag, f"({card()}) eval_cli.main on the imported run: "
+                 f"{res['videos']} videos in {wall!r} s, "
+                 f"{res['videos'] / wall!r} videos/s; stage times "
+                 f"{res['times']}; launches {got}; {n_num} numbers, finite")
+
+        # ---- kernel path vs plain path on the imported weights
+        ecfg = Config().update(json.loads((run / "opts.json").read_text()))
+        model = build_model(ecfg, text.hidden_size, device=dev)
+        model.load_state_dict(payload["model"], strict=True)
+        runner = EvalRunner(ecfg, model, WordTranslator(), text)
+        phase_paths_agree(w, ecfg, model, runner)
+        caption_paths_agree(tag, model, runner,
+                            next(synthetic_batches(w, 1, SEED + 2)))
+        del model, runner
+        free_device_memory()
+
+        # ---- the train CLI from the imported run (--pretrain_path)
+        tcfg = dict(cfg, save_dir=str(root / "save"), id="published_ft",
+                    epoch=1, min_epoch_when_save=0, batch_size=TRAIN_CLI_B,
+                    pretrain="full", pretrain_path=str(run))
+        reset_counts()
+        t1 = time.perf_counter()
+        folder = pathlib.Path(train_cli.main(
+            ["--cfg_path", str(write_run_yml(root / "ft.yml", tcfg))]))
+        wall = time.perf_counter() - t1
+        launches["anet_published_train_cli"] = got = read_counts()
+        info = json.loads((folder / "info.json").read_text())
+        losses = info["history"]["train_loss"]["0"]
+        check(got["bwd"] == want_counts(w, CLI_VIDEOS // TRAIN_CLI_B,
+                                        True)["bwd"]
+              and math.isfinite(losses["total_loss"]),
+              f"{tag}: train CLI launches {got}, losses {losses}")
+        log(tag, f"({card()}) train_cli.main from the imported run (--pretrain "
+                 f"full): one epoch of {CLI_VIDEOS // TRAIN_CLI_B} steps and "
+                 f"its validation in {wall!r} s; launches {got}; total loss "
+                 f"{losses['total_loss']!r}")
+        del text
+    free_device_memory()
+    log(tag, f"phase 26 took {time.perf_counter() - t_phase!r} s (host "
+             "clock, the files' writing included)")
+    return launches
+
+
 # work -> (floats moved as multiples of value, out and the taps; FMAs per
 # tap and channel). fwd: value, loc, attn in, out out. bwd: value, grad_out,
 # loc, attn in, grad_value, grad_loc, grad_attn out; two dot products and
@@ -4036,6 +4430,7 @@ def main() -> None:
             launches.update(phase_gpt2(dev, text))
             launches.update(phase_tal(dev, text))
             del text
+            launches.update(phase_published(dev))
             torch.cuda.empty_cache()
     rows = []
     for key, row, rname, source, replaces in (
@@ -4070,8 +4465,10 @@ def main() -> None:
                  "anet_gpt2_decode_bf16_eval", "anet_tal_probe_eval",
                  "anet_tal_zeroshot_eval"):
         paths[path] = (ANET, False)
+    paths["anet_published_eval_cli"] = (ANET, False)
     for path in ("anet_gpt2_train", "anet_gpt2_small_train",
-                 "anet_tal_probe_train", "anet_remat_train"):
+                 "anet_tal_probe_train", "anet_remat_train",
+                 "anet_published_gpt2_train", "anet_published_train_cli"):
         paths[path] = (ANET, True)
     paths["longvideo_remat_train"] = (LONG, True)
     for path, (w, train) in paths.items():

@@ -37,7 +37,13 @@ the cosines of its query's event embedding (last layer, the one before)
 with each class name's embedding. Under only_ft_class_head, with the
 batches' dataset holding a class map (`batches.ds.name_map`), `run` also
 writes the TAL JSON `<dvc>.tal.json` and sets `last_tal_json`
-(evaluate.py:491-504). Not ported: the plot hooks.
+(evaluate.py:491-504). The plot hook (evaluate.py:506-529), after the DVC
+JSON is saved: the proposal-distribution figure unless
+eval_disable_plot_hook, and with eval_save_qualitative_plots the
+duration-bucketed splits and per-video timelines against
+gt_file_for_eval[0] (eval/plots.py); best-effort as in the JAX package,
+so where a plot fails (matplotlib absent) nothing is written and the eval
+goes on.
 
 DVC JSON: {"results": {vid: [{timestamp, raw_box, label, proposal_score,
 sentence, sentence_score, cl_score, query_id, vid_duration,
@@ -120,6 +126,31 @@ def tal_submission(out_json: Dict, name_map) -> Dict:
                   for p in items]
         for vid, items in out_json["results"].items()},
         "version": "VERSION 1.3", "external_data": {}}
+
+
+def plot_hook(cfg: Any, dvc_json_path: str) -> None:
+    """The JAX EvalRunner's plot hook (evaluate.py:506-529): the
+    proposal-distribution figure beside the DVC JSON unless
+    eval_disable_plot_hook; with eval_save_qualitative_plots and a
+    gt_file_for_eval, the duration-bucketed splits and the per-video
+    timelines. Best-effort, like the reference (eval_utils.py:258-261): a
+    plot that fails, as where matplotlib is absent, writes nothing."""
+    if not getattr(cfg, "eval_disable_plot_hook", False):
+        try:
+            from gvl_tpu_torch.eval.plots import plot_proposal_distribution
+            plot_proposal_distribution(dvc_json_path)
+        except Exception:
+            pass
+    gt = getattr(cfg, "gt_file_for_eval", None)
+    if getattr(cfg, "eval_save_qualitative_plots", False) and gt:
+        try:
+            from gvl_tpu_torch.eval.plots import (split_results_by_duration,
+                                                  visualize_video_results)
+            split_results_by_duration(dvc_json_path, gt[0])
+            visualize_video_results({"model": dvc_json_path}, gt[0],
+                                    out_dir=dvc_json_path + "_timelines")
+        except Exception:
+            pass
 
 
 class EvalRunner:
@@ -413,6 +444,7 @@ class EvalRunner:
             save_dvc_json(tal_submission(out_json, name_map),
                           self.last_tal_json)
         save_dvc_json(out_json, dvc_json_path, verbose=True)
+        plot_hook(cfg, dvc_json_path)
         if cfg.count_loss_coef > 0:
             dvc_json_path = reranking(
                 dvc_json_path, alpha=cfg.ec_alpha,

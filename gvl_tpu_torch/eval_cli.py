@@ -31,7 +31,9 @@ trained with only_ft_class_head (the TAL linear probe) also gets its TAL
 JSON beside the DVC JSON. A gpt2 run's captions are "w<id>" for each
 token before the stop, as eval.py gives no decoder.
 `--eval_not_strict_load` is accepted and changes nothing, as in the JAX
-CLI. The plot hook of the JAX EvalRunner is not run (item 9).
+CLI. EvalRunner's plot hook writes the proposal-distribution figure beside
+the DVC JSON where matplotlib is installed (eval_disable_plot_hook is an
+`eval_*` option, which the CLI does not restore: it is off, as in eval.py).
 
 The wall time of each stage is logged (and returned by `main`): config and
 data, model build, checkpoint load, the eval run with the batcher's share of

@@ -18,10 +18,16 @@ Port of gvl_tpu/models/gpt_captioner.py:
   entry_length steps, its early-exit form (the stop read on the host after
   every step, the steps JAX's while_loop does not run left at token 0,
   prob 0 and mask False) and the re-forward oracle (use_cache=False);
-- `load_gpt2_spec` (:315-326), the offline spec only: pretrained GPT-2
-  files are not available to the port, and it refuses by name what the JAX
-  package would fetch (or replace silently by the offline spec when the
-  fetch fails, :338-345).
+- `load_gpt2_spec` (:315-345): (spec, tokenizer), the offline spec and no
+  tokenizer, or the widths of `gpt_model`'s config.json read from local
+  files (a directory, or a hub name under huggingface_cache_dir;
+  gvl_tpu_torch.utils.hf_files) with its byte-level BPE and the stop token
+  `encode(".")[0]`. Files that are not there are refused by name
+  where the JAX package replaces them silently by the offline spec
+  (:338-345). As in the JAX package, the head is built at those widths
+  with random weights: GPT-2's weights are never loaded on the main path;
+  `import_hf_gpt2_state_dict` (gvl_tpu/train/checkpoint.py:366-455) fills
+  a head from an HF GPT-2 state_dict on request.
 The attention is a plain matmul-softmax (the JAX head's
 nn.dot_product_attention): queries scaled by 1/sqrt(Dh), masked logits at
 the type's most negative value, softmax in the logits' type.
@@ -143,25 +149,97 @@ class GPT2Spec:
     n_positions: int = 1024
 
 
-def load_gpt2_spec(cfg: Any) -> GPT2Spec:
-    """The spec the JAX package builds offline (gpt_captioner.py:320-326):
-    vocab 1000, 128 wide, 2 layers of 4 heads, 2 mapping layers, stop token
-    13, with the config's prefix_length and prefix_size. Raises
-    NotImplementedError unless load_pretrained_language_model_from_config
-    is 'offline': the pretrained gpt_model's files are not available to the
-    port (ROADMAP Queue 1 item 12)."""
+def gpt2_dir(cfg: Any) -> str:
+    """The directory of `cfg.gpt_model`'s files: a directory, else its
+    snapshot in the hub cache under huggingface_cache_dir. Raises
+    FileNotFoundError naming the pretrained GPT-2 and every path searched.
+    (The JAX package reads GPT2Config from HF's own cache and the tokenizer
+    from huggingface_cache_dir, gpt_captioner.py:329-331; the port reads
+    both from the latter: it reads nothing outside the paths it is given.)"""
+    from gvl_tpu_torch.utils import hf_files
+    name = getattr(cfg, "gpt_model", "gpt2")
+    try:
+        return hf_files.resolve(name, getattr(cfg, "huggingface_cache_dir",
+                                              None))
+    except FileNotFoundError as e:
+        raise FileNotFoundError(
+            f"load_gpt2_spec: the pretrained GPT-2 (gpt_model={name!r}): "
+            f"{e}; set load_pretrained_language_model_from_config to "
+            "'offline' for the offline GPT-2 spec") from None
+
+
+def load_gpt2_spec(cfg: Any) -> Tuple[GPT2Spec, Optional[Any]]:
+    """The head's spec and tokenizer (gpt_captioner.py:315-345). With
+    load_pretrained_language_model_from_config 'offline', the JAX package's
+    offline spec (vocab 1000, 128 wide, 2 layers of 4 heads, 2 mapping
+    layers, stop token 13) and no tokenizer. Otherwise the widths of
+    gpt_model's config.json (vocab_size, n_embd, n_layer, n_head,
+    n_positions), the config's prefix_num_mapping_layer and the stop token
+    encode(".")[0] of gpt_model's byte-level BPE (gvl_tpu_torch.models.bpe),
+    with that BPE; the prefix_length and prefix_size are the config's in
+    both."""
     if str(getattr(cfg, "load_pretrained_language_model_from_config", "")
-           ) != "offline":
+           ) == "offline":
+        return GPT2Spec(vocab_size=1000, n_embd=128, n_layer=2, n_head=4,
+                        prefix_length=int(cfg.prefix_length),
+                        prefix_size=int(cfg.prefix_size),
+                        prefix_num_mapping_layer=2, stop_token_id=13), None
+    from gvl_tpu_torch.models.bpe import ByteLevelBPE
+    from gvl_tpu_torch.utils import hf_files
+    folder = gpt2_dir(cfg)
+    c = hf_files.read_json(folder, "config.json")
+    if c.get("model_type") != "gpt2":
         raise NotImplementedError(
-            f"load_gpt2_spec: the pretrained GPT-2 (gpt_model="
-            f"{getattr(cfg, 'gpt_model', 'gpt2')!r}) is not available to the "
-            "port (ROADMAP Queue 1 item 12); set "
-            "load_pretrained_language_model_from_config to 'offline' for the "
-            "offline GPT-2 spec")
-    return GPT2Spec(vocab_size=1000, n_embd=128, n_layer=2, n_head=4,
+            f"load_gpt2_spec: model_type {c.get('model_type')!r} ({folder}) "
+            "is not ported: the gpt2 caption head reads a GPT-2 config")
+    tok = ByteLevelBPE.from_dir(folder)
+    spec = GPT2Spec(vocab_size=int(c["vocab_size"]), n_embd=int(c["n_embd"]),
+                    n_layer=int(c["n_layer"]), n_head=int(c["n_head"]),
+                    n_positions=int(c.get("n_positions", 1024)),
                     prefix_length=int(cfg.prefix_length),
                     prefix_size=int(cfg.prefix_size),
-                    prefix_num_mapping_layer=2, stop_token_id=13)
+                    prefix_num_mapping_layer=int(
+                        cfg.prefix_num_mapping_layer),
+                    stop_token_id=tok.encode(".")[0])
+    return spec, tok
+
+
+def import_hf_gpt2_state_dict(sd: dict, head: "GPT2Captioner"
+                              ) -> Tuple[List[str], List[str]]:
+    """Fill the head `head` in place from an HF GPT2LMHeadModel (or
+    GPT2Model) state_dict (gvl_tpu/train/checkpoint.py:366-455): the
+    `transformer.` prefix stripped, each tensor put under `gpt.transformer.`
+    as it is (the head carries HF's names and Conv1D orientation),
+    `lm_head.weight` taken as the tied embedding, and a reference ClipCap
+    `clip_project.model.{0,2}` MLP when `sd` has one. Returns (the keys of
+    `sd` left unused, the attention's mask buffers not counted; the head's
+    `gpt.*` entries, and `clip_project.*` when `sd` has a mapper, left
+    unfilled), both sorted, as the JAX importer returns them."""
+    sd = {(k[len("transformer."):] if k.startswith("transformer.") else k): v
+          for k, v in sd.items()}
+    own = head.state_dict()
+    used, filled = set(), set()
+    with torch.no_grad():
+        for k, v in sd.items():
+            name = ("" if k.startswith("clip_project.") else
+                    "gpt.transformer.") + k
+            if k == "lm_head.weight" or ".attn.bias" in k or \
+                    ".attn.masked_bias" in k:
+                used.add(k)
+            elif name in own and (not k.startswith("clip_project.") or
+                                  k.startswith("clip_project.model.")):
+                if own[name].shape != v.shape:
+                    raise ValueError(f"import_hf_gpt2_state_dict: {k} "
+                                     f"{tuple(v.shape)} against the head's "
+                                     f"{tuple(own[name].shape)}")
+                own[name].copy_(v)
+                used.add(k)
+                filled.add(name)
+    mapper = "clip_project.model.0.weight" in sd
+    unused = sorted(k for k in set(sd) - used)
+    unfilled = sorted(k for k in own if k not in filled and (
+        k.startswith("gpt.") or (mapper and k.startswith("clip_project."))))
+    return unused, unfilled
 
 
 def _embed_init_(w: torch.Tensor, generator: torch.Generator) -> None:

@@ -112,14 +112,13 @@ class GVLArch:
     def from_config(cls, cfg: Any, text_hidden_dim: int = 768,
                     gpt_spec: GPT2Spec = None) -> "GVLArch":
         """The arch of `cfg`; with the gpt2 caption head, its spec is
-        `gpt_spec`, by default load_gpt2_spec(cfg) (gvl.py:617-621), which
-        refuses the pretrained GPT-2 by name."""
+        `gpt_spec`, by default load_gpt2_spec(cfg)'s (gvl.py:617-621)."""
         def get(name, default):
             return getattr(cfg, name, default)
 
         gpt_kw = {}
         if get("caption_decoder_type", "standard") == "gpt2":
-            s = gpt_spec or load_gpt2_spec(cfg)
+            s = gpt_spec or load_gpt2_spec(cfg)[0]
             gpt_kw = dict(
                 gpt_vocab_size=s.vocab_size, gpt_n_embd=s.n_embd,
                 gpt_n_layer=s.n_layer, gpt_n_head=s.n_head,
@@ -550,7 +549,7 @@ def build_model(cfg: Any, text_hidden_dim: int = 768, device=None,
     when none is given (raising where there is none), so a CPU caller asks
     for "cpu". text_hidden_dim is the text encoder's width (its
     `hidden_size`), read only with enable_contrastive; gpt_spec the gpt2
-    head's, by default load_gpt2_spec(cfg). With a generator, its
+    head's, by default load_gpt2_spec(cfg)'s. With a generator, its
     parameters are drawn with the JAX package's initializers; without one
     they are left uninitialised for `load_state_dict`."""
     if device is None:

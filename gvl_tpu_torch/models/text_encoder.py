@@ -1,17 +1,24 @@
 """The text encoder of the contrastive side: a RoBERTa encoder in plain
-torch, the hash tokenizer and the loader.
+torch, its tokenizers and the loader.
 
-Port of gvl_tpu/models/text_encoder.py, offline route only: the JAX package
-builds `FlaxRobertaModel(RobertaConfig(...))` with random weights and
-tokenizes with `HashTokenizer` when `load_pretrained_language_model_from_
-config` is set (text_encoder.py:91-110). Pretrained `roberta-base` weights
-and its tokenizer are not available to the port, and `load_text_encoder`
-refuses to run without that flag instead of falling back silently.
+Port of gvl_tpu/models/text_encoder.py. Two routes, as the JAX package's:
+- pretrained (load_pretrained_language_model_from_config unset, every
+  published yml): `pretrained_language_model` (a directory, or a hub name
+  under huggingface_cache_dir) read from local files through
+  gvl_tpu_torch.utils.hf_files: `RobertaSpec` from its config.json, the
+  weights by HF's rules for the base model (`roberta_base_state_dict`), the
+  byte-level BPE of gvl_tpu_torch.models.bpe as its tokenizer, where the
+  JAX package calls HF's `from_pretrained` (text_encoder.py:70-87). Files
+  that are not there, or a `model_type` other than roberta, are refused by
+  name; the JAX package falls back silently to the offline model instead.
+- offline (the flag set): `FlaxRobertaModel(RobertaConfig(...))` with
+  random weights and `HashTokenizer` (text_encoder.py:91-110).
 
 What the encoder computes, as HF Flax RoBERTa does:
 - position ids start at pad id + 1 = 2 and count non-pad tokens only;
 - one token type (id 0);
-- LayerNorm eps 1e-12 (`RobertaConfig()`'s, not roberta-base's 1e-5);
+- LayerNorm eps from the config: 1e-12 offline (`RobertaConfig()`'s),
+  1e-5 for roberta-base;
 - exact (erf) GELU (HF Flax `"gelu"`);
 - attention logits of masked keys get `finfo(float32).min` added, never
   -inf, so an all-padding row attends uniformly and stays finite;
@@ -31,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gvl_tpu_torch.config import Config
+from gvl_tpu_torch.models.bpe import ByteLevelBPE
+from gvl_tpu_torch.utils import hf_files
 
 
 class HashTokenizer:
@@ -104,6 +113,33 @@ class RobertaSpec:
                                           2)),
                    num_heads=max(hidden // 64, 1),
                    intermediate_size=hidden * 4)
+
+    @classmethod
+    def from_hf_config(cls, c: dict, where: str = "") -> "RobertaSpec":
+        """The spec of an HF RoBERTa config.json; any other model_type, and
+        a RoBERTa the encoder does not compute (another activation or
+        position embedding), is refused by name."""
+        if c.get("model_type") != "roberta":
+            raise NotImplementedError(
+                f"load_text_encoder: model_type {c.get('model_type')!r} "
+                f"({where}) is not ported: the port's text encoder is "
+                "RoBERTa (ROADMAP Queue 1, other text encoders)")
+        for key, want in (("hidden_act", "gelu"),
+                          ("position_embedding_type", "absolute")):
+            if c.get(key, want) != want:
+                raise NotImplementedError(
+                    f"load_text_encoder: {key}={c[key]!r} ({where}) is not "
+                    f"ported (the port's RoBERTa computes {want!r})")
+        return cls(vocab_size=int(c["vocab_size"]),
+                   hidden_size=int(c["hidden_size"]),
+                   num_layers=int(c["num_hidden_layers"]),
+                   num_heads=int(c["num_attention_heads"]),
+                   intermediate_size=int(c["intermediate_size"]),
+                   max_positions=int(c["max_position_embeddings"]),
+                   type_vocab_size=int(c.get("type_vocab_size", 1)),
+                   pad_token_id=int(c.get("pad_token_id", 1)),
+                   layer_norm_eps=float(c.get("layer_norm_eps", 1e-12)),
+                   initializer_range=float(c.get("initializer_range", 0.02)))
 
 
 class RobertaEmbeddings(nn.Module):
@@ -244,11 +280,11 @@ class TextEncoder(nn.Module):
     `forward(ids, mask)` is its `apply_fn`; `tokenize(raw_per_video, G,
     max_len)` its `tokenize`, numpy out."""
 
-    def __init__(self, spec: RobertaSpec, device=None):
+    def __init__(self, spec: RobertaSpec, device=None, tokenizer=None):
         super().__init__()
         self.text_encoder = RobertaModel(spec, device=device)
         self.hidden_size = spec.hidden_size
-        self._tok = HashTokenizer(spec.vocab_size)
+        self._tok = tokenizer or HashTokenizer(spec.vocab_size)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
                 bf16_weights: bool = False) -> torch.Tensor:
@@ -270,45 +306,102 @@ class TextEncoder(nn.Module):
         return _batch_tokenize(self._tok, raw_per_video, G, max_len)
 
 
+def _pretrained(cfg: Any) -> Optional[Tuple[str, RobertaSpec]]:
+    """(directory, spec from its config.json) of `cfg`'s pretrained text
+    encoder, or None for the offline one
+    (load_pretrained_language_model_from_config set). Raises
+    FileNotFoundError naming every path searched when the files are not
+    there, NotImplementedError for a model the port does not run."""
+    if getattr(cfg, "load_pretrained_language_model_from_config", None):
+        return None
+    name = getattr(cfg, "pretrained_language_model", "roberta-base")
+    try:
+        folder = hf_files.resolve(name, getattr(cfg, "huggingface_cache_dir",
+                                                None))
+    except FileNotFoundError as e:
+        raise FileNotFoundError(
+            f"load_text_encoder: pretrained_language_model={name!r}: {e}; "
+            "set load_pretrained_language_model_from_config for the "
+            "offline RoBERTa") from None
+    return folder, RobertaSpec.from_hf_config(
+        hf_files.read_json(folder, "config.json"), folder)
+
+
 def _check_ported(cfg: Any) -> None:
-    """Raise NotImplementedError when `cfg` asks for the pretrained text
-    weights (load_pretrained_language_model_from_config unset)."""
-    if not getattr(cfg, "load_pretrained_language_model_from_config", None):
-        name = getattr(cfg, "pretrained_language_model", "roberta-base")
-        raise NotImplementedError(
-            f"load_text_encoder: the pretrained text weights "
-            f"(pretrained_language_model={name!r}) are not available to the "
-            "port; set load_pretrained_language_model_from_config to build "
-            "the offline RoBERTa from offline_text_encoder_hidden / "
-            "offline_text_encoder_layers")
+    """Raise what `load_text_encoder(cfg)` would refuse, reading only the
+    config.json of the pretrained route."""
+    _pretrained(cfg)
+
+
+def roberta_base_state_dict(sd: dict) -> Tuple[dict, List[str]]:
+    """HF's rules for loading a checkpoint into the base `RobertaModel`: the
+    `roberta.` prefix stripped (a `RobertaForMaskedLM` save), `gamma` /
+    `beta` renamed `weight` / `bias`, and the keys a base model has no
+    place for (`lm_head.*`, the `position_ids` buffer, any other head)
+    dropped. Returns (state_dict, dropped keys)."""
+    out, dropped = {}, []
+    prefixed = any(k.startswith("roberta.") for k in sd)
+    for key, v in sd.items():
+        k = key
+        if prefixed:
+            if not k.startswith("roberta."):
+                dropped.append(key)
+                continue
+            k = k[len("roberta."):]
+        k = k.replace("LayerNorm.gamma", "LayerNorm.weight").replace(
+            "LayerNorm.beta", "LayerNorm.bias")
+        if k.endswith("position_ids") or k.split(".")[0] not in (
+                "embeddings", "encoder", "pooler"):
+            dropped.append(key)
+            continue
+        out[k] = v
+    return out, dropped
 
 
 def load_text_encoder(cfg: Any, device=None,
                       generator: Optional[torch.Generator] = None
                       ) -> Optional[TextEncoder]:
-    """The offline RoBERTa for `cfg` (None when enable_contrastive is off),
+    """The text encoder for `cfg` (None when enable_contrastive is off),
     frozen and in eval mode, on `device`: the current CUDA device when none
-    is given (raising where there is none). Its weights are drawn with HF
-    Flax's initializers from `generator`, by default one seeded with
-    cfg.seed; load others with `load_state_dict` (gvl_tpu_torch.convert
-    .flax_roberta_to_state_dict). Raises NotImplementedError unless
-    cfg.load_pretrained_language_model_from_config is set: the pretrained
-    weights are not available to the port."""
+    is given (raising where there is none).
+
+    Every weight is first drawn with HF's initializers (normal(0,
+    initializer_range), biases zero, LayerNorms unit) from `generator`, by
+    default one seeded with cfg.seed. On the pretrained route the
+    checkpoint's weights then replace them; a pooler the checkpoint lacks
+    (an MLM checkpoint has none) keeps its draw, as HF draws it, and any
+    other missing weight is refused. Offline, load others with
+    `load_state_dict` (gvl_tpu_torch.convert.flax_roberta_to_state_dict)."""
     if not getattr(cfg, "enable_contrastive", False):
         return None
-    _check_ported(cfg)
+    found = _pretrained(cfg)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "load_text_encoder: no CUDA device is available; pass "
                 "device='cpu' to build the text encoder on the CPU")
         device = torch.device("cuda", torch.cuda.current_device())
-    spec = RobertaSpec.offline(cfg)
+    if found is None:
+        folder, spec, tok = None, RobertaSpec.offline(cfg), None
+    else:
+        folder, spec = found
+        tok = ByteLevelBPE.from_dir(folder)
     with torch.device("meta"):
-        enc = TextEncoder(spec, device="meta")
+        enc = TextEncoder(spec, device="meta", tokenizer=tok)
     enc = enc.to_empty(device=device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(
             int(getattr(cfg, "seed", 777)))
     enc.text_encoder.flax_init_(generator)
+    if folder is not None:
+        sd, _ = roberta_base_state_dict(hf_files.read_weights(folder))
+        own = enc.text_encoder.state_dict()
+        missing = [k for k in own if k not in sd and
+                   not k.startswith("pooler.")]
+        extra = [k for k in sd if k not in own]
+        if missing or extra:
+            raise ValueError(f"load_text_encoder: the weights in {folder} "
+                             f"lack {missing} and have no place for {extra}")
+        enc.text_encoder.load_state_dict(
+            {k: v.float() for k, v in sd.items()}, strict=False)
     return enc.requires_grad_(False).eval()

@@ -17,9 +17,10 @@ train.py:151-595):
   criteria_for_best_ckpt (train.py:475-559); under only_ft_class_head (the
   TAL linear probe) validation also scores the TAL JSON against
   tal_gt_file when that file exists (loop.py:404-407);
-- the gpt2 caption head (`make_gpt_tokenize`, loop.py:90-128): its offline
-  spec, each batch's captions hashed into gpt_tokens / gpt_mask, and the
-  validation captions decoded as `w<id>` words;
+- the gpt2 caption head (`make_gpt_tokenize`, loop.py:90-128): its spec,
+  each batch's captions tokenized into gpt_tokens / gpt_mask (hashed
+  offline, gpt_model's byte-level BPE otherwise) and the validation
+  captions decoded (`w<id>` words offline);
 - info.json with the opts, the loss and score histories and the bests
   (train.py:561-578); `debug` stops each epoch after 5 steps.
 
@@ -113,25 +114,36 @@ def check_config(cfg: Config) -> None:
 
 def make_gpt_tokenize(cfg: Config):
     """(spec, batch tokenizer, decoder) of the gpt2 caption head, or three
-    Nones for another head (loop.py:90-128): the offline spec
-    (models/gpt_captioner.py load_gpt2_spec), the hash tokenizer over
-    spec.vocab_size ids writing each batch's `gpt_tokens` and `gpt_mask`
-    (B, G, max_caption_len) from its raw captions, and ids -> "w<id>" words
-    with the special ids 0-2 dropped (the validation runner's decode)."""
+    Nones for another head (loop.py:90-128), from load_gpt2_spec
+    (models/gpt_captioner.py). The tokenizer writes each batch's
+    `gpt_tokens` and `gpt_mask` (B, G, max_caption_len) from its raw
+    captions. Offline: the hash tokenizer over spec.vocab_size ids, and ids
+    -> "w<id>" words with the special ids 0-2 dropped. Pretrained:
+    gpt_model's byte-level BPE on each caption + ".", padded and truncated
+    to max_caption_len (padding raises, as HF's tokenizer does, when the
+    files name no pad token: GPT-2's own have none), and the decode
+    `decode(ids).split(".")[0]`."""
     if cfg.caption_decoder_type != "gpt2":
         return None, None, None
     from gvl_tpu_torch.models.gpt_captioner import load_gpt2_spec
     from gvl_tpu_torch.models.text_encoder import (HashTokenizer,
                                                    _batch_tokenize,
                                                    effective_max_gt_events)
-    spec = load_gpt2_spec(cfg)
-    tok = HashTokenizer(spec.vocab_size)
+    spec, bpe = load_gpt2_spec(cfg)
+    if bpe is None:
+        tok_fn = HashTokenizer(spec.vocab_size)
 
-    def decode_fn(ids):
-        return " ".join(f"w{int(i)}" for i in ids if int(i) > 2)
+        def decode_fn(ids):
+            return " ".join(f"w{int(i)}" for i in ids if int(i) > 2)
+    else:
+        def tok_fn(sents, max_len):
+            return bpe([s + "." for s in sents], max_len)
+
+        def decode_fn(ids):
+            return bpe.decode([int(i) for i in ids]).split(".")[0]
 
     def add_gpt_inputs(batch):
-        ids, mask = _batch_tokenize(tok, batch["captions_raw"],
+        ids, mask = _batch_tokenize(tok_fn, batch["captions_raw"],
                                     effective_max_gt_events(cfg),
                                     cfg.max_caption_len)
         batch["gpt_tokens"] = ids
@@ -232,7 +244,8 @@ def train(cfg: Config) -> str:
     init_weights(cfg, model, text, probe)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model params: {n_params / 1e6:.2f}M")
-    if text is not None:
+    if text is not None and \
+            cfg.get("load_pretrained_language_model_from_config"):
         logger.warning("text encoder: no pretrained weights available "
                        "(offline) — using random init")
 

@@ -360,7 +360,8 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
     assert model.contrastive_projection_text[0].in_features == 768
     assert len(model.contrastive_projection_event) == cfg.dec_layers
     cfg.load_pretrained_language_model_from_config = None
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    with pytest.raises(FileNotFoundError,
+                       match="pretrained_language_model='roberta-base'"):
         pte.load_text_encoder(cfg, device="cpu")
     for name in ("ym_i3d_msvg_dvc.yml", "tacos_c3d_msvg.yml",
                  "tacos_c3d_ssvg.yml"):

@@ -466,16 +466,21 @@ def write_run(tmp_path, cfg_dict):
 @pytest.mark.parametrize("yml", YMLS, ids=os.path.basename)
 def test_cli_takes_or_refuses_each_config(tmp_path, yml, route):
     """As published, every config asks for the pretrained roberta-base
-    weights, which the port refuses by name before it reads any data;
-    with the offline text encoder every config passes the CLI's checks and
-    its model builds (on the meta device, at the config's widths)."""
+    files under huggingface_cache_dir (.cache); where they are not, the
+    port refuses by name, naming the paths searched, before it reads any
+    data (tests/test_torch_import_reference.py runs the flagship from a
+    written cache); with the offline text encoder every config passes the
+    CLI's checks and its model builds (on the meta device, at the config's
+    widths)."""
     cfg = config.load_config(yml)
     if route == "offline_text_encoder":
         cfg.update(OFFLINE)
     argv = write_run(tmp_path, cfg.to_dict())
     if route == "published":
-        with pytest.raises(NotImplementedError,
-                           match="pretrained_language_model='roberta-base'"):
+        assert cfg.huggingface_cache_dir == ".cache"
+        with pytest.raises(FileNotFoundError,
+                           match="pretrained_language_model='roberta-base'.*"
+                           "models--roberta-base"):
             eval_cli.main(argv)
         assert os.listdir(tmp_path / "save" / "run") == ["opts.json"]
         return

@@ -1,5 +1,5 @@
-"""gvl_tpu_torch imports torch and never JAX, flax, optax, transformers or
-gvl_tpu, and on a CPU tensor its deformable-attention wrappers launch no
+"""gvl_tpu_torch imports torch and never JAX, flax, optax, transformers,
+tokenizers, safetensors, regex or gvl_tpu, and on a CPU tensor its deformable-attention wrappers launch no
 kernel.
 
 The import checks run in one fresh process (`report`), which imports the
@@ -20,7 +20,8 @@ import textwrap
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "transformers", "gvl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "transformers", "tokenizers",
+             "safetensors", "regex", "gvl_tpu")
 
 GROUPS = {
     "train": ("gvl_tpu_torch.train.state", "gvl_tpu_torch.train.criterion",
@@ -47,6 +48,12 @@ GROUPS = {
     "gpt_tal": ("gvl_tpu_torch.models.gpt_captioner",
                 "gvl_tpu_torch.eval.zeroshot_tal",
                 "gvl_tpu_torch.models.transformer"),
+    "published_files": ("gvl_tpu_torch.utils.hf_files",
+                        "gvl_tpu_torch.models.bpe",
+                        "gvl_tpu_torch.models.text_encoder",
+                        "gvl_tpu_torch.train.import_reference",
+                        "gvl_tpu_torch.import_cli",
+                        "gvl_tpu_torch.eval.plots", "chip_smoke"),
 }
 
 _REPORT = textwrap.dedent("""
@@ -150,15 +157,16 @@ def test_build_model_defaults_to_the_card_and_raises_without_one():
 
 def test_model_options_not_ported_raise_by_name():
     """The gpt2 caption head builds with the offline GPT-2 spec and refuses
-    the pretrained GPT-2 by name (its files are not available to the port);
-    the light, transformer and none heads, MLP class heads, heads shared
-    across layers and remat_trunk build."""
+    by name a pretrained GPT-2 whose files are not there, naming the paths
+    searched (tests/test_torch_pretrained_text.py builds one from written
+    files); the light, transformer and none heads, MLP class heads, heads
+    shared across layers and remat_trunk build."""
     import torch
     from gvl_tpu_torch.models.gvl import build_model
     gpt = dict(caption_decoder_type="gpt2", prefix_length=3, prefix_size=48,
-               gpt_model="gpt2")
-    with pytest.raises(NotImplementedError,
-                       match="pretrained GPT-2.*'gpt2'.*item 12"):
+               gpt_model="gpt2", huggingface_cache_dir=".cache")
+    with pytest.raises(FileNotFoundError,
+                       match="pretrained GPT-2.*'gpt2'.*models--gpt2"):
         build_model(_tiny_namespace(**gpt), device="cpu")
     for kw in (dict(gpt, load_pretrained_language_model_from_config="offline"),
                dict(remat_trunk=True),
@@ -239,3 +247,29 @@ def test_train_cli_modules_import_without_jax(report):
     """The train CLI, the train loop and the SCST module import none of JAX,
     flax, optax, transformers, gvl_tpu or nltk."""
     _clean(report, "train_cli", nltk=True)
+
+
+def test_published_file_modules_import_without_jax(report):
+    """The HF file reader, the byte-level BPE, the text encoder's loader,
+    the reference checkpoint importer and its CLI, the plots, and
+    chip_smoke import none of JAX, flax, optax, transformers, tokenizers,
+    safetensors, regex or gvl_tpu (they read the files themselves), nor
+    nltk."""
+    _clean(report, "published_files", nltk=True)
+
+
+def test_import_cli_on_cuda_raises_without_a_card(tmp_path):
+    """import_cli builds on the card unless given --device cpu: on a
+    machine without one it raises before it writes anything."""
+    import torch
+    from gvl_tpu_torch import import_cli
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    (tmp_path / "cfg.yml").write_text(
+        "enable_contrastive: false\ncaption_decoder_type: none\n"
+        "caption_loss_coef: 0\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        import_cli.main(["--pth", str(tmp_path / "x.pth"), "--cfg_path",
+                         str(tmp_path / "cfg.yml"), "--out",
+                         str(tmp_path / "out")])
+    assert sorted(os.listdir(tmp_path)) == ["cfg.yml"]

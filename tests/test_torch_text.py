@@ -217,8 +217,10 @@ def test_text_encoder_numerics_are_roberta_config_defaults():
 def test_text_encoder_spec_and_refusals():
     """The offline spec at the flagship's knobs is roberta-base's widths
     and depth; without load_pretrained_language_model_from_config the
-    loader refuses by name; with the contrastive side off it returns None,
-    as the JAX loader does."""
+    loader reads the pretrained files and refuses by name files that are
+    not there (tests/test_torch_pretrained_text.py reads written ones);
+    with the contrastive side off it returns None, as the JAX loader
+    does."""
     spec = pte.RobertaSpec.offline(text_encoder_cfg(768, 12))
     assert (spec.hidden_size, spec.num_layers, spec.num_heads,
             spec.intermediate_size, spec.vocab_size, spec.max_positions,
@@ -226,7 +228,8 @@ def test_text_encoder_spec_and_refusals():
         (768, 12, 12, 3072, 5000, 514, 1, 1)
     cfg = text_encoder_cfg(
         64, 1, load_pretrained_language_model_from_config=None)
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    with pytest.raises(FileNotFoundError,
+                       match="pretrained_language_model='roberta-base'"):
         pte.load_text_encoder(cfg, device="cpu")
     cfg.enable_contrastive = False          # no JAX call: it would go online
     assert pte.load_text_encoder(cfg, device="cpu") is None

@@ -45,6 +45,7 @@ from tests.test_model import tiny_cfg
 from tests.test_torch_contrastive_train import (G, TEXT_SIDE, sentences,
                                                 statics_kw, weights)
 from tests.test_torch_model import add_noise
+from tests.test_torch_train_loop import once_per_test_run
 from tests.test_torch_train_step import LOSS_SIDE, adam_mu, make_batch
 
 N_STEPS = 5
@@ -139,7 +140,9 @@ def run(n_steps, text_bf16=False):
     finally:
         port.eval()
     return dict(
-        cfg=cfg, port=port, text=text, text0=text0, state=pstate_, lrs=lrs,
+        text=text.state_dict(), text_params=sorted(
+            n for n, _ in text.named_parameters()), text0=text0,
+        step=pstate_.step, lrs=lrs,
         jax_losses=jax_losses, port_losses=port_losses,
         jax_grads=jax_grads, port_grads=port_grads,
         jax_text_grads=jax_text_grads, port_text_grads=port_text_grads,
@@ -148,27 +151,39 @@ def run(n_steps, text_bf16=False):
             jax.tree_util.tree_map(np.asarray, state.text_params)))
 
 
-@pytest.fixture(scope="module")
-def patched():
+def compute_worlds(root):
+    """The 5-step run and the one-step text_bf16 run, written into `root`
+    (worlds.pt): the losses, the learning rates, the first step's named
+    gradients, the text encoder's weights before and after (the port's
+    text encoder's state_dict and parameter names, the step count)."""
     mp = pytest.MonkeyPatch()
     # the sentence block's attention dropout off on the JAX side (its module
     # is built inside GVLModel.setup at every apply)
     mp.setattr(jgvl, "SentenceContextBlock",
                functools.partial(jtext.SentenceContextBlock, dropout=0.0))
     try:
-        yield
+        torch.save({"world": run(N_STEPS), "bf16_world": run(1, True)},
+                   root / "worlds.pt")
     finally:
         mp.undo()
 
 
 @pytest.fixture(scope="module")
-def world(patched):
-    return run(N_STEPS)
+def worlds(tmp_path_factory):
+    """Computed once per test run (once_per_test_run)."""
+    return once_per_test_run(
+        tmp_path_factory, "torch_text_train_worlds", compute_worlds,
+        lambda root: torch.load(root / "worlds.pt", weights_only=True))
 
 
 @pytest.fixture(scope="module")
-def bf16_world(patched):
-    return run(1, text_bf16=True)
+def world(worlds):
+    return worlds["world"]
+
+
+@pytest.fixture(scope="module")
+def bf16_world(worlds):
+    return worlds["bf16_world"]
 
 
 def assert_losses_match(want, got):
@@ -208,7 +223,7 @@ def test_first_step_named_gradients_match_jax(world, which):
     want, got = world["jax_" + key], world["port_" + key]
     assert_grads_match(want, got)
     if which == "text_encoder":
-        assert len(got) == len(dict(world["text"].named_parameters()))
+        assert sorted(got) == world["text_params"]
         moving = [n for n in got if not n.startswith(POOLER)
                   and float(got[n].abs().max()) > 1e-6]
         assert len(moving) >= len(got) - 4
@@ -233,7 +248,7 @@ def test_loss_trajectory_matches_jax_with_the_text_encoder_training(world):
     assert cl[-1] < cl[0]
     np.testing.assert_allclose(world["lrs"], np.array(
         [1, 1, 0.5, 0.25, 0.25]) * TEXT_LR, rtol=1e-12)
-    assert world["state"].step == N_STEPS
+    assert world["step"] == N_STEPS
 
 
 def test_text_encoder_updates_match_jax(world):
@@ -246,7 +261,7 @@ def test_text_encoder_updates_match_jax(world):
     noise in either package, and Adam turns noise into updates of unrelated
     sign; in both packages it moves by less than 1e-3 x lr over the 5 steps
     while the other parameters move by about lr a step."""
-    got, want = world["text"].state_dict(), world["jax_text"]
+    got, want = world["text"], world["jax_text"]
     before, want0 = world["text0"], world["jax_text0"]
     assert set(got) == set(want)
     for k in want:

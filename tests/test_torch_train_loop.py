@@ -16,12 +16,15 @@ weights, model and text encoder, against JAX's orbax model-last, converted
 can part: `adam_bound`).
 """
 
+import fcntl
 import json
 import os
 import pathlib
 import subprocess
 import sys
+import types
 
+import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,9 +101,39 @@ def jitted_init_params(model, cfg, bundle, probe_batch):
     return jax.jit(init)(db)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("loop")
+def once_per_test_run(tmp_path_factory, name: str, compute, load):
+    """`load(root)` of what `compute(root)` wrote into the directory
+    `root`, computed once per test run: under pytest-xdist every worker
+    shares `<basetemp's parent>/<name>` and the first to take its lock
+    computes (pytest-xdist's documented pattern, with a stdlib flock); in
+    one process, a fresh directory. Each computation appends a line to
+    `<root>/computations.log`."""
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        root = tmp_path_factory.mktemp(name)
+        compute(root)
+        with open(root / "computations.log", "a") as f:
+            f.write("main\n")
+        return load(root)
+    root = tmp_path_factory.getbasetemp().parent / name
+    root.mkdir(exist_ok=True)
+    with open(root / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not (root / "done").exists():
+                compute(root)
+                with open(root / "computations.log", "a") as f:
+                    f.write(os.environ["PYTEST_XDIST_WORKER"] + "\n")
+                (root / "done").touch()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return load(root)
+
+
+def compute_runs(root: pathlib.Path) -> None:
+    """Both packages' 2-epoch run and its resume, in `root`; writes what
+    the tests read: runs.json (the infos, folders and configs),
+    ckpts.pt (the 2-epoch run's checkpoints, read before the resume
+    replaces them) and init.npz (the JAX init's parameters)."""
     data = make_synthetic_dataset(str(root), num_videos=6, feat_dim=16)
     base = loop_cfg(root, data)
     init = {}
@@ -137,7 +170,7 @@ def runs(tmp_path_factory):
     mp.setattr(jloop, "init_params", capture_init)
     mp.setattr(jloop, "load_text_encoder", capture_text)
     mp.setattr(ploop, "init_weights", port_init)
-    out = {}
+    out, ckpts = {}, {}
     try:
         for pkg, cls, train, save_dir in (
                 ("jax", JConfig, jloop.train, root / "jax"),
@@ -149,10 +182,8 @@ def runs(tmp_path_factory):
             # the resumed run writes into the same run dir: keep what the
             # first run left
             read = jax_checkpoint if pkg == "jax" else port_checkpoint
-            out[pkg] = dict(folder=first,
-                            info=json.loads(pathlib.Path(
-                                first, "info.json").read_text()),
-                            ckpts={n: read(first, n, cfg) for n in CKPTS})
+            ckpts[pkg] = {n: read(first, n, cfg) for n in CKPTS}
+            info = json.loads(pathlib.Path(first, "info.json").read_text())
             # the JAX package pins its params after the run: a fresh init
             # for the resumed one, as a new process makes
             resumed_cfg = cls().update(dict(base, save_dir=str(save_dir),
@@ -160,14 +191,49 @@ def runs(tmp_path_factory):
             if pkg == "port":
                 resumed_cfg.device = "cpu"
             resumed = train(resumed_cfg)
-            out[pkg].update(
-                resumed_cfg=resumed_cfg, resumed_folder=resumed,
-                resumed_info=json.loads(pathlib.Path(
-                    resumed, "info.json").read_text()))
+            out[pkg] = dict(folder=first, resumed_folder=resumed, info=info,
+                            resumed_info=json.loads(pathlib.Path(
+                                resumed, "info.json").read_text()),
+                            resumed_cfg=dict(lr=resumed_cfg.lr,
+                                             weight_decay=resumed_cfg
+                                             .weight_decay,
+                                             epoch=resumed_cfg.epoch))
     finally:
         mp.undo()
-    out.update(root=root, base=base, init=init)
+    (root / "runs.json").write_text(json.dumps(dict(out, base=base)))
+    torch.save(ckpts, root / "ckpts.pt")
+    np.savez(root / "init.npz", **{
+        "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+        for path, v in jax.tree_util.tree_flatten_with_path(
+            init["values"])[0]})
+
+
+def load_runs(root: pathlib.Path) -> dict:
+    """compute_runs's results, as the tests read them."""
+    saved = json.loads((root / "runs.json").read_text())
+    ckpts = torch.load(root / "ckpts.pt", weights_only=True)
+    out = dict(root=root, base=saved.pop("base"))
+    for pkg, r in saved.items():
+        out[pkg] = dict(
+            r, ckpts={n: tuple(v) for n, v in ckpts[pkg].items()},
+            resumed_cfg=types.SimpleNamespace(**r["resumed_cfg"]))
+    with np.load(root / "init.npz") as z:
+        out["init"] = {"params": flax.traverse_util.unflatten_dict(
+            {k: z[k] for k in z.files}, sep="/")}
+    out["computations"] = (root / "computations.log").read_text().split()
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return once_per_test_run(tmp_path_factory, "torch_train_loop_runs",
+                             compute_runs, load_runs)
+
+
+def test_the_runs_are_computed_once_per_test_run(runs):
+    """The 2-epoch runs and their resume, which every test of this module
+    reads, are computed by one worker of the test run."""
+    assert len(runs["computations"]) == 1, runs["computations"]
 
 
 CKPTS = ("model-best", "model-best-dvc", "model-best-pc",
@@ -426,11 +492,11 @@ def test_train_cli_needs_the_card_unless_told_otherwise(tmp_path):
 
 
 REFUSED = {
-    # the gpt2 head runs with the offline spec; the pretrained GPT-2 is
-    # refused by name (ROADMAP Queue 1 item 12)
+    # the gpt2 head runs with the offline spec or gpt_model's local files;
+    # files that are not there are refused by name, with the paths searched
     "gpt2": (dict(caption_decoder_type="gpt2",
                   load_pretrained_language_model_from_config=""),
-             "pretrained GPT-2"),
+             "pretrained GPT-2.*'gpt2'.*refs/main", FileNotFoundError),
     "two_stage": (dict(transformer_input_type="gt_proposals"), "two-stage"),
     "caption_cost": (dict(set_cost_caption=1.0), "caption cost"),
     "scheduled_sampling": (dict(scheduled_sampling_start=0,
@@ -446,12 +512,13 @@ REFUSED = {
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_train_options_are_refused_before_any_work(tmp_path, case):
     """Each option the port does not train yet raises NotImplementedError
-    naming it, before a run directory or a model exists."""
-    flags, name = REFUSED[case]
+    naming it (files it cannot find, FileNotFoundError), before a run
+    directory or a model exists."""
+    flags, name, *exc = REFUSED[case]
     cfg = PConfig().update(dict(
         loop_cfg(tmp_path, ("anno.json", "feats", "vocab.json", 20)),
         save_dir=str(tmp_path / "save"), device="cpu", **flags))
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(exc[0] if exc else NotImplementedError, match=name):
         ploop.train(cfg)
     assert not (tmp_path / "save").exists()
 

@@ -22,10 +22,11 @@ from gvl_tpu.train import state as jstate
 from gvl_tpu.train.criterion import LossSpec as JLossSpec
 from gvl_tpu.train.criterion import make_weight_dict as j_weight_dict
 from gvl_tpu_torch.convert import jax_grads_to_named, jax_params_to_state_dict
-from gvl_tpu_torch.models.gvl import GVLArch
+from gvl_tpu_torch.models.gvl import GVLArch, build_model
 from gvl_tpu_torch.train import state as pstate
 from gvl_tpu_torch.train.criterion import LossSpec, make_weight_dict
 from tests.test_torch_model import jax_world, make_inputs
+from tests.test_torch_train_loop import once_per_test_run
 
 N_STEPS = 5
 LR = 5e-5
@@ -67,8 +68,10 @@ def adam_mu(opt_state):
     return found[0].mu
 
 
-@pytest.fixture(scope="module")
-def world():
+def compute_world(root):
+    """Both packages' 5-step trajectory from the same weights, written into
+    `root` (world.pt): the config, the losses, the first step's named
+    gradients, the JAX parameters after the steps and the port's."""
     cfg, model, params, port, _ = jax_world(**LOSS_SIDE)
     batch = make_batch(cfg)
 
@@ -101,12 +104,35 @@ def world():
                               for n, p in port.named_parameters()}
     finally:
         port.eval()
-    return dict(cfg=cfg, arch=arch, port=port, state=pstate_,
-                jax_losses=jax_losses, port_losses=port_losses,
-                jax_grads=jax_grads_to_named(jax_grads, arch),
-                port_grads=port_grads,
-                jax_params=jax_params_to_state_dict(
-                    jax.tree_util.tree_map(np.asarray, state.params), arch))
+    torch.save(dict(cfg=cfg.to_dict(), step=pstate_.step,
+                    port=port.state_dict(), jax_losses=jax_losses,
+                    port_losses=port_losses,
+                    jax_grads=jax_grads_to_named(jax_grads, arch),
+                    port_grads=port_grads,
+                    jax_params=jax_params_to_state_dict(
+                        jax.tree_util.tree_map(np.asarray, state.params),
+                        arch)), root / "world.pt")
+
+
+def load_world(root):
+    """compute_world's results, with the port model (its weights after the
+    steps) and a train state at its step count rebuilt."""
+    w = torch.load(root / "world.pt", weights_only=True)
+    cfg = Config().update(w.pop("cfg"))
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict(w.pop("port"), strict=True)
+    pst = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    state = pstate.create_train_state(cfg, port, 100, pst)
+    state.step = w.pop("step")
+    return dict(w, cfg=cfg, arch=GVLArch.from_config(cfg), port=port,
+                state=state)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Computed once per test run (once_per_test_run)."""
+    return once_per_test_run(tmp_path_factory, "torch_train_step_world",
+                             compute_world, load_world)
 
 
 def test_first_step_losses_match_jax(world):
