@@ -292,6 +292,43 @@ exits non-zero:
      epoch of 2 steps, kernels 1 and 2 counted); the kernel path against
      the plain path on the imported weights at phase 5's tolerances, and
      cap_scores to 1e-4 on the events whose tokens agree.
+ 27. (after phase 25) the trainer's last options on the flagship, each on
+     its own seeded model, the frozen text encoder shared: the caption cost
+     (CUTS['anet_caption_cost'], set_cost_caption 1.0: every decoder
+     layer's teacher-forced NLL of all 30 x 30 (query, GT) pairs, without
+     gradient, joins the matcher; the caption loss is the matched pairs'
+     own teacher-forced pass, at the flagship's B = 16), scheduled
+     sampling at the yml's scheduled_sampling_max_prob (0.25; the
+     LSTM-DSA head's serial chain) and two-stage queries
+     (CUTS['anet_gt_proposals']: the GT segments as queries, the class and
+     box weights 0; first EvalRunner.run over 3 batches of 16 with the GT
+     boxes as proposals, launches, finite JSONs, both grounding JSONs).
+     For each: phase 10's kernel vs plain path check in train mode, dropout
+     seeded alike and, for scheduled sampling, the kernel path's draws
+     forced into the plain path's chain (ForcedDraws); then 5 steps, their
+     CUDA-event median, peak device memory and launches per step (kernels 1
+     and 2 four times each).
+ 28. (after phase 26) the TSP backbone at full width (r2plus1d_34, BatchNorm
+     eps 1e-3, 16 x 112 x 112 clips, f32, TF32 off): extract_clip_features
+     at batch 8 on the seeded frames of three synthetic videos (7, 4 and 3
+     clips), one (n_clips, 512) array each, the card's features of 2 clips
+     within TSP_FEATURE_TOL x their max abs of the same weights' on the
+     CPU, clips/s (CUDA events); where cv2 imports, extract_features on a
+     video it writes, else a line saying so and decode_video_frames'
+     ImportError checked. Then the train step on the card against the
+     CPU from the same weights, batch TSP_CHECK_B, fc dropout off
+     (tsp_step_card_vs_cpu): in float64, two steps (the first at lr 0),
+     every parameter's change, BatchNorm running statistic's change and
+     SGD momentum buffer within TSP_F64_TOL x its CPU max abs; in float32,
+     the first step's momentum buffers of each against float64's, the
+     card's median error within TSP_F32_RATIO x the CPU's. Then
+     TSPTrainer with the TSP recipe's two heads (200 actions, 2 temporal
+     regions) and a 512-d GVF at batch 32: 3 steps (CUDA events each) and
+     one validation batch, finite history,
+     the frozen stem unchanged, layer4 moved, peak device memory; the
+     trained model written as a torchvision-named .pth, imported by
+     import_cli --backbone, and read back by extract_features' model:
+     its features equal the trainer's.
  15r. (after phase 11 of each workload) remat_trunk (CUTS['anet_remat'],
      CUTS['longvideo_remat']): the seeded train step with and without it,
      dropout on and seeded alike: every named gradient within 1e-6 (the
@@ -435,6 +472,13 @@ CUTS = {
     # and sets here (random weights at its published widths: the real files
     # are not in the repo)
     "anet_published": dict(huggingface_cache_dir=None),
+    # phase 27, the trainer's last options on the flagship: the caption cost
+    # at 1.0 (every yml publishes set_cost_caption 0) and two-stage queries
+    # (transformer_input_type gt_proposals). Scheduled sampling is the
+    # train step's ss_prob, run at the yml's scheduled_sampling_max_prob
+    "anet_caption_cost": dict(OFFLINE_ROBERTA, set_cost_caption=1.0),
+    "anet_gt_proposals": dict(OFFLINE_ROBERTA,
+                              transformer_input_type="gt_proposals"),
 }
 YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "longvideo": "ym_i3d_msvg_dvc.yml",
@@ -444,7 +488,9 @@ YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "anet_tal": "anet_tsp_msvg_dvc.yml",
         "anet_remat": "anet_tsp_msvg_dvc.yml",
         "longvideo_remat": "ym_i3d_msvg_dvc.yml",
-        "anet_published": "anet_tsp_msvg_dvc.yml"}
+        "anet_published": "anet_tsp_msvg_dvc.yml",
+        "anet_caption_cost": "anet_tsp_msvg_dvc.yml",
+        "anet_gt_proposals": "anet_tsp_msvg_dvc.yml"}
 
 
 def workload_cfg(name: str) -> dict:
@@ -515,6 +561,10 @@ TAL = dataclasses.replace(ANET, name="anet_tal", tag="tal",
                           cfg=workload_cfg("anet_tal"))
 PUBLISHED = dataclasses.replace(ANET, name="anet_published", tag="pub",
                                 cfg=workload_cfg("anet_published"))
+OPTIONS = {name: dataclasses.replace(ANET, name=f"anet_{name}", tag=tag,
+                                     cfg=workload_cfg(f"anet_{name}"))
+           for name, tag in (("caption_cost", "ccost"),
+                             ("gt_proposals", "gtp"))}
 REMAT = {"anet": workload_cfg("anet_remat"),
          "longvideo": workload_cfg("longvideo_remat")}
 
@@ -2484,9 +2534,11 @@ def build_train(w: Workload, dev, text=None, gpt_spec=None):
                         gpt_spec=gpt_spec)        # no device: the card
     check(next(model.parameters()).device == dev, "build_model's default "
           f"device is {next(model.parameters()).device}, not {dev}")
+    two_stage = cfg.transformer_input_type == "gt_proposals"
     statics = StepStatics(
         spec=LossSpec.from_config(cfg), enable_contrastive=w.contrastive,
-        caption_loss=cfg.caption_loss_coef > 0, two_stage=False,
+        caption_loss=cfg.caption_loss_coef > 0, two_stage=two_stage,
+        caption_cost=cfg.set_cost_caption > 0 and not two_stage,
         train_text_encoder=w.trains_text, disable_mid_caption_heads=False,
         enable_pos_emb_for_captioner=False, temporal_shapes=w.shapes,
         text_bf16=bool(getattr(cfg, "train_use_amp", False)),
@@ -2502,6 +2554,12 @@ def build_train(w: Workload, dev, text=None, gpt_spec=None):
             if k.startswith("contrastive_loss"):
                 weights[k] = cl_weight_at_epoch(cfg, CL_EPOCH)
         check(weights["contrastive_loss"] > 0, "contrastive weight")
+    if two_stage:
+        # the GT segments are the queries: no class or box loss (the train
+        # loop's rule, gvl_tpu_torch/train/loop.py)
+        for k in weights:
+            if k.startswith(("loss_ce", "loss_bbox", "loss_giou")):
+                weights[k] = 0.0
     batches = [train_batch(w, SEED, text), train_batch(w, SEED + 1, text)]
     if statics.caption_gpt:
         vocab = model.caption_head[0].spec.vocab_size
@@ -4244,6 +4302,420 @@ def phase_published(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 27
+N_OPTION_STEPS = 5
+
+
+class ForcedDraws:
+    """The scheduled-sampling draws of one forward, recorded from the
+    port's ss_draws on the first path and handed back in the same order on
+    the second, so that both paths sample the same tokens."""
+
+    def __init__(self, real):
+        self.real, self.draws, self.replay = real, [], None
+
+    def __call__(self, prev_lp, generator=None):
+        if self.replay is None:
+            self.draws.append(self.real(prev_lp, generator))
+            return self.draws[-1]
+        self.replay += 1
+        return self.draws[self.replay - 1]
+
+
+def option_paths_agree(tag, model, step, weights, batch, ss_prob) -> None:
+    """Phase 10's check of one option's step in train mode (scheduled
+    sampling needs it), dropout seeded alike on both paths and, at
+    ss_prob > 0, the kernel path's draws forced into the plain path's
+    chain: total loss to LOSS_TOL relative, each named gradient to GRAD_TOL
+    x its max abs (a parameter no loss reaches, the learnt queries under
+    gt_proposals, has no gradient on either path)."""
+    import gvl_tpu_torch.models.captioner as captioner
+    from gvl_tpu_torch.models.layers import set_msda_impl
+    forced = ForcedDraws(captioner.ss_draws)
+    res = {}
+    try:
+        captioner.ss_draws = forced
+        for impl in ("kernel", "ref"):
+            set_msda_impl(model, impl)
+            model.train()
+            model.zero_grad(set_to_none=True)
+            torch.manual_seed(SEED)
+            forced.replay = None if impl == "kernel" else 0
+            # the draws from a generator of their own (seed), so that the
+            # dropout masks' default generator is drawn alike on both paths
+            losses = step.forward_losses(batch, seed=SEED, ss_prob=ss_prob)
+            total = sum(losses[k] * weights[k] for k in losses
+                        if k in weights)
+            total.backward()
+            res[impl] = (total.item(), {
+                n: None if p.grad is None else p.grad.clone()
+                for n, p in model.named_parameters()})
+    finally:
+        captioner.ss_draws = forced.real
+        set_msda_impl(model, "kernel")
+        model.zero_grad(set_to_none=True)
+        model.eval()
+    check(forced.replay == len(forced.draws) and (
+        len(forced.draws) > 0) == (ss_prob > 0),
+        f"{tag}: {len(forced.draws)} draws recorded, {forced.replay} forced")
+    (kt, kg), (pt, pg) = res["kernel"], res["ref"]
+    rel = abs(kt - pt) / abs(pt)
+    check(rel <= LOSS_TOL, f"{tag}: total loss differs by {rel}")
+    worst, worst_name, n_none = 0.0, "", 0
+    for n, g in pg.items():
+        if g is None:
+            check(kg[n] is None, f"{tag}: {n} has a gradient on one path")
+            n_none += 1
+            continue
+        scale = g.abs().max().item()
+        err = (kg[n] - g).abs().max().item()
+        check(math.isfinite(err) and err <= GRAD_TOL * scale + GRAD_FLOOR,
+              f"{tag}: {n} kernel vs plain path gradient {err} > "
+              f"{GRAD_TOL} x {scale}")
+        if scale > GRAD_FLOOR and err / scale > worst:
+            worst, worst_name = err / scale, n
+    log(tag, f"kernel vs plain path, train mode, dropout seeded alike"
+             f"{', the same forced draws' if ss_prob > 0 else ''}: total loss "
+             f"{kt!r} / {pt!r} (relative {rel!r}); {len(pg) - n_none} named "
+             f"gradients, worst max abs diff / own max abs {worst!r} "
+             f"({worst_name}); {n_none} without a gradient on both paths")
+
+
+def phase_train_options(dev, text) -> dict:
+    """Phase 27: the caption cost, scheduled sampling and gt_proposals on
+    the flagship (see the docstring)."""
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    out = {}
+    ss_prob = float(ANET.cfg["scheduled_sampling_max_prob"])
+    for name, w, ss in (("caption_cost", OPTIONS["caption_cost"], 0.0),
+                        ("ss", ANET, ss_prob),
+                        ("gt_proposals", OPTIONS["gt_proposals"], 0.0)):
+        tag = {"ss": "ss"}.get(name, w.tag)
+        free_device_memory()
+        model, state, step, weights, batches = build_train(w, dev, text)
+        if name == "gt_proposals":
+            rs = np.random.RandomState(SEED)
+            for b in batches:         # proposals of different segments
+                b["gt_boxes"] = gt_fields(w, rs, np.full(w.train_B, 1))[
+                    "gt_boxes"]
+            check(not hasattr(model.transformer, "reference_points")
+                  and model.transformer.pos_trans.in_features == 512,
+                  "a two-stage model: pos_trans, no reference_points")
+            runner = EvalRunner(types.SimpleNamespace(**w.cfg), model,
+                                WordTranslator(), text)
+            eval_batches = list(synthetic_batches(w, N_BATCHES, SEED))
+            with tempfile.TemporaryDirectory() as tmp:
+                runner.run(eval_batches[:1], f"{tmp}/warm.json")
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                _, dvc, g_json, aux_json, losses = runner.run(
+                    eval_batches, f"{tmp}/dvc.json")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            out[f"{w.name}_eval"] = read_counts()
+            want = want_counts(w, N_BATCHES, train=False)
+            check(out[f"{w.name}_eval"] == want,
+                  f"{tag}: eval launches {out[w.name + '_eval']} != {want}")
+            check(len(dvc["results"]) == w.eval_B * N_BATCHES and
+                  check_finite_json(f"{tag} DVC JSON", dvc) > 0,
+                  f"{tag}: DVC JSON")
+            n = check_grounding(tag, eval_batches, g_json, aux_json)
+            log(tag, f"({card()}) gt_proposals eval: EvalRunner.run over "
+                     f"{N_BATCHES} batches of {w.eval_B} in {wall!r} s "
+                     f"({w.eval_B * N_BATCHES / wall!r} videos/s, host "
+                     f"clock, the queries the {w.max_gt} GT slots); "
+                     f"launches {out[w.name + '_eval']}; {n} grounding keys; "
+                     f"eval losses finite: "
+                     f"{all(math.isfinite(v) for v in losses.values())}")
+            del runner
+        option_paths_agree(tag, model, step, weights, batches[0], ss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, per_step = [], None
+        for i in range(N_OPTION_STEPS):
+            reset_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses = step(state, batches[i % 2], weights, ss, seed=i)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            per_step = per_step or read_counts()
+            check(all(math.isfinite(float(v)) for v in losses.values()),
+                  f"{tag}: step {i} losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        key = f"anet_{name}_train"
+        out[key] = per_step
+        want = want_counts(w, 1, train=True)
+        check(per_step == want, f"{tag}: launches {per_step} != {want}")
+        log(tag, f"({card()}) {name} train step (B={w.train_B}"
+                 f"{f', ss_prob {ss}' if ss else ''}): median "
+                 f"{statistics.median(times)!r} ms over {N_OPTION_STEPS} "
+                 f"steps {[round(t, 3) for t in times]}; peak device memory "
+                 f"{peak / 2**30!r} GiB; launches per step {per_step}; "
+                 f"loss_caption {float(losses['loss_caption'])!r}")
+        del model, state, step
+    free_device_memory()
+    return out
+
+
+# ---------------------------------------------------------------- phase 28
+TSP_BACKBONE = "r2plus1d_34"
+TSP_CLIP = (16, 112, 112)          # frames, height, width
+TSP_EXTRACT_B, TSP_TRAIN_B = 8, 32
+TSP_HEADS = (200, 2)               # ActivityNet actions; inside / outside
+TSP_VIDEO_FRAMES = (112, 64, 40)   # three synthetic videos: 7 + 4 + 3 clips
+TSP_STEPS = 3
+# card vs CPU, features of 2 clips through the 34-layer net, f32 with TF32
+# off: cuDNN's and the CPU's conv3d sum in other orders
+TSP_FEATURE_TOL = 1e-4             # x the features' max abs
+# The train step, card against CPU (tsp_step_card_vs_cpu), at batch
+# TSP_CHECK_B, fc dropout off, two steps from the same weights: the first at
+# lr 0 (a warm-up from 0 over the two steps), which sets the momentum
+# buffers and moves the running statistics but no weight, the second at
+# half TSP_CHECK_LR in every group, which reads the momentum and moves the
+# weights. The net's train-mode gradients at this init amplify rounding: in
+# float32 the CPU's own are ~5-7% (median over tensors) off float64's, the
+# card's alike, and a second step from weights that differ by rounding
+# differs by up to 1e-4 of its max abs even in float64 (on an NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md), hence the first step at lr 0. In float64:
+# each parameter's change, each BatchNorm running statistic's change and
+# each SGD momentum buffer within TSP_F64_TOL x its CPU max abs (the port's
+# code on the card, cuDNN's conv3d and its backward included, against the
+# CPU's; ~1e-7 at worst on that card). In float32, the first step's
+# momentum buffers (the gradient + weight decay) of the card and of the CPU
+# are each held to float64's, and the card's median error must stay within
+# TSP_F32_RATIO x the CPU's.
+TSP_CHECK_B, TSP_CHECK_LR = 4, 1e-4
+TSP_F64_TOL = 1e-5
+TSP_F32_RATIO = 2.0
+
+
+def tsp_step_card_vs_cpu(tag, cfg, dev, batches) -> None:
+    """The TSP train step (make_tsp_train_step) on the card against the
+    CPU from the card's init: the hand-written BatchNorm rule (momentum
+    0.01, biased variance), the SGD groups with weight decay and momentum
+    and cuDNN's conv3d backward, in float64 and in float32 (see above)."""
+    from gvl_tpu_torch.backbone import train_tsp
+    cfg = dataclasses.replace(cfg, lr_warmup_epochs=1, warmup_factor=0.0,
+                              backbone_lr=TSP_CHECK_LR, fc_lr=TSP_CHECK_LR)
+    init = None
+
+    def run(where, dtype, n_steps):
+        nonlocal init
+        st = train_tsp.create_tsp_train_state(cfg, SEED, 2, device=where)
+        if init is None:
+            init = {k: v.cpu().clone()
+                    for k, v in st.model.state_dict().items()}
+        st.model.to(dtype).load_state_dict(init)
+        st.model.dropout.p = 0.0
+        step = train_tsp.make_tsp_train_step(st, cfg)
+        bufs = []
+        for b in batches[:n_steps]:
+            step({k: v.astype(np.float64) if dtype == torch.float64
+                  and k != "labels" else v for k, v in b.items()})
+            bufs.append({n: st.optimizer.state[p]["momentum_buffer"]
+                         .detach().cpu().double().clone()
+                         for n, p in st.model.named_parameters()})
+        sd = {k: v.detach().cpu().clone()
+              for k, v in st.model.state_dict().items()}
+        del st, step
+        free_device_memory()
+        return sd, bufs
+
+    def rel(got, want):
+        return ((got - want).abs().max()
+                / want.abs().max().clamp(min=1e-300)).item()
+
+    card64, card64_bufs = run(dev, torch.float64, 2)
+    cpu64, cpu64_bufs = run("cpu", torch.float64, 2)
+    worst = {}
+    for k, want in cpu64.items():
+        if k.endswith("num_batches_tracked"):
+            check(int(card64[k]) == int(want) == 2,
+                  f"{tag}: {k} {int(card64[k])}")
+            continue
+        kind = "bn_stat" if "running" in k else "param"
+        d0 = init[k].double()
+        err = rel(card64[k] - d0, want - d0) if (want - d0).any() else \
+            (card64[k] - d0).abs().max().item()
+        check(err <= TSP_F64_TOL, f"{tag}: float64 card vs CPU {kind} "
+                                  f"change {k}: {err} > {TSP_F64_TOL}")
+        worst[kind] = max(worst.get(kind, (0.0, "")), (err, k))
+    for n, want in cpu64_bufs[-1].items():
+        err = rel(card64_bufs[-1][n], want)
+        check(err <= TSP_F64_TOL, f"{tag}: float64 card vs CPU momentum "
+                                  f"{n}: {err} > {TSP_F64_TOL}")
+        worst["momentum"] = max(worst.get("momentum", (0.0, "")), (err, n))
+    stem = [k for k in cpu64 if k.startswith("features.stem.")
+            and k.endswith(("weight", "bias"))]
+    check(all(torch.equal(card64[k], init[k].double()) for k in stem),
+          f"{tag}: the frozen stem moved on the card")
+    log(tag, f"({card()}) train step card vs CPU in float64, 2 steps of "
+             f"{TSP_CHECK_B} clips from the same weights, dropout off, lr 0 "
+             f"then {TSP_CHECK_LR / 2}: {len(cpu64_bufs[-1])} "
+             f"parameters' changes and momentum buffers and "
+             f"{sum('running' in k for k in cpu64)} BatchNorm statistics' "
+             f"changes within {TSP_F64_TOL} x their max abs; worst "
+             + "; ".join(f"{k} {v[0]!r} ({v[1]})"
+                         for k, v in sorted(worst.items())))
+
+    stats = []
+    for where in (dev, "cpu"):
+        _, bufs = run(where, torch.float32, 1)
+        e = sorted(rel(bufs[0][n], want)
+                   for n, want in card64_bufs[0].items())
+        stats.append((float(np.median(e)), float(np.percentile(e, 90)),
+                      e[-1]))
+    on_card, on_cpu = stats
+    check(on_card[0] <= TSP_F32_RATIO * on_cpu[0],
+          f"{tag}: float32 gradients, card {on_card} against the CPU's "
+          f"{on_cpu} (median, 90th percentile, worst vs float64)")
+    log(tag, f"({card()}) one float32 step's momentum buffers against "
+             f"float64's (median / 90th percentile / worst over "
+             f"{len(card64_bufs[0])} tensors of max abs diff / max abs): "
+             f"card {on_card!r}, CPU {on_cpu!r}; the card's median within "
+             f"{TSP_F32_RATIO} x the CPU's")
+
+
+def phase_tsp(dev) -> None:
+    """Phase 28: the TSP backbone at full width (see the docstring)."""
+    import copy as copy_module
+
+    from gvl_tpu_torch import import_cli
+    from gvl_tpu_torch.backbone import train_tsp, tsp
+    tag = "tsp"
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+        log(tag, "cv2 is not installed on this machine: extraction runs "
+                 "from decoded frames (extract_clip_features); "
+                 "decode_video_frames raises ImportError naming cv2")
+        try:
+            tsp.decode_video_frames("missing.mp4")
+            check(False, "decode_video_frames without cv2")
+        except ImportError as e:
+            check("cv2" in str(e), f"the ImportError names cv2: {e}")
+    rs = np.random.RandomState(SEED)
+    T, Hc, Wc = TSP_CLIP
+    videos = []
+    for n in TSP_VIDEO_FRAMES:
+        frames = rs.rand(n, Hc, Wc, 3).astype(np.float32)
+        videos.append(tsp.make_clips((frames - tsp.CLIP_MEAN) / tsp.CLIP_STD,
+                                     T, T))
+    model = tsp.build_extractor(TSP_BACKBONE, device=dev)
+    check(model.features.stem[1].eps == 1e-3, "r2plus1d_34's BatchNorm eps")
+    feats = [tsp.extract_clip_features(model, c, TSP_EXTRACT_B)
+             for c in videos]
+    check([f.shape for f in feats] == [(len(c), 512) for c in videos]
+          and all(np.isfinite(f).all() for f in feats), "feature shapes")
+    cpu = copy_module.deepcopy(model).cpu()
+    ref = tsp.extract_clip_features(cpu, videos[0][:2], 2)
+    err = np.abs(feats[0][:2] - ref).max() / np.abs(ref).max()
+    check(err <= TSP_FEATURE_TOL, f"{tag}: card vs CPU features {err}")
+    del cpu
+    clips = np.concatenate(videos)
+    ms = cuda_median_ms(
+        lambda: tsp.extract_clip_features(model, clips, TSP_EXTRACT_B), 3, 1)
+    log(tag, f"({card()}) extraction {TSP_BACKBONE}, {T}x{Hc}x{Wc} clips, "
+             f"batch {TSP_EXTRACT_B}: {len(videos)} videos -> "
+             f"{[f.shape for f in feats]}; card vs CPU on 2 clips, max abs "
+             f"diff / max abs {err!r} (<= {TSP_FEATURE_TOL}); {len(clips)} "
+             f"clips in {ms!r} ms (median of 3, CUDA events, copies "
+             f"included): {len(clips) / ms * 1e3!r} clips/s")
+    if has_cv2:
+        with tempfile.TemporaryDirectory() as tmp:
+            import cv2
+            path = f"{tmp}/v0.avi"
+            vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 15,
+                                 (160, 120))
+            for _ in range(40):
+                vw.write(rs.randint(0, 255, (120, 160, 3), np.uint8))
+            vw.release()
+            written = tsp.extract_features([path], f"{tmp}/feats",
+                                           model=model)
+            check(np.load(written[0]).shape == (3, 512), "extract_features")
+            log(tag, "cv2 present: extract_features on a written video, "
+                     f"{np.load(written[0]).shape}")
+    del model
+    free_device_memory()
+
+    cfg = train_tsp.TSPTrainConfig(backbone=TSP_BACKBONE,
+                                   num_classes_list=TSP_HEADS, use_gvf=True,
+                                   backbone_lr=1e-4, epochs=1)
+
+    def batches(n, seed, B=TSP_TRAIN_B):
+        r = np.random.RandomState(seed)
+        for _ in range(n):
+            yield {"clips": r.randn(B, T, Hc, Wc, 3).astype(np.float32),
+                   "labels": [r.randint(0, TSP_HEADS[0], B),
+                              r.randint(-1, TSP_HEADS[1], B)],
+                   "gvf": r.randn(B, 512).astype(np.float32)}
+
+    tsp_step_card_vs_cpu(tag, cfg, dev, list(batches(
+        2, SEED + 2, TSP_CHECK_B)))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_tsp.TSPTrainer(cfg, lambda ep: batches(TSP_STEPS, SEED),
+                                   lambda: batches(1, SEED + 1),
+                                   steps_per_epoch=TSP_STEPS, device=dev)
+    stem0 = {k: v.clone() for k, v in trainer.model.state_dict().items()
+             if k.startswith("features.stem.") and k.endswith(("weight",
+                                                                 "bias"))}
+    body0 = trainer.model.features.layer4[0].conv1[0][0].weight.clone()
+    times, real_step = [], trainer._step
+
+    def timed_step(batch, seed=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        metrics = real_step(batch, seed)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        return metrics
+
+    trainer._step = timed_step
+    history = trainer.fit()
+    peak = torch.cuda.max_memory_allocated()
+    h = history[0]
+    check(len(times) == TSP_STEPS and all(
+        math.isfinite(v) for v in h.values()), f"{tag}: history {h}")
+    check(all(torch.equal(trainer.model.state_dict()[k], v)
+              for k, v in stem0.items()), f"{tag}: the frozen stem moved")
+    check(not torch.equal(trainer.model.features.layer4[0].conv1[0][0].weight,
+                          body0), f"{tag}: the residual stages did not move")
+    log(tag, f"({card()}) TSPTrainer {TSP_BACKBONE}, heads {TSP_HEADS} + "
+             f"GVF 512, batch {TSP_TRAIN_B} of {T}x{Hc}x{Wc}: "
+             f"{TSP_STEPS} steps {[round(t, 2) for t in times]} ms (median "
+             f"{statistics.median(times)!r} ms, the first with cuDNN's "
+             f"set-up), one validation batch; peak device memory "
+             f"{peak / 2**30!r} GiB; history {json.dumps(h)}; the stem "
+             "unchanged, layer4 moved")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = trainer.model.state_dict()
+        torch.save({"model": {k: v.cpu() for k, v in sd.items()}},
+                   f"{tmp}/tsp.pth")
+        res = import_cli.main(["--backbone", TSP_BACKBONE, "--pth",
+                               f"{tmp}/tsp.pth", "--out", f"{tmp}/bb"])
+        check(res["unused"] == res["unfilled"] == [], f"{tag}: import {res}")
+        model = tsp.build_extractor(TSP_BACKBONE, res["path"], dev)
+        got = tsp.extract_clip_features(model, videos[1], TSP_EXTRACT_B)
+        want = tsp.extract_clip_features(trainer.model, videos[1],
+                                         TSP_EXTRACT_B)
+        check(np.array_equal(got, want), f"{tag}: imported features")
+        log(tag, f"the trained model as a torchvision-named .pth "
+                 f"(features.*, fc1, fc2) -> import_cli --backbone in "
+                 f"{res['seconds']!r} s -> extract_features' model: its "
+                 f"features on {len(videos[1])} clips equal the trainer's")
+    del trainer, model
+    free_device_memory()
+
+
 # work -> (floats moved as multiples of value, out and the taps; FMAs per
 # tap and channel). fwd: value, loc, attn in, out out. bwd: value, grad_out,
 # loc, attn in, grad_value, grad_loc, grad_attn out; two dot products and
@@ -4429,8 +4901,10 @@ def main() -> None:
                 dev, text, f32_train)
             launches.update(phase_gpt2(dev, text))
             launches.update(phase_tal(dev, text))
+            launches.update(phase_train_options(dev, text))
             del text
             launches.update(phase_published(dev))
+            phase_tsp(dev)
             torch.cuda.empty_cache()
     rows = []
     for key, row, rname, source, replaces in (
@@ -4466,9 +4940,12 @@ def main() -> None:
                  "anet_tal_zeroshot_eval"):
         paths[path] = (ANET, False)
     paths["anet_published_eval_cli"] = (ANET, False)
+    paths["anet_gt_proposals_eval"] = (ANET, False)
     for path in ("anet_gpt2_train", "anet_gpt2_small_train",
                  "anet_tal_probe_train", "anet_remat_train",
-                 "anet_published_gpt2_train", "anet_published_train_cli"):
+                 "anet_published_gpt2_train", "anet_published_train_cli",
+                 "anet_caption_cost_train", "anet_ss_train",
+                 "anet_gt_proposals_train"):
         paths[path] = (ANET, True)
     paths["longvideo_remat_train"] = (LONG, True)
     for path, (w, train) in paths.items():

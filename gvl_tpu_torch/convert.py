@@ -12,6 +12,12 @@ parameters, so it maps the tree's gradients too. Takes numpy, so it runs
 wherever the JAX parameters can be saved as arrays (e.g. an .npz of the
 flattened tree).
 
+The trunk's query inputs: `reference_points` -> `transformer.
+reference_points` in query mode; in a two-stage model (arch.two_stage,
+initialised with proposals, gvl_tpu/train/loop.py:73-74) `pos_trans` and
+`pos_trans_norm` -> `transformer.pos_trans` and `transformer.
+pos_trans_norm` instead, as each JAX tree holds only its mode's.
+
 Heads (flax path -> state_dict name; i a decoder layer, k a caption head
 index, j a layer of an MLP; a shared flax module, index 0, fills every port
 index):
@@ -109,7 +115,11 @@ def jax_params_to_state_dict(params_np: Mapping, arch: GVLArch
 
     # ---- transformer
     sd["transformer.level_embed"] = take("level_embed")
-    dense("reference_points", "transformer.reference_points")
+    if arch.two_stage:
+        dense("pos_trans", "transformer.pos_trans")
+        norm("pos_trans_norm", "transformer.pos_trans_norm")
+    else:
+        dense("reference_points", "transformer.reference_points")
     for i in range(arch.enc_layers):
         fp, tp = f"encoder/layer_{i}", f"transformer.encoder.layers.{i}"
         msda(f"{fp}/self_attn", f"{tp}.self_attn")
@@ -394,3 +404,48 @@ def jax_grads_to_named(grads_np: Mapping, arch: GVLArch
     return {k: v for k, v in named.items()
             if not any(k.startswith(p) and not k.startswith(p + "0.")
                        for p in shared)}
+
+
+def jax_tsp_to_state_dict(variables_np: Mapping, backbone: str,
+                          num_classes_list=(200,), use_gvf: bool = False
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX TSPModel's variables ({'params': ..., 'batch_stats': ...},
+    numpy) -> the state_dict of gvl_tpu_torch.backbone.r2plus1d.TSPModel
+    with the same heads (the inverse of gvl_tpu/backbone/import_torch.py):
+    conv kernels (kT, kH, kW, I, O) -> (O, I, kT, kH, kW), Dense kernels
+    transposed, BatchNorm scale / bias / mean / var -> weight / bias /
+    running_mean / running_var; num_batches_tracked 0. Raises if a variable
+    is left unmapped."""
+    from gvl_tpu_torch.backbone.import_torch import flax_path
+    from gvl_tpu_torch.backbone.r2plus1d import TSPModel
+    with torch.device("meta"):
+        model = TSPModel(num_classes_list, backbone, use_gvf, device="meta")
+    src = {}
+    for coll in ("params", "batch_stats"):
+        src.update({(coll,) + tuple(k.split("/")): v for k, v in
+                    _flatten(variables_np.get(coll, {})).items()})
+    heads = {h: f"fc_{i}" for i, h in enumerate(model.heads)}
+    sd, read = {}, set()
+    for name, t in model.state_dict().items():
+        head, rest = name.split(".", 1)
+        key = f"{heads[head]}.{rest}" if head in heads else rest
+        mapped = flax_path(key, backbone)
+        if mapped is None:
+            sd[name] = torch.zeros((), dtype=t.dtype)
+            continue
+        coll, path, kind = mapped
+        full = (coll,) + path
+        if full not in src:
+            raise KeyError(f"flax variable {'/'.join(full)} missing")
+        read.add(full)
+        arr = np.asarray(src[full], np.float32)
+        if kind == "conv":
+            arr = np.transpose(arr, (4, 3, 0, 1, 2))
+        elif kind == "dense":
+            arr = arr.T
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    unmapped = sorted("/".join(k) for k in set(src) - read)
+    if unmapped:
+        raise KeyError(f"flax variables with no place in the port: "
+                       f"{unmapped}")
+    return sd

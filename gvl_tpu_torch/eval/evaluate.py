@@ -108,13 +108,6 @@ def reranking(p_src: str, alpha: float, cl_score_weight: float,
     return save_path
 
 
-def _check_ported(cfg: Any) -> None:
-    """Raise NotImplementedError naming the first eval option of `cfg`
-    that the port does not run yet."""
-    if getattr(cfg, "transformer_input_type", "queries") != "queries":
-        raise NotImplementedError("only query-mode eval is ported")
-
-
 def tal_submission(out_json: Dict, name_map) -> Dict:
     """The TAL JSON of a DVC result dict (evaluate.py:491-504, reference
     eval_utils.collect_tal_result): each prediction's class index named by
@@ -169,7 +162,6 @@ class EvalRunner:
 
     def __init__(self, cfg: Any, model, translator, text_encoder=None,
                  gpt_decode=None):
-        _check_ported(cfg)
         if getattr(cfg, "enable_contrastive", False) and text_encoder is None:
             raise ValueError("EvalRunner: enable_contrastive needs the text "
                              "encoder (models.text_encoder.load_text_encoder)")
@@ -247,16 +239,24 @@ class EvalRunner:
         mask = self._tensor(arrs["video_mask"], torch.bool)
         duration = self._tensor(arrs["duration"])
         shapes = pyramid_shapes(feats.shape[1], cfg.num_feature_levels)
-        if self.full_bf16:
-            with bf16_parameters(self.model, promote=True):
-                out = self.model(feats.to(BF16), mask, duration)
-            out = cast_floats(out, BF16, torch.float32)
-        else:
-            out = self.model(feats, mask, duration)
-        result: Dict[str, Any] = {}
-        text_out = gt_mask = None
+        gt_mask = None
         if "gt_mask" in arrs:
             gt_mask = self._tensor(arrs["gt_mask"], torch.bool)
+        proposals = {}
+        if self.model.arch.two_stage:
+            # the GT segments are the queries (evaluate.py:106-128); bf16
+            # under eval_full_bf16, as the trunk
+            boxes = self._tensor(arrs["gt_boxes"])
+            proposals = dict(proposals=boxes.to(BF16) if self.full_bf16
+                             else boxes, proposals_mask=gt_mask)
+        if self.full_bf16:
+            with bf16_parameters(self.model, promote=True):
+                out = self.model(feats.to(BF16), mask, duration, **proposals)
+            out = cast_floats(out, BF16, torch.float32)
+        else:
+            out = self.model(feats, mask, duration, **proposals)
+        result: Dict[str, Any] = {}
+        text_out = None
         if self.contrastive:
             text_out = self._text(self._tensor(arrs["text_ids"]),
                                   self._tensor(arrs["text_mask"]), gt_mask,

@@ -192,15 +192,13 @@ _REFUSED = (
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError naming the first option of `cfg` that the
     port's eval does not run yet: the options of `_REFUSED`, then those
-    the model, the text encoder and EvalRunner refuse. Builds nothing."""
-    from gvl_tpu_torch.eval import evaluate
+    the model and the text encoder refuse. Builds nothing."""
     from gvl_tpu_torch.models import gvl, text_encoder
     for name, what, where in _REFUSED:
         if cfg.get(name, False):
             raise NotImplementedError(
                 f"eval_cli: {what} is not ported yet ({where})")
     gvl._check_ported(gvl.GVLArch.from_config(cfg))
-    evaluate._check_ported(cfg)
     if cfg.enable_contrastive:
         text_encoder._check_ported(cfg)
 

@@ -12,7 +12,9 @@ head runs beam search (`sample_beam`). Teacher forcing: logprobs (`forward`)
 and, for the LSTM heads, the fused per-event NLL (`teacher_forced_nll`).
 Under the bf16 options the caller casts the head's parameters and its query
 and memory (gvl_tpu_torch/utils/amp.py); the logsumexp and the chosen-token
-logprobs stay f32 here. Scheduled sampling is not ported.
+logprobs stay f32 here. Scheduled sampling (the LSTM-DSA head's `forward`
+at ss_prob > 0 in train mode) runs the serial chain, its draws by
+`ss_draws`.
 
 Parameter names: the LSTM-DSA head follows the reference
 pdvc/CaptioningHead/LSTM_DSA.py state_dict (`embed`, `logit`, `core.rnn`,
@@ -90,6 +92,21 @@ def draw_tokens(z: torch.Tensor, temperature: float,
     flat = probs.reshape(-1, probs.shape[-1])
     return torch.multinomial(flat, 1, generator=generator).reshape(
         z.shape[:-1])
+
+
+def ss_draws(prev_lp: torch.Tensor, generator: torch.Generator = None):
+    """The draws of one scheduled-sampling step (captioner.py:438-443): a
+    token per event from the previous step's distribution exp(prev_lp)
+    (B, Ne, V+1), and a number per event uniform in [0, 1); the token
+    replaces the teacher's where the number is below ss_prob. Drawn with
+    `generator` (the device's default one when None). Returns (tokens
+    int64, numbers f32), each (B, Ne)."""
+    flat = prev_lp.detach().float().exp().reshape(-1, prev_lp.shape[-1])
+    tokens = torch.multinomial(flat, 1, generator=generator).reshape(
+        prev_lp.shape[:-1])
+    numbers = torch.rand(prev_lp.shape[:-1], generator=generator,
+                         device=prev_lp.device)
+    return tokens, numbers
 
 
 # Early exit reads whether any caption is unfinished every this many steps
@@ -358,19 +375,31 @@ class LSTMDSACaptioner(nn.Module):
 
     def forward(self, query, reference, memory, memory_mask, temporal_shapes,
                 valid_ratios, seq, ss_prob: float = 0.0,
-                ref_prepared: bool = False):
+                ref_prepared: bool = False,
+                generator: torch.Generator = None):
         """Teacher-forced logprobs (B, Ne, Lc-1, V+1) for seq (B, Ne, Lc).
         All Lc-1 steps are computed and the loss masks them. Port of
-        captioner.py:395-424; scheduled sampling (ss_prob > 0 in train mode)
-        is not ported."""
-        if self.training and ss_prob > 0:
-            raise NotImplementedError(
-                "scheduled sampling (ss_prob > 0) is not ported yet")
+        captioner.py:395-450. Scheduled sampling (ss_prob > 0 in train
+        mode) runs the serial chain: from step 1 on, each event's input
+        token is drawn from the previous step's logprobs with probability
+        ss_prob (`ss_draws`, with `generator`), else the teacher's."""
         ref, value, shapes = self._prepare(reference, valid_ratios,
                                            temporal_shapes, memory,
                                            memory_mask, ref_prepared)
-        hs = self._tf_hidden_states(seq, query, ref, value, shapes)
-        return torch.log_softmax(self.logit(hs).float(), dim=-1)
+        if not (self.training and ss_prob > 0):
+            hs = self._tf_hidden_states(seq, query, ref, value, shapes)
+            return torch.log_softmax(self.logit(hs).float(), dim=-1)
+        zeros = query.new_zeros(seq.shape[:2] + (self.rnn_size,))
+        carry, prev, outs = (zeros, zeros), None, []
+        for t in range(seq.shape[-1] - 1):
+            it = seq[:, :, t].long()
+            if prev is not None:
+                tokens, numbers = ss_draws(prev, generator)
+                it = torch.where(numbers < ss_prob, tokens, it)
+            carry, z = self._step(it, carry, query, ref, value, shapes)
+            prev = log_softmax_f32(z)
+            outs.append(prev)
+        return torch.stack(outs, dim=2)
 
     def sample(self, query, reference, memory, memory_mask, temporal_shapes,
                valid_ratios, greedy: bool = True, temperature: float = 1.0,

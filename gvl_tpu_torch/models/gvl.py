@@ -1,5 +1,6 @@
-"""The GVL model in query mode: PDVC-style deformable-transformer event
-detector, its heads and its caption head.
+"""The GVL model: PDVC-style deformable-transformer event detector, its
+heads and its caption head, with learnt queries or, two-stage
+(transformer_input_type 'gt_proposals'), the GT segments as queries.
 
 Port of gvl_tpu/models/gvl.py for the dense-captioning eval path, the
 train step (trunk in train mode, teacher-forced captions) and the
@@ -12,7 +13,8 @@ caption heads 'standard' (LSTM-DSA), 'light', 'transformer', 'gpt2'
 `caption_sample_gpt`) and 'none' (gvl.py:316-344), with greedy, sampled,
 early-exit and (LSTM-DSA) beam decode. With remat_trunk each encoder and
 decoder layer is checkpointed (models/transformer.py run_layer).
-Two-stage / proposal queries are refused by the EvalRunner. Parameter names
+In two-stage mode the decoder's queries are the embedded GT segments and
+the boxes are not refined (gvl.py:370-405). Parameter names
 follow the reference pdvc/pdvc.py state_dict. The text encoder itself lives
 beside the model (gvl_tpu_torch/models/text_encoder.py), as in the JAX
 package.
@@ -40,7 +42,8 @@ from gvl_tpu_torch.models.text import (SentenceContextBlock, bert_head_count,
                                        pool_words)
 from gvl_tpu_torch.models.transformer import (DeformableTransformer,
                                               expand_reference_for_levels,
-                                              flatten_levels, run_layer)
+                                              flatten_levels,
+                                              proposal_pos_embed, run_layer)
 from gvl_tpu_torch.utils.amp import bf16_parameters
 from gvl_tpu_torch.utils.boxes import inverse_sigmoid
 
@@ -94,6 +97,7 @@ class GVLArch:
     msda_impl: str = "pallas"     # 'ref': the dense kernel at every S
     msda_band_margin: int = 32
     remat_trunk: bool = False     # checkpoint each encoder / decoder layer
+    two_stage: bool = False       # transformer_input_type == 'gt_proposals'
     dropout: float = 0.1          # transformer_dropout_prob
     drop_prob: float = 0.5        # caption head, on the cell output
     # the gpt2 caption head's spec (gvl.py:100-124), from load_gpt2_spec
@@ -180,6 +184,8 @@ class GVLArch:
             msda_impl=get("msda_impl", "pallas"),
             msda_band_margin=int(get("msda_band_margin", 32)),
             remat_trunk=bool(get("remat_trunk", False)),
+            two_stage=get("transformer_input_type", "queries")
+            == "gt_proposals",
             dropout=float(get("transformer_dropout_prob", 0.1)),
             drop_prob=float(get("drop_prob", 0.5)),
         )
@@ -215,7 +221,8 @@ class GVLModel(nn.Module):
         self.transformer = DeformableTransformer(
             a.hidden_dim, a.ff_dim, a.enc_layers, a.dec_layers,
             a.num_feature_levels, a.nheads, a.enc_n_points, a.dec_n_points,
-            band_margin, a.dropout, a.remat_trunk, device=device)
+            band_margin, a.dropout, a.remat_trunk, a.two_stage,
+            device=device)
         self.query_embed = nn.Embedding(a.num_queries, a.hidden_dim * 2,
                                         device=device)
 
@@ -342,22 +349,39 @@ class GVLModel(nn.Module):
                 last.bias[1] = self.arch.box_head_init_bias
 
     # ------------------------------------------------------------------ trunk
-    def forward(self, feats, feat_mask, duration) -> Dict[str, Any]:
-        """Query-mode trunk. Port of GVLModel.__call__ (gvl.py:347-427)."""
+    def forward(self, feats, feat_mask, duration, proposals=None,
+                proposals_mask=None) -> Dict[str, Any]:
+        """The trunk. Port of GVLModel.__call__ (gvl.py:347-427): learnt
+        queries, or in a two-stage model the proposals (B, G, 2) (center,
+        length) in [0, 1] with their mask proposals_mask (B, G), whose
+        embedding gives the queries (one per proposal, the masked ones kept
+        out of the self-attention's keys); then every layer's boxes are the
+        proposals, not refined (disable_iterative_refine)."""
         a = self.arch
         B = feats.shape[0]
         tr = self.transformer
+        if a.two_stage != (proposals is not None):
+            raise ValueError("GVLModel: a two-stage model takes proposals "
+                             "and proposals_mask, a query-mode one neither")
         srcs, masks, poses = self.base_encoder(feats, feat_mask, duration)
         src_flat, mask_flat, pos_flat, shapes, valid_ratios = flatten_levels(
             srcs, masks, poses, tr.level_embed)
         memory = tr.encoder(src_flat, pos_flat, mask_flat, shapes, valid_ratios)
 
-        q = self.query_embed.weight
-        query_pos = q[None, :, :a.hidden_dim].expand(B, -1, -1)
-        tgt = q[None, :, a.hidden_dim:].expand(B, -1, -1)
-        ref = torch.sigmoid(tr.reference_points(query_pos))          # (B,Nq,1)
-        qmask = torch.ones((B, a.num_queries), dtype=torch.bool,
-                           device=feats.device)
+        if proposals is None:
+            q = self.query_embed.weight
+            query_pos = q[None, :, :a.hidden_dim].expand(B, -1, -1)
+            tgt = q[None, :, a.hidden_dim:].expand(B, -1, -1)
+            ref = torch.sigmoid(tr.reference_points(query_pos))      # (B,Nq,1)
+            qmask = torch.ones((B, a.num_queries), dtype=torch.bool,
+                               device=feats.device)
+        else:
+            ref = proposals                                          # (B,G,2)
+            pos = tr.pos_trans_norm(tr.pos_trans(
+                proposal_pos_embed(inverse_sigmoid(proposals))))
+            query_pos, tgt = pos.chunk(2, dim=-1)
+            qmask = proposals_mask.bool()
+        refine = a.with_box_refine and proposals is None
 
         hs_list, ref_before_list = [], []
         out = tgt
@@ -367,15 +391,18 @@ class GVLModel(nn.Module):
                             memory, mask_flat, shapes, qmask)
             hs_list.append(out)
             ref_before_list.append(ref)
-            if a.with_box_refine:
+            if refine:
                 ref = self._refine(self.bbox_head[lid](out), ref).detach()
 
         logits, counts, coords, event_embeds = [], [], [], []
         for lid, h in enumerate(hs_list):
             logits.append(self.class_head[lid](h))
             counts.append(self.count_head[lid](h.amax(dim=1)))
-            coords.append(self._refine(self.bbox_head[lid](h),
-                                       ref_before_list[lid]))
+            if proposals is None:
+                coords.append(self._refine(self.bbox_head[lid](h),
+                                           ref_before_list[lid]))
+            else:
+                coords.append(proposals)
             if a.enable_contrastive:
                 event_embeds.append(self.contrastive_projection_event[lid](h))
         out = {
@@ -469,16 +496,20 @@ class GVLModel(nn.Module):
 
     def caption_train(self, layer_id: int, query, reference, memory,
                       memory_mask, temporal_shapes, valid_ratios, seq,
-                      ss_prob: float = 0.0, ref_prepared: bool = False):
+                      ss_prob: float = 0.0, ref_prepared: bool = False,
+                      generator: torch.Generator = None):
         """Teacher-forced logprobs (B, Ne, Lc-1, V+1) of the layer's caption
-        head (gvl.py:474-489). Prepared references (ref_prepared) are read by
-        the LSTM-DSA head and ignored by the light one, which reads no
-        reference; the other heads refuse them."""
+        head (gvl.py:474-489). Scheduled sampling (ss_prob, its draws from
+        `generator`) is the LSTM-DSA head's alone; the others teacher-force.
+        Prepared references (ref_prepared) are read by the LSTM-DSA head and
+        ignored by the light one, which reads no reference; the other heads
+        refuse them."""
         head = self.caption_head[layer_id]
         args = (query, reference, memory, memory_mask, temporal_shapes,
                 valid_ratios, seq)
         if isinstance(head, LSTMDSACaptioner):
-            return head(*args, ss_prob=ss_prob, ref_prepared=ref_prepared)
+            return head(*args, ss_prob=ss_prob, ref_prepared=ref_prepared,
+                        generator=generator)
         _refuse_prepared(head, ref_prepared)
         return head(*args)
 

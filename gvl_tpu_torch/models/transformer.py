@@ -1,8 +1,9 @@
 """Deformable transformer encoder/decoder over the temporal pyramid.
 
-Port of gvl_tpu/models/transformer.py (query mode; the two-stage proposal
-embedding is not ported). Dropout sits where the JAX modules have it and is
-live under `.train()` only. With `remat` (the config's remat_trunk,
+Port of gvl_tpu/models/transformer.py, with the two-stage proposal
+embedding (`proposal_pos_embed`; `pos_trans` / `pos_trans_norm` on the
+DeformableTransformer of a two-stage model). Dropout sits where the JAX
+modules have it and is live under `.train()` only. With `remat` (the config's remat_trunk,
 transformer.py:128-139, gvl.py:209-214) each encoder and decoder layer runs
 under `torch.utils.checkpoint` (`run_layer`): its activations are recomputed
 in the backward instead of stored, with the random state of the forward, so
@@ -76,6 +77,19 @@ def expand_reference_for_levels(reference_points: torch.Tensor,
         vr = torch.stack([valid_ratios, valid_ratios], -1)         # (B, L, 2)
         return reference_points[:, :, None, :] * vr[:, None, :, :]
     return reference_points[:, :, None, :] * valid_ratios[:, None, :, None]
+
+
+def proposal_pos_embed(boxes_logit: torch.Tensor, num_pos_feats: int = 256,
+                       temperature: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding of (center, length) proposals given before the
+    sigmoid (transformer.py:65-78): (B, N, 2) -> (B, N, 2 * num_pos_feats)."""
+    i = torch.arange(num_pos_feats, dtype=torch.float32,
+                     device=boxes_logit.device)
+    dim_t = temperature ** (2 * torch.floor(i / 2) / num_pos_feats)
+    pos = (torch.sigmoid(boxes_logit) * (2 * math.pi))[..., None] / dim_t
+    pos = torch.stack([torch.sin(pos[..., 0::2]), torch.cos(pos[..., 1::2])],
+                      dim=-1)
+    return pos.reshape(pos.shape[0], pos.shape[1], -1)
 
 
 class FFN(nn.Module):
@@ -206,13 +220,16 @@ class DeformableDecoder(nn.Module):
 
 class DeformableTransformer(nn.Module):
     """Parameter container with the reference's `transformer.*` names:
-    level_embed, encoder, decoder and the query-mode reference-point head."""
+    level_embed, encoder, decoder, and the query-mode reference-point head
+    or, with two_stage (gt_proposals queries), the proposal embedding's
+    `pos_trans` and `pos_trans_norm` instead: the JAX package creates each
+    only in the mode that calls it (gvl.py:228-231, loop.py:73-74)."""
 
     def __init__(self, d_model: int, d_ffn: int, enc_layers: int,
                  dec_layers: int, n_levels: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int,
                  band_margin: int = 32, dropout: float = 0.1,
-                 remat: bool = False, device=None):
+                 remat: bool = False, two_stage: bool = False, device=None):
         super().__init__()
         self.level_embed = nn.Parameter(
             torch.empty(n_levels, d_model, device=device))
@@ -223,10 +240,17 @@ class DeformableTransformer(nn.Module):
             [DeformableDecoderLayer(d_model, d_ffn, n_levels, n_heads,
                                     dec_n_points, dropout, device=device)
              for _ in range(dec_layers)])
-        self.reference_points = nn.Linear(d_model, 1, device=device)
+        if two_stage:
+            # the input is proposal_pos_embed's 512 features, whatever d_model
+            self.pos_trans = nn.Linear(512, 2 * d_model, device=device)
+            self.pos_trans_norm = nn.LayerNorm(2 * d_model, eps=1e-5,
+                                               device=device)
+        else:
+            self.reference_points = nn.Linear(d_model, 1, device=device)
 
     def flax_init_(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.level_embed, 0.0, 1.0, generator=generator)
-        nn.init.xavier_uniform_(self.reference_points.weight,
-                                generator=generator)
-        self.reference_points.bias.zero_()
+        if hasattr(self, "reference_points"):
+            nn.init.xavier_uniform_(self.reference_points.weight,
+                                    generator=generator)
+            self.reference_points.bias.zero_()

@@ -34,6 +34,10 @@ import torch
 from torch import nn
 
 
+# a train state's optimizers and schedules, as a checkpoint names them
+_OPTIMIZERS = ("optimizer", "scheduler", "text_optimizer", "text_scheduler")
+
+
 def _cpu_state(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in module.state_dict().items()}
 
@@ -63,7 +67,9 @@ class CheckpointManager:
         """Write the checkpoint `name` (replacing one of that name) and
         return its path; the file appears whole or not at all. With the
         TrainState `state` (whose model and text encoder these are), its
-        optimizers, schedules and step counter are written too."""
+        optimizers, schedules and step counter are written too (a state
+        without text_optimizer, scheduler or text_scheduler attributes, as
+        the TSP trainer's, has None for them)."""
         payload = {"model": _cpu_state(model),
                    "text_encoder": None if text_encoder is None
                    else _cpu_state(text_encoder),
@@ -72,9 +78,7 @@ class CheckpointManager:
             def sd(obj):
                 return None if obj is None else _cpu_tree(obj.state_dict())
             payload.update(
-                optimizer=sd(state.optimizer), scheduler=sd(state.scheduler),
-                text_optimizer=sd(state.text_optimizer),
-                text_scheduler=sd(state.text_scheduler),
+                {attr: sd(getattr(state, attr, None)) for attr in _OPTIMIZERS},
                 step=int(state.step))
         path = self._path(name)
         tmp = path + ".tmp"
@@ -97,23 +101,21 @@ class CheckpointManager:
             raise ValueError(f"checkpoint {name} holds weights only; resume "
                              "needs one saved with its train state")
         state.model.load_state_dict(payload["model"], strict=True)
-        if state.text_encoder is not None and \
-                payload["text_encoder"] is not None:
-            state.text_encoder.load_state_dict(payload["text_encoder"],
-                                               strict=True)
-        for attr in ("optimizer", "scheduler", "text_optimizer",
-                     "text_scheduler"):
-            obj, saved = getattr(state, attr), payload[attr]
+        text = getattr(state, "text_encoder", None)
+        if text is not None and payload["text_encoder"] is not None:
+            text.load_state_dict(payload["text_encoder"], strict=True)
+        for attr in _OPTIMIZERS:
+            obj, saved = getattr(state, attr, None), payload[attr]
             if (obj is None) != (saved is None):
                 raise ValueError(f"checkpoint {name}: {attr} is "
                                  f"{'missing' if saved is None else 'extra'}"
                                  " for this train state")
             if obj is not None:
                 obj.load_state_dict(saved)
-        for opt, sched in ((state.optimizer, state.scheduler),
-                           (state.text_optimizer, state.text_scheduler)):
-            if sched is not None:
-                _resync_lr(opt, sched)
+        for opt, sched in (("optimizer", "scheduler"),
+                           ("text_optimizer", "text_scheduler")):
+            if getattr(state, sched, None) is not None:
+                _resync_lr(getattr(state, opt), getattr(state, sched))
         state.step = int(payload["step"])
         return payload
 
@@ -151,6 +153,8 @@ _JAX_TOP = (
     (r"transformer\.level_embed$", "level_embed"),
     (r"transformer\.encoder\.", "encoder"),
     (r"transformer\.reference_points\.", "reference_points"),
+    (r"transformer\.pos_trans\.", "pos_trans"),
+    (r"transformer\.pos_trans_norm\.", "pos_trans_norm"),
     (r"transformer\.decoder\.layers\.(\d+)\.", r"decoder_layer_\1"),
     (r"query_embed\.", "query_embed"),
     (r"class_head\.(\d+)\.", r"class_head_\1"),

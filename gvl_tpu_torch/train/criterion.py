@@ -7,8 +7,9 @@ weighted (they are not in `make_weight_dict`). The contrastive side is the
 matcher's cosine cost (`cl_match_matrix`, gated by the contrastive weight's
 schedule) and the InfoNCE `contrastive_loss`. SCST's many-to-one
 assignment is `match_layer_m2o`, which `compute_criterion` runs beside the
-one-to-one match with `rl_m2o_rate > 0`. Not ported yet, raising
-NotImplementedError by name: the caption cost (`set_cost_caption > 0`).
+one-to-one match with `rl_m2o_rate > 0`. The caption cost: given each
+layer's caption NLL of every (query, GT) pair, `compute_criterion` adds it
+to the matching cost and takes the caption loss from its matched entries.
 """
 
 from __future__ import annotations
@@ -62,11 +63,6 @@ class LossSpec:
         return cls(**{f.name: type(getattr(d, f.name))(
             getattr(cfg, names.get(f.name, f.name), getattr(d, f.name)))
             for f in dataclasses.fields(cls)})
-
-
-def _not_ported(name: str, what: str):
-    raise NotImplementedError(f"{name}: {what} is not ported yet "
-                              "(ROADMAP Queue 1)")
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -329,15 +325,18 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
     videos from every term; cl_gate scales the contrastive cost
     (`build_match_cost`). With rl_m2o_rate > 0 the same stacked costs also
     go through `match_layer_m2o`, and one (match_q, valid) pair per layer
-    is appended to the list rl_matches (criterion.py:428-438)."""
+    is appended to the list rl_matches (criterion.py:428-438).
+
+    cap_costs: one (B, Nq, G) caption NLL of every (query, GT) pair per
+    layer, or None. It joins the matching cost, weighted by
+    spec.set_cost_caption, at the valid GT slots and without gradient, and
+    its matched entries become 'loss_caption': the mean over each video's
+    valid GTs, then over the videos that have one (criterion.py:419-450)."""
     contrastive = text_embeds_per_layer is not None
     if contrastive and "event_embed" not in outputs:
         raise ValueError("compute_criterion: text embeddings given, but the "
                          "outputs have no event_embed (enable_contrastive "
                          "is off)")
-    if cap_costs is not None or spec.set_cost_caption > 0:
-        _not_ported("compute_criterion",
-                    "the caption cost (cap_costs, set_cost_caption > 0)")
     Ld, B = outputs["pred_logits"].shape[:2]
     row_maskf = None
     if row_mask is not None:
@@ -346,14 +345,18 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
     num_boxes = gt_mask.sum().float().clamp(min=1.0)
 
     with torch.no_grad():
-        cost_all = torch.cat([
-            build_match_cost(outputs["pred_logits"][l],
-                             outputs["pred_boxes"][l], gt_boxes, gt_labels,
-                             gt_mask, spec,
-                             cl_match_matrix(outputs["event_embed"][l],
-                                             text_embeds_per_layer[l])
-                             if contrastive else None, cl_gate)
-            for l in range(Ld)])
+        costs = [build_match_cost(outputs["pred_logits"][l],
+                                  outputs["pred_boxes"][l], gt_boxes,
+                                  gt_labels, gt_mask, spec,
+                                  cl_match_matrix(outputs["event_embed"][l],
+                                                  text_embeds_per_layer[l])
+                                  if contrastive else None, cl_gate)
+                 for l in range(Ld)]
+        if cap_costs is not None and spec.set_cost_caption > 0:
+            costs = [c + spec.set_cost_caption * torch.where(
+                gt_mask[:, None, :], cap, torch.zeros_like(cap))
+                for c, cap in zip(costs, cap_costs)]
+        cost_all = torch.cat(costs)
         mask_all = gt_mask.repeat(Ld, 1)
         match_qs = match_layer(cost_all, mask_all,
                                spec.matcher_impl).reshape(Ld, B, -1)
@@ -364,9 +367,17 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
                               for l in range(Ld))
 
     losses: Dict[str, torch.Tensor] = {}
+    gtf = gt_mask.float()
+    has_any = gt_mask.any(-1).float()
     for l in range(Ld):
         logits = outputs["pred_logits"][l]
         suffix = "" if l == Ld - 1 else f"_{l}"
+        if cap_costs is not None:
+            matched = torch.gather(cap_costs[l], 1,
+                                   match_qs[l][:, None, :])[:, 0]   # (B, G)
+            per_video = (matched * gtf).sum(-1) / gtf.sum(-1).clamp(min=1)
+            losses["loss_caption" + suffix] = \
+                (per_video * has_any).sum() / has_any.sum().clamp(min=1)
         losses["loss_ce" + suffix] = labels_loss(
             logits, gt_labels, gt_mask, match_qs[l], num_boxes, spec,
             row_maskf)

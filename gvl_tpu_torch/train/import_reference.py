@@ -11,8 +11,13 @@ change is a short list:
   registers twice (pdvc.py:140; :355-358), the caption DSA's
   `output_proj` and `attention_weights`, which the reference's raw-samples
   path never reads (:343-348), `text_encoder.*`, whose weights come from
-  `load_text_encoder` (:322-323), and a two-stage `pos_trans` and the cosine
-  `pos_table` buffer, which the port has no place for (:219-228, :312-314);
+  `load_text_encoder` (:322-323), the cosine `pos_table` buffer (:312-314),
+  and the query inputs of the other mode (`_OTHER_MODE`): in a query-mode
+  model the two-stage `pos_trans` and `pos_trans_norm` (:224-233), in a
+  two-stage one `reference_points`, which its tree does not hold (a
+  query-mode checkpoint leaves `pos_trans` unfilled there; the JAX
+  importer reads `reference_points` in either mode and stops, ROADMAP
+  "Deliberate divergences");
 - caption heads: with share_caption_head every `caption_head.{k}` goes to
   head 0, as cloned heads each to their own; a head the model does not
   have is dropped (:325-353);
@@ -40,8 +45,9 @@ DROPPED = re.compile(
     r"|caption_head\.\d+\.core\.deformable_att\."
     r"(output_proj|attention_weights)\."
     r"|text_encoder\."
-    r"|transformer\.pos_trans(_norm)?\."
     r"|sentence_context_model\.pos_table$")
+_OTHER_MODE = re.compile(
+    r"transformer\.(pos_trans|pos_trans_norm|reference_points)\.")
 _CAPTION = re.compile(r"caption_head\.(\d+)\.")
 _PROJECTION = re.compile(r"(contrastive_projection_(event|text))\.\d+\.")
 
@@ -81,7 +87,8 @@ def import_reference_state_dict(sd: Dict[str, torch.Tensor], arch: GVLArch,
     out: Dict[str, torch.Tensor] = {}
     unused, filled = [], set()
     for key, v in src.items():
-        if DROPPED.match(key):
+        if DROPPED.match(key) or (_OTHER_MODE.match(key)
+                                  and key not in alias_of):
             continue
         dst = key
         cap = _CAPTION.match(key)

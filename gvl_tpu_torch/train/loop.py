@@ -9,7 +9,10 @@ train.py:151-595):
   does (it runs that epoch again);
 - `pretrain` / `pretrain_path` (load_pretrained) before the train state;
 - the contrastive weight's schedule per epoch (train.py:304-310, 363-367);
-- the scheduled-sampling probability, refused when above 0;
+- the scheduled-sampling probability per epoch (train.py:355-358);
+- two-stage queries (transformer_input_type 'gt_proposals'): every
+  loss_ce / loss_bbox / loss_giou weight is 0 and the caption cost is off
+  (loop.py:194-205, 255-260; reference misc/utils.decide_two_stage);
 - per-epoch model-last, optional per-update snapshots, validation every
   save_checkpoint_every epochs from min_epoch_when_save, per-task best
   checkpoints (grounding = sum R@1@IoU{.1,.3,.5,.7}; dvc = METEOR + soda_c;
@@ -32,10 +35,9 @@ device's default generator, SCST sampling from its own generator.
 torch.profiler into `<run>/trace`.
 
 Refused by name (NotImplementedError) before any work starts
-(`check_config`): two-stage queries, the caption cost,
-scheduled sampling, several devices and the
-sequence-parallel mesh (ROADMAP Queue 1 item 10), and every option the eval
-side refuses (gvl_tpu_torch.eval_cli.check_config).
+(`check_config`): several devices and the sequence-parallel mesh (ROADMAP
+Queue 1 item 10), and every option the eval side refuses
+(gvl_tpu_torch.eval_cli.check_config).
 """
 
 from __future__ import annotations
@@ -84,14 +86,6 @@ def ss_prob_at_epoch(cfg: Config, epoch: int) -> float:
 
 # (option set, what it asks for, where it is planned)
 _REFUSED = (
-    (lambda c: c.transformer_input_type == "gt_proposals",
-     "two-stage queries (transformer_input_type='gt_proposals')",
-     "ROADMAP Queue 1 item 8"),
-    (lambda c: c.set_cost_caption > 0, "the caption cost (set_cost_caption "
-     "> 0)", "ROADMAP Queue 1 item 8"),
-    (lambda c: any(ss_prob_at_epoch(c, e) > 0 for e in range(c.epoch)),
-     "scheduled sampling (ss_prob > 0 in some epoch)",
-     "ROADMAP Queue 1 item 8"),
     (lambda c: len(c.gpu_id) > 1, "a mesh of more than one device "
      "(several gpu_id)", "ROADMAP Queue 1 item 10; the port trains on one "
      "card"),
@@ -290,6 +284,11 @@ def train(cfg: Config) -> str:
     runner = EvalRunner(cfg, model, train_ds.translator, text,
                         gpt_decode=gpt_decode)
     base_weights = make_weight_dict(cfg)
+    if statics.two_stage:
+        # the GT segments are the queries: no class or box loss
+        for k in base_weights:
+            if any(q in k for q in ("loss_ce", "loss_bbox", "loss_giou")):
+                base_weights[k] = 0.0
     history: Dict[str, Dict] = {"val_scores": {}, "train_loss": {}}
     best = {t: -1e18 for t in TASKS}
     best_overall = -1e18
@@ -313,7 +312,7 @@ def train(cfg: Config) -> str:
         for k in weights:
             if "contrastive_loss" in k:
                 weights[k] = cl_w
-        ss_prob = ss_prob_at_epoch(cfg, epoch)   # > 0 refused by the step
+        ss_prob = ss_prob_at_epoch(cfg, epoch)
 
         epoch_losses: "OrderedDict[str, float]" = OrderedDict()
         t_epoch = time.time()

@@ -4,7 +4,8 @@ Port of gvl_tpu/train/state.py for the dense-captioning train step:
 forward in train mode, the text branch when the contrastive side is on (the
 text encoder, frozen and without gradients or trained with an optimizer and
 schedule of its own, over f32 or bf16-rounded weights; then `encode_text`),
-set criterion, the caption loss (teacher-forced NLL; under caption_gpt the
+set criterion, the caption loss (teacher-forced NLL, or at ss_prob > 0 the
+scheduled-sampling chain's; under caption_gpt the
 ClipCap head's loss of each matched event, state.py:437-445, also when
 caption_rl is set, as the JAX step's gpt2 branch comes first; otherwise
 under caption_rl the SCST policy loss of a sampled rollout against a greedy
@@ -15,10 +16,11 @@ steps. The model, the text encoder, the optimizers and the batch live on the
 model's device; batches arrive as numpy arrays.
 
 Random draws: dropout comes from the default generator of the model's
-device, SCST sampling from a generator of its own on the device. A step
-given `seed` seeds both from it (`step_seed(cfg.seed, global_step)` in the
-train loop), so a resumed run draws at step n what an unbroken run draws
-there; without one, both draw from the device's default generator.
+device, SCST's and scheduled sampling's from generators of their own on the
+device. A step given `seed` seeds them all from it (`step_seed(cfg.seed,
+global_step)` in the train loop), so a resumed run draws at step n what an
+unbroken run draws there; without one, all draw from the device's default
+generator.
 
 Under caption_bf16 (train_caption_bf16, state.py:252-265) the caption head's
 weights read as bf16 inside autograd and its query and memory are cast, for
@@ -26,8 +28,18 @@ teacher forcing and both SCST rollout chains; the NLL's logsumexp and the
 chosen-token logprobs stay f32 inside the heads. It is a no-op for the
 gpt2 head (state.py:262).
 
-Refused by name (NotImplementedError): `caption_cost`, `two_stage`, and
-scheduled sampling (`ss_prob > 0`).
+With caption_cost (set_cost_caption > 0, the caption loss on, SCST off;
+state.py:276-299) every decoder layer's caption NLL of every (query, GT)
+pair joins the matcher's cost (compute_criterion's `cap_costs`). JAX reads
+the caption loss from that tensor's matched entries and so keeps the graph
+of all Nq x G pairs; here the pair pass runs without gradient and the
+matched pairs' teacher-forced NLL is computed again with it, which gives
+the same loss (the per-video mean over the matched pairs, then over the
+videos, criterion.py:446-450) and the same gradient in a fraction of the
+memory. Only with dropout on do the two differ: the matched pass draws
+its own masks. Under two_stage
+(transformer_input_type 'gt_proposals', state.py:225-231) the GT segments
+are the decoder's queries and the boxes are not refined.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gvl_tpu_torch.models.captioner import prepare_dsa_reference
+from gvl_tpu_torch.models.captioner import caption_nll, prepare_dsa_reference
 from gvl_tpu_torch.models.gvl import GVLModel
 from gvl_tpu_torch.models.text_encoder import (TextEncoder,
                                                effective_max_gt_events)
@@ -192,14 +204,7 @@ class StepStatics:
     caption_bf16: bool = False
 
 
-_NOT_PORTED = ("caption_cost", "two_stage")
-
-
 def _check_statics(statics: StepStatics, text_encoder) -> None:
-    for name in _NOT_PORTED:
-        if getattr(statics, name):
-            raise NotImplementedError(
-                f"train step: {name} is not ported yet (ROADMAP Queue 1)")
     if (statics.enable_contrastive or statics.train_text_encoder) and \
             text_encoder is None:
         raise ValueError("train step: enable_contrastive needs the text "
@@ -283,7 +288,9 @@ def create_train_state(cfg: Any, model: GVLModel, steps_per_epoch: int,
 def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                     text_encoder: TextEncoder = None):
     """Build `step(state, batch, weights, ss_prob=0.0, seed=None) -> losses`
-    (state.py:180-552).
+    (state.py:180-552). At ss_prob > 0 the LSTM-DSA head's teacher forcing
+    runs the scheduled-sampling chain and caption_nll reads its logprobs
+    (the fused NLL needs ss_prob == 0, state.py:269-274).
 
     batch: numpy arrays video_feats (B, T, D), video_mask (B, T), duration
     (B,), gt_boxes (B, G, 2), gt_labels (B, G), gt_mask (B, G), captions
@@ -303,8 +310,8 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
     come from the same backward, are clipped by a global norm of their own
     and step its optimizer and schedule. Returns the losses (detached 0-d
     tensors on the device) with 'total_loss'. `step.forward_losses(batch,
-    cl_gate=1.0, seed=None)` computes the losses alone, in the model's
-    current mode.
+    cl_gate=1.0, seed=None, ss_prob=0.0)` computes the losses alone, in the
+    model's current mode.
 
     Under caption_rl (SCST, state.py:199-215, 371-483) the caption loss of
     each layer is rl_policy_loss over its many-to-one matched slots
@@ -453,39 +460,101 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                     lps[:, sl], seq[:, sl], rewards[:, sl], valid[:, sl])
         return losses
 
-    def forward_losses(batch, cl_gate=1.0, seed: Optional[int] = None
-                       ) -> Dict[str, torch.Tensor]:
+    @torch.no_grad()
+    def caption_costs(db, out, shapes):
+        """Each layer's fused caption NLL of every (query, GT) pair, (B, Nq,
+        G), without gradient: the queries repeated G times, the captions
+        tiled Nq times (state.py:276-299), the widest caption pass of the
+        step."""
+        B, G, _ = db["captions"].shape
+        Nq = out["hs"].shape[2]
+        seq = db["captions"].repeat(1, Nq, 1)
+        seq_mask = db["caption_mask"].repeat(1, Nq, 1)
+        costs = []
+        for l in range(Ld):
+            query = out["hs"][l].repeat_interleave(G, dim=1)  # (B, Nq*G, C)
+            if st.enable_pos_emb_for_captioner:
+                query = torch.cat(
+                    [query, out["query_pos"].repeat_interleave(G, dim=1)], -1)
+            nll = model.caption_train_nll(
+                l, cap_cast(query),
+                out["layer_refs"][l].repeat_interleave(G, dim=1),
+                cap_cast(out["memory"]), out["mask_flat"], shapes,
+                out["valid_ratios"], seq, seq_mask)
+            costs.append(nll.reshape(B, Nq, G))
+        return costs
+
+    def forward_losses(batch, cl_gate=1.0, seed: Optional[int] = None,
+                       ss_prob: float = 0.0) -> Dict[str, torch.Tensor]:
         db = to_device(batch)
         shapes = pyramid_shapes(db["video_feats"].shape[1],
                                 len(st.temporal_shapes))
-        out = model(db["video_feats"], db["video_mask"], db["duration"])
+        proposals = dict(proposals=db["gt_boxes"],
+                         proposals_mask=db["gt_mask"]) if st.two_stage else {}
+        out = model(db["video_feats"], db["video_mask"], db["duration"],
+                    **proposals)
         texts = text_layers(db, out) if st.enable_contrastive else None
         rl_matches = [] if st.caption_rl else None
+        bf16 = model.caption_bf16 if cap_bf16 else contextlib.nullcontext
+        cap_costs = None
+        if st.caption_cost and st.caption_loss and not st.caption_rl:
+            with bf16():
+                cap_costs = caption_costs(db, out, shapes)
         losses, match_qs = compute_criterion(
             out, db["gt_boxes"], db["gt_labels"], db["gt_mask"], texts,
-            st.spec, cl_gate=cl_gate, rl_m2o_rate=rate, rl_matches=rl_matches)
+            st.spec, cap_costs=cap_costs, cl_gate=cl_gate, rl_m2o_rate=rate,
+            rl_matches=rl_matches)
         tick("trunk")
         if not st.caption_loss:
             return losses
-        with model.caption_bf16() if cap_bf16 else \
-                contextlib.nullcontext():
+        with bf16():
             losses.update(caption_losses(db, out, shapes, match_qs,
-                                         rl_matches, seed))
+                                         rl_matches, seed, ss_prob,
+                                         cap_costs is not None))
         return losses
 
-    def caption_losses(db, out, shapes, match_qs, rl_matches, seed):
+    def caption_losses(db, out, shapes, match_qs, rl_matches, seed,
+                       ss_prob, caption_cost=False):
         """The caption losses: the gpt2 head's, SCST's, or the
-        teacher-forced NLL of each layer (state.py:329-507)."""
-        if st.caption_gpt:
+        teacher-forced NLL of each layer (state.py:329-507). With
+        caption_cost, every layer's matched pairs, teacher-forced, averaged
+        as compute_criterion averages the caption cost's matched entries."""
+        if caption_cost:
+            layers, ss_prob = list(range(Ld)), 0.0
+        elif st.caption_gpt:
             return gpt_losses(db, out, match_qs)
-        if st.caption_rl:
+        elif st.caption_rl:
             return scst_losses(db, out, shapes, rl_matches, seed)
+        else:
+            layers = [Ld - 1] if st.disable_mid_caption_heads \
+                else list(range(Ld))
         losses = {}
-        layers = [Ld - 1] if st.disable_mid_caption_heads else list(range(Ld))
         validf = db["gt_mask"].float()
         denom = validf.sum().clamp(min=1)
+        has_any = db["gt_mask"].any(-1).float()
         common = (cap_cast(out["memory"]), out["mask_flat"], shapes,
                   out["valid_ratios"])
+        gen = None
+        if ss_prob > 0 and seed is not None:
+            gen = torch.Generator(device=out["memory"].device).manual_seed(
+                fold_seed(seed, 77))
+
+        def nll(layer, query, ref, seq, seq_mask, ref_prepared=False):
+            """The fused teacher-forcing NLL (B, Ne), or at ss_prob > 0
+            caption_nll over the scheduled-sampling chain's logprobs."""
+            if ss_prob == 0:
+                return model.caption_train_nll(layer, query, ref, *common,
+                                               seq, seq_mask,
+                                               ref_prepared=ref_prepared)
+            lp = model.caption_train(layer, query, ref, *common, seq,
+                                     ss_prob=ss_prob,
+                                     ref_prepared=ref_prepared, generator=gen)
+            B, Ne = seq.shape[:2]
+            return caption_nll(lp.reshape(B * Ne, *lp.shape[2:]),
+                               seq[:, :, 1:].reshape(B * Ne, -1),
+                               seq_mask[:, :, 1:].reshape(B * Ne, -1)
+                               ).reshape(B, Ne)
+
         if fuse and len(layers) > 1:
             # one teacher-forcing pass for all layers: the shared head treats
             # events independently, so the layers fold into the event axis.
@@ -495,29 +564,32 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                                for l in layers], dim=1)        # (B, Lf*G, C)
             ref = torch.cat([prepared_ref(out, l, match_qs[l], shapes)
                              for l in layers], dim=1)
-            nll = model.caption_train_nll(
-                layers[-1], query, ref, *common,
-                db["captions"].repeat(1, Lf, 1),
-                db["caption_mask"].repeat(1, Lf, 1), ref_prepared=True)
-            nll = nll.reshape(nll.shape[0], Lf, -1)
-            per_layer = [nll[:, i] for i in range(Lf)]
+            fused = nll(layers[-1], query, ref,
+                        db["captions"].repeat(1, Lf, 1),
+                        db["caption_mask"].repeat(1, Lf, 1),
+                        ref_prepared=True)
+            fused = fused.reshape(fused.shape[0], Lf, -1)
+            per_layer = [fused[:, i] for i in range(Lf)]
         else:
-            per_layer = [model.caption_train_nll(
+            per_layer = [nll(
                 l, caption_query(out, l, match_qs[l]),
-                gather_matched(out["layer_refs"][l], match_qs[l]), *common,
+                gather_matched(out["layer_refs"][l], match_qs[l]),
                 db["captions"], db["caption_mask"]) for l in layers]
-        for l, nll in zip(layers, per_layer):
+        for l, layer_nll in zip(layers, per_layer):
             suffix = "" if l == Ld - 1 else f"_{l}"
-            losses["loss_caption" + suffix] = (nll * validf).sum() / denom
+            if caption_cost:
+                per_video = (layer_nll * validf).sum(-1) \
+                    / validf.sum(-1).clamp(min=1)
+                losses["loss_caption" + suffix] = \
+                    (per_video * has_any).sum() / has_any.sum().clamp(min=1)
+            else:
+                losses["loss_caption" + suffix] = \
+                    (layer_nll * validf).sum() / denom
         return losses
 
     def step(state: TrainState, batch: Dict[str, np.ndarray],
              weights: Dict[str, float], ss_prob: float = 0.0,
              seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        if ss_prob > 0:
-            raise NotImplementedError(
-                "train step: scheduled sampling (ss_prob > 0) is not ported "
-                "yet")
         if state.model is not model:
             raise ValueError("train step: the state holds another model")
         if st.train_text_encoder and state.text_optimizer is None:
@@ -535,7 +607,7 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         # schedule (state.py:514-519)
         cl_gate = float(weights.get("contrastive_loss", 0.0) > 0) \
             if "contrastive_loss" in weights else 1.0
-        losses = forward_losses(batch, cl_gate, seed)
+        losses = forward_losses(batch, cl_gate, seed, ss_prob)
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
         total.backward()
         tick("backward")

@@ -169,6 +169,10 @@ def test_prepared_reference_both_ways(world, layer):
 
 
 def test_train_mode_dropout_is_seeded_and_scheduled_sampling_refused(world):
+    """Train-mode dropout repeats under the same seed and is off in eval
+    mode. Scheduled sampling, refused until it was ported, runs in train
+    mode: its logprobs repeat under the same seeds (its parity
+    with the JAX package: tests/test_torch_train_options.py)."""
     w = world
     port = w["port"]
     query, ref = head_inputs(w, 1)
@@ -181,11 +185,17 @@ def test_train_mode_dropout_is_seeded_and_scheduled_sampling_refused(world):
             a = port.caption_train_nll(*args)
             torch.manual_seed(7)
             b = port.caption_train_nll(*args)
-            with pytest.raises(NotImplementedError, match="scheduled sampling"):
-                port.caption_train(*args[:-1], ss_prob=0.25)
+            ss = []
+            for _ in range(2):
+                torch.manual_seed(7)
+                ss.append(port.caption_train(
+                    *args[:-1], ss_prob=0.25,
+                    generator=torch.Generator().manual_seed(3)))
         finally:
             port.eval()
         again = port.caption_train_nll(*args)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(ss[0].numpy(), ss[1].numpy())
+    assert ss[0].shape[2] == w["seq"].shape[-1] - 1
     assert not np.allclose(a.numpy(), eval_nll.numpy())
     np.testing.assert_array_equal(again.numpy(), eval_nll.numpy())

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from gvl_tpu.config import Config as JConfig
 from gvl_tpu.models import build_model as jax_build_model
 from gvl_tpu.models import gvl as jgvl
 from gvl_tpu.models import text as jtext
@@ -45,6 +46,7 @@ from gvl_tpu_torch.train.criterion import (LossSpec, cl_weight_at_epoch,
 from tests.test_model import tiny_cfg
 from tests.test_torch_model import add_noise
 from tests.test_torch_text import FLAGSHIP_TEXT
+from tests.test_torch_train_loop import once_per_test_run
 from tests.test_torch_train_step import LOSS_SIDE, adam_mu, make_batch
 
 N_STEPS = 5
@@ -84,17 +86,49 @@ def weights(cfg, wd):
     return w
 
 
-@pytest.fixture(scope="module")
-def world():
+def compute_world(root):
+    """build's results, written into `root` (world.pt): the tensors and
+    numbers, the port's and the text encoder's weights after the steps."""
     mp = pytest.MonkeyPatch()
     # the sentence block's attention dropout off on the JAX side (its module
     # is built inside GVLModel.setup at every apply)
     mp.setattr(jgvl, "SentenceContextBlock",
                functools.partial(jtext.SentenceContextBlock, dropout=0.0))
     try:
-        yield build(**LOSS_SIDE)
+        w = build(**LOSS_SIDE)
     finally:
         mp.undo()
+    torch.save(dict({k: v for k, v in w.items()
+                     if k not in ("cfg", "port", "text", "state")},
+                    cfg=w["cfg"].to_dict(), port=w["port"].state_dict(),
+                    text=w["text"].state_dict(), step=w["state"].step),
+               root / "world.pt")
+
+
+def load_world(root):
+    """compute_world's results, with the port model and the text encoder
+    (their weights after the steps) and a train state at its step count
+    rebuilt."""
+    w = torch.load(root / "world.pt", weights_only=False)
+    cfg = JConfig().update(w.pop("cfg"))
+    text = pte.load_text_encoder(cfg, device="cpu")
+    text.load_state_dict(w.pop("text"), strict=True)
+    port = build_model(cfg, text_hidden_dim=text.hidden_size, device="cpu")
+    port.load_state_dict(w.pop("port"), strict=True)
+    for m in port.modules():
+        if isinstance(m, BertSelfAttention):
+            m.dropout = 0.0
+    pst = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
+    state = pstate.create_train_state(cfg, port, 100, pst, text)
+    state.step = w.pop("step")
+    return dict(w, cfg=cfg, port=port, text=text, state=state)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Computed once per test run (once_per_test_run)."""
+    return once_per_test_run(tmp_path_factory, "torch_contrastive_world",
+                             compute_world, load_world)
 
 
 def build(**loss_side):
@@ -334,7 +368,6 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
     import os
 
     from gvl_tpu.config import load_config
-    from gvl_tpu_torch.eval import evaluate
     from gvl_tpu_torch.eval.postprocess import GroundingSpec
     from gvl_tpu_torch.models.gvl import GVLModel
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -352,7 +385,6 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
         model = GVLModel(GVLArch.from_config(cfg, text.hidden_size),
                          device="meta")
     pstate._check_statics(st, text)
-    evaluate._check_ported(cfg)
     assert cfg.eval_enable_grounding and cfg.enable_cross_video_cl
     assert GroundingSpec.from_config(cfg) == GroundingSpec(cost_cl=1.0,
                                                            cost_class=0.0)
@@ -375,7 +407,6 @@ def test_flagship_yml_passes_every_check_and_multi_step_is_refused():
         assert pte.effective_max_gt_events(other) == \
             other.effective_max_gt_events == 64, name
         pstate._check_statics(st, text)
-        evaluate._check_ported(other)
         assert other.eval_enable_grounding, name
         with torch.device("meta"):
             GVLModel(GVLArch.from_config(other, text.hidden_size),

@@ -231,23 +231,54 @@ def test_weight_dict_matches_jax():
     assert pc.make_weight_dict(cfg) == jc.make_weight_dict(cfg)
 
 
+def caption_cost_world(crit, weight):
+    """Both criteria given the same per-layer (B, Nq, G) caption costs at
+    set_cost_caption `weight`: (JAX losses and matches, the port's)."""
+    out, args, jspec, pspec, _, _ = crit
+    B, Nq = out["pred_logits"].shape[1:3]
+    G = args[2].shape[1]
+    rs = np.random.RandomState(8)
+    caps = [rs.uniform(0.5, 6.0, (B, Nq, G)).astype(np.float32)
+            for _ in range(out["pred_logits"].shape[0])]
+    jspec = dataclasses.replace(jspec, set_cost_caption=weight)
+    pspec = dataclasses.replace(pspec, set_cost_caption=weight)
+    want = jc.compute_criterion(
+        {k: jnp.asarray(v) for k, v in out.items()},
+        *map(jnp.asarray, args), None, jspec,
+        cap_costs=[jnp.asarray(c) for c in caps])
+    got = pc.compute_criterion({k: t(v) for k, v in out.items()},
+                               *map(t, args), None, pspec,
+                               cap_costs=[t(c) for c in caps])
+    return want, got
+
+
 @pytest.mark.parametrize("name", ["set_cost_caption"])
 def test_unported_criterion_parts_raise_by_name(crit, name):
-    out, args, _, pspec, _, _ = crit
-    spec = dataclasses.replace(pspec, **{name: 1.0})
-    with pytest.raises(NotImplementedError, match=name):
-        pc.compute_criterion({k: t(v) for k, v in out.items()},
-                             *map(t, args), None, spec)
+    """The caption cost, refused by name until it was ported: given caption
+    costs at set_cost_caption 3 (large enough to move the assignment), the
+    matches equal the JAX package's and every loss, loss_caption of each
+    layer among them, is within the module's tolerance."""
+    (jl, jq), (pl, pq) = caption_cost_world(crit, 3.0)
+    _, _, _, _, (_, q0), _ = crit
+    assert not np.array_equal(np.asarray(jq), np.asarray(q0))
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
+    assert set(pl) == set(jl)
+    assert {"loss_caption", "loss_caption_0"} <= set(pl)
+    for k in jl:
+        close(pl[k], jl[k])
 
 
 def test_criterion_refuses_text_embeds_and_caption_costs(crit):
+    """Text embeddings are refused without event embeddings. Caption costs
+    at set_cost_caption 0 leave the matching alone and still give the
+    caption loss of the matched entries, as in the JAX package."""
     out, args, _, pspec, _, _ = crit
     outs = {k: t(v) for k, v in out.items()}
     # text embeddings need the trunk's event embeddings (contrastive on)
     with pytest.raises(ValueError, match="event_embed"):
         pc.compute_criterion(outs, *map(t, args), [None, None], pspec)
-    with pytest.raises(NotImplementedError, match="caption cost"):
-        pc.compute_criterion(outs, *map(t, args), None, pspec, cap_costs=[0])
-    with pytest.raises(NotImplementedError, match="set_cost_caption"):
-        pc.compute_criterion(outs, *map(t, args), None,
-                             pc.LossSpec(set_cost_caption=1.0))
+    (jl, jq), (pl, pq) = caption_cost_world(crit, 0.0)
+    np.testing.assert_array_equal(pq.numpy(), crit[5][1].numpy())
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
+    for k in ("loss_caption", "loss_caption_0"):
+        close(pl[k], jl[k])

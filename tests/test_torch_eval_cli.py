@@ -53,6 +53,7 @@ from gvl_tpu_torch.models.text_encoder import load_text_encoder
 from gvl_tpu_torch.train.checkpoint import CheckpointManager
 from tests.test_torch_eval import assert_same_json
 from tests.test_torch_grounding_eval import EVAL_BS, noisy_world
+from tests.test_torch_train_loop import once_per_test_run
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YMLS = sorted(glob.glob(os.path.join(ROOT, "cfgs", "*.yml")))
@@ -385,10 +386,17 @@ CLI_JSONS = {"dvc": "", "reranked": "_rerank_alpha0.3_temp2.0.json",
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
     """The JAX eval.py and the port's CLI, in two subprocesses at once, on
-    run directories holding the same opts.json and the same weights.
-    Returns {"jax" | "port": run directory}."""
+    run directories holding the same opts.json and the same weights, once
+    per test run (once_per_test_run). Returns {"jax" | "port": run
+    directory}."""
+    return once_per_test_run(
+        tmp_path_factory, "torch_eval_cli_runs", run_both_clis,
+        lambda root: {name: root / "save" / name for name in ("jax", "port")})
+
+
+def run_both_clis(tmp):
+    """cli_runs' work, in the directory `tmp`."""
     from gvl_tpu.train.checkpoint import CheckpointManager as JaxCheckpoints
-    tmp = tmp_path_factory.mktemp("cli")
     cfg, anno, _, _, bundle, _, params = noisy_world(tmp)
     gt = json.load(open(anno))
     para = tmp / "para.json"
@@ -428,7 +436,6 @@ def cli_runs(tmp_path_factory):
     for name, proc in procs.items():
         out, err = proc.communicate(timeout=600)
         assert proc.returncode == 0, (name, err[-3000:])
-    return runs
 
 
 @pytest.mark.parametrize("which", sorted(CLI_JSONS))

@@ -29,11 +29,13 @@ most often after the first step, so that captions end at different steps.
   picks JAX's token at >= 90% of the steps. Random weights put argmaxes
   within a bf16 rounding of each other, so free-running bf16 tokens are not
   compared.
-Every JAX call is jitted. Cost: ~45 s in one process.
+Every JAX call is jitted; the JAX init and the train steps are computed
+once per test run (once_per_test_run). Cost: ~45 s in one process.
 """
 
 import dataclasses
 import functools
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +64,7 @@ from gvl_tpu_torch.train.criterion import LossSpec, make_weight_dict
 from gvl_tpu_torch.utils.amp import bf16_parameters, to_bf16
 from tests.test_torch_eval import assert_same_json
 from tests.test_torch_model import add_noise
+from tests.test_torch_train_loop import once_per_test_run
 from tests.test_torch_train_step import adam_mu
 
 EVAL_BS, PFX_LEN = 4, 4
@@ -106,9 +109,9 @@ def port_model(cfg, params, stop):
     return port
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("gpt")
+def compute_world(tmp):
+    """The JAX init with noise and the stop token, in `tmp` (world.pkl)
+    beside the synthetic data."""
     cfg = gpt_cfg(tmp)
     ds = DenseVideoDataset(cfg.val_caption_file, cfg.visual_feature_folder,
                            cfg.dict_file, False, cfg)
@@ -128,10 +131,33 @@ def world(tmp_path_factory):
                       ("video_feats", "video_mask", "duration")))
         toks = probe.caption_sample_gpt(1, out["hs"][-1], 8)[0]
     stop = int(np.bincount(toks[..., 1:].numpy().ravel()).argmax())
+    with open(tmp / "world.pkl", "wb") as f:
+        pickle.dump(dict(cfg=cfg.to_dict(), params=params, stop=stop), f)
+
+
+def load_world(tmp):
+    """compute_world's init and stop token, with the dataset, the first
+    batch and both models rebuilt around them."""
+    with open(tmp / "world.pkl", "rb") as f:
+        w = pickle.load(f)
+    cfg = Config()
+    cfg.update(w["cfg"])
+    ds = DenseVideoDataset(cfg.val_caption_file, cfg.visual_feature_folder,
+                           cfg.dict_file, False, cfg)
+    batcher = Batcher(ds, cfg, EVAL_BS, shuffle=False)
+    batch = jloop.make_gpt_tokenize(cfg)[1](next(iter(batcher)))
+    params, stop = w["params"], w["stop"]
     model, _ = jax_model(cfg, stop)
     return dict(cfg=cfg, ds=ds, batcher=batcher, batch=batch, params=params,
                 stop=stop, model=model, port=port_model(cfg, params, stop),
                 tmp=tmp)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Its init computed once per test run (once_per_test_run)."""
+    return once_per_test_run(tmp_path_factory, "torch_gpt_world",
+                             compute_world, load_world)
 
 
 def test_gpt_tokenize_matches_jax(world):
@@ -155,8 +181,7 @@ def test_gpt_tokenize_matches_jax(world):
     assert ploop.make_gpt_tokenize(Config()) == (None, None, None)
 
 
-@pytest.fixture(scope="module")
-def trained(world):
+def compute_trained(world):
     """One jitted JAX train step and one port step on the same batch:
     losses and named gradients."""
     cfg, model, params, port, batch = (world[k] for k in (
@@ -190,6 +215,17 @@ def trained(world):
         port.eval()
     return ({k: float(v) for k, v in jl.items()},
             {k: float(v) for k, v in pl.items()}, jg, pg)
+
+
+@pytest.fixture(scope="module")
+def trained(world, tmp_path_factory):
+    """compute_trained's result, computed once per test run."""
+    def compute(root):
+        torch.save(compute_trained(world), root / "trained.pt")
+
+    return once_per_test_run(
+        tmp_path_factory, "torch_gpt_trained", compute,
+        lambda root: torch.load(root / "trained.pt", weights_only=False))
 
 
 def test_train_step_losses_match_jax(trained):

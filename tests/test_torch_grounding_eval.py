@@ -13,6 +13,7 @@ atol 1e-4. The eval losses, which both runners round to 3 places, to 1e-3.
 
 import functools
 import json
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from gvl_tpu_torch.models.text_encoder import load_text_encoder
 from tests.test_torch_eval import assert_same_json
 from tests.test_torch_model import add_noise
 from tests.test_torch_text import FLAGSHIP_TEXT
+from tests.test_torch_train_loop import once_per_test_run
 
 N_VIDEOS, EVAL_BS, G = 5, 2, 4
 
@@ -63,18 +65,35 @@ def grounding_cfg(tmp, **kw):
     return cfg, anno
 
 
+def once_pickled(tmp_path_factory, name, fn):
+    """fn(root)'s result, computed once per test run (once_per_test_run)
+    and handed to each worker through a pickle in `root`."""
+    def compute(root):
+        with open(root / "result.pkl", "wb") as f:
+            pickle.dump(fn(root), f)
+
+    def load(root):
+        with open(root / "result.pkl", "rb") as f:
+            return pickle.load(f)
+
+    return once_per_test_run(tmp_path_factory, name, compute, load)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return run_both(tmp_path_factory.mktemp("ground"))
+    """Computed once per test run."""
+    return once_pickled(tmp_path_factory, "torch_grounding_runs", run_both)
 
 
 @pytest.fixture(scope="module")
 def match_runs(tmp_path_factory):
     """Matching scores on, weighed 1.0 in the reranking, and the text pass
-    over bf16-rounded weights (eval_use_amp)."""
-    return run_both(tmp_path_factory.mktemp("match"),
-                    eval_enable_matching_score=True,
-                    eval_matching_score_weight=1.0, eval_use_amp=True)
+    over bf16-rounded weights (eval_use_amp). Computed once per test run."""
+    return once_pickled(tmp_path_factory, "torch_grounding_match_runs",
+                        functools.partial(
+                            run_both, eval_enable_matching_score=True,
+                            eval_matching_score_weight=1.0,
+                            eval_use_amp=True))
 
 
 def noisy_world(tmp, **cfg_kw):

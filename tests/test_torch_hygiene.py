@@ -54,6 +54,12 @@ GROUPS = {
                         "gvl_tpu_torch.train.import_reference",
                         "gvl_tpu_torch.import_cli",
                         "gvl_tpu_torch.eval.plots", "chip_smoke"),
+    "backbone": ("gvl_tpu_torch.backbone.r2plus1d",
+                 "gvl_tpu_torch.backbone.tsp",
+                 "gvl_tpu_torch.backbone.untrimmed_dataset",
+                 "gvl_tpu_torch.backbone.train_tsp",
+                 "gvl_tpu_torch.backbone.import_torch",
+                 "gvl_tpu_torch.train_tsp_cli", "gvl_tpu_torch.import_cli"),
 }
 
 _REPORT = textwrap.dedent("""
@@ -65,10 +71,13 @@ _REPORT = textwrap.dedent("""
     def forbidden():
         return sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 
+    rep["modules"] = {}
     for group, mods in groups.items():
         for mod in mods:
             importlib.import_module(mod)
             rep["imports"][group + ":" + mod] = forbidden()
+            rep["modules"][group + ":" + mod] = sorted(
+                m for m in sys.modules if m.split(".")[0] in ("cv2", "h5py"))
     from gvl_tpu_torch.ops import ms_deform_attn_1d, ms_deform_attn_1d_banded
     rep["launches_after_imports"] = [
         [fn.launches, fn.bf16_launches, fn.bwd_launches]
@@ -273,3 +282,44 @@ def test_import_cli_on_cuda_raises_without_a_card(tmp_path):
                          str(tmp_path / "cfg.yml"), "--out",
                          str(tmp_path / "out")])
     assert sorted(os.listdir(tmp_path)) == ["cfg.yml"]
+
+
+def test_backbone_modules_import_without_jax(report):
+    """The TSP backbone, its extraction, sampler, trainer and importer, and
+    the two CLIs that run them, import none of JAX, flax, optax,
+    transformers or gvl_tpu, nor nltk; nor cv2 or h5py, which they read
+    only when a video or an h5 file is opened."""
+    _clean(report, "backbone", nltk=True)
+    for mod in GROUPS["backbone"]:
+        assert not [m for m in report["modules"][f"backbone:{mod}"]
+                    if m.split(".")[0] in ("cv2", "h5py")], mod
+
+
+def test_backbone_entry_points_need_the_card_unless_told_otherwise(
+        tmp_path):
+    """Without `device="cpu"` the extractor, the trainer, train_tsp_cli and
+    import_cli --backbone ask for the card and raise where there is none,
+    before they read or write anything."""
+    import torch
+    from gvl_tpu_torch import import_cli, train_tsp_cli
+    from gvl_tpu_torch.backbone import train_tsp, tsp
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    calls = [
+        lambda: tsp.extract_features([str(tmp_path / "v.avi")],
+                                     str(tmp_path / "feats"),
+                                     backbone="r3d_18"),
+        lambda: train_tsp.TSPTrainer(
+            train_tsp.TSPTrainConfig(backbone="r3d_18"), None, None, 1),
+        lambda: train_tsp_cli.main(
+            ["--root-dir", str(tmp_path), "--train-csv", "t.csv",
+             "--valid-csv", "v.csv", "--label-columns", "a",
+             "--label-mapping-jsons", "a.json"]),
+        lambda: import_cli.main(["--backbone", "r3d_18", "--pth",
+                                 str(tmp_path / "x.pth"), "--out",
+                                 str(tmp_path / "out")]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert os.listdir(tmp_path) == []

@@ -259,7 +259,8 @@ def test_published_flagship_is_refused_by_no_cli(tmp_path, text_dir):
     huggingface_cache_dir pointing at a written hub cache of
     `roberta-base`: the eval and train CLIs' checks pass, the text encoder
     loads, and import_cli imports a reference .pth of the flagship at its
-    published widths (the `--backbone` mode stays refused by name)."""
+    published widths (the `--backbone` mode, a TSP video backbone, is
+    ported: it reads the .pth it is given)."""
     cache = tmp_path / "cache"
     as_hub_cache(text_dir, str(cache), "roberta-base")
     text = open(os.path.join(ROOT, "cfgs", "anet_tsp_msvg_dvc.yml")).read()
@@ -284,6 +285,8 @@ def test_published_flagship_is_refused_by_no_cli(tmp_path, text_dir):
     for k, v in model.state_dict().items():
         assert torch.equal(payload["model"][k], v), k
     assert payload["text_encoder"] is not None
-    with pytest.raises(NotImplementedError, match="item 11"):
-        import_cli.main(["--pth", "x.pth", "--out", str(tmp_path / "b"),
-                         "--backbone", "r2plus1d_34"])
+    # --backbone (a TSP video backbone) reads its .pth: none is there
+    with pytest.raises(FileNotFoundError, match="x.pth"):
+        import_cli.main(["--pth", str(tmp_path / "x.pth"), "--out",
+                         str(tmp_path / "b"), "--backbone", "r2plus1d_34",
+                         "--device", "cpu"])

@@ -19,13 +19,14 @@ weights on both sides.
   0) on run directories with the same weights: the DVC JSON (class scores
   within 1e-5) and the probe's TAL JSON equal.
 Cost: ~70 s in one process, beside which the JAX CLI's subprocess runs
-(~45 s); the CLIs run without grounding, which tests/test_torch_eval_cli.py
-covers.
+(~45 s), once per test run (once_per_test_run); the CLIs run without
+grounding, which tests/test_torch_eval_cli.py covers.
 """
 
 import functools
 import json
 import os
+import pickle
 import subprocess
 import sys
 import types
@@ -56,6 +57,7 @@ from gvl_tpu_torch.utils.logging import create_logger
 from tests.test_torch_eval import assert_same_json
 from tests.test_torch_grounding_eval import EVAL_BS, G, grounding_cfg
 from tests.test_torch_model import add_noise
+from tests.test_torch_train_loop import once_per_test_run
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("running", "jumping", "cooking")
@@ -118,14 +120,13 @@ CLI_FLAGS = ("--eval_batch_size", str(EVAL_BS), "--eval_device", "cpu",
              "--eval_enable_zeroshot_tal", "--show_all_results", "0")
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    """(tmp, the world of tal_world, the JAX CLI's process): eval.py starts
-    on its run directory here, so that it runs beside the in-process
-    checks."""
-    tmp = tmp_path_factory.mktemp("tal")
+def compute_tal(tmp):
+    """Everything the tests read, in `tmp`: eval.py starts on its run
+    directory in a subprocess, both packages' run_validation with zero-shot
+    TAL on run beside it, then eval_cli.main. Returns the validation scores,
+    the runners' class embeddings and TAL JSON paths, and the folders."""
     w = tal_world(tmp)
-    cfg, _, _, bundle, _, params, port, text = w
+    cfg, ds, batcher, bundle, model, params, port, text = w
     for name in ("jax", "port"):
         d = tmp / "save" / name
         d.mkdir(parents=True)
@@ -143,38 +144,65 @@ def world(tmp_path_factory):
              "--eval_gt_file_for_grounding", str(tmp / "grounding.json"),
              *CLI_FLAGS], cwd=str(tmp), env=env, stdout=log,
             stderr=subprocess.STDOUT)
-    yield (tmp,) + w + (proc,)
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    try:
+        assert ds.name_map is not None and batcher.ds is ds
+        jr = JaxEvalRunner(cfg, model, bundle, ds.translator)
+        jr.set_params(params, bundle.params)
+        jr.enable_zeroshot_tal(PROMPTED)
+        pr = EvalRunner(cfg, port, ds.translator, text)
+        pr.enable_zeroshot_tal(PROMPTED)
+        scores, folders = {}, {}
+        for name in ("jax", "port"):
+            folders[name] = tmp / name
+            folders[name].mkdir()
+            logger = create_logger(str(folders[name]), "val.log")
+            if name == "jax":
+                state = types.SimpleNamespace(params=params,
+                                              text_params=bundle.params)
+                scores[name] = jloop.run_validation(
+                    cfg, jr, state, bundle, batcher, str(folders[name]), 0,
+                    logger)
+            else:
+                scores[name] = ploop.run_validation(
+                    cfg, pr, batcher, str(folders[name]), 0, logger)
+        eval_cli.main(["--eval_folder", "port", "--eval_save_dir",
+                       str(tmp / "save"), "--eval_gt_file_for_grounding",
+                       str(tmp / "grounding.json"), *CLI_FLAGS])
+        assert proc.wait(timeout=600) == 0, \
+            (tmp / "jax_cli.log").read_text()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    runners = {"jax": dict(class_embeds=np.asarray(jr.class_embeds),
+                           last_tal_json=jr.last_tal_json),
+               "port": dict(class_embeds=pr.class_embeds.numpy(),
+                            last_tal_json=pr.last_tal_json)}
+    return dict(scores=scores, runners=runners, folders=folders,
+                cli={name: tmp / "save" / name for name in ("jax", "port")})
 
 
 @pytest.fixture(scope="module")
-def validated(world):
+def tal(tmp_path_factory):
+    """compute_tal's result, computed once per test run."""
+    def compute(root):
+        with open(root / "result.pkl", "wb") as f:
+            pickle.dump(compute_tal(root), f)
+
+    def load(root):
+        with open(root / "result.pkl", "rb") as f:
+            return pickle.load(f)
+
+    return once_per_test_run(tmp_path_factory, "torch_tal", compute, load)
+
+
+@pytest.fixture(scope="module")
+def validated(tal):
     """Both packages' run_validation with zero-shot TAL on: (their scores,
-    their runners, the run directories)."""
-    tmp, cfg, ds, batcher, bundle, model, params, port, text, _ = world
-    assert ds.name_map is not None and batcher.ds is ds
-    jr = JaxEvalRunner(cfg, model, bundle, ds.translator)
-    jr.set_params(params, bundle.params)
-    jr.enable_zeroshot_tal(PROMPTED)
-    pr = EvalRunner(cfg, port, ds.translator, text)
-    pr.enable_zeroshot_tal(PROMPTED)
-    scores, folders = {}, {}
-    for name in ("jax", "port"):
-        folders[name] = tmp / name
-        folders[name].mkdir()
-        logger = create_logger(str(folders[name]), "val.log")
-        if name == "jax":
-            state = types.SimpleNamespace(params=params,
-                                          text_params=bundle.params)
-            scores[name] = jloop.run_validation(
-                cfg, jr, state, bundle, batcher, str(folders[name]), 0,
-                logger)
-        else:
-            scores[name] = ploop.run_validation(
-                cfg, pr, batcher, str(folders[name]), 0, logger)
-    return scores, {"jax": jr, "port": pr}, folders
+    their runners' class embeddings and TAL JSONs, the run directories)."""
+    runners = {k: types.SimpleNamespace(**v)
+               for k, v in tal["runners"].items()}
+    return tal["scores"], runners, tal["folders"]
 
 
 def read(path):
@@ -238,7 +266,7 @@ def test_validation_scores_match_jax_with_the_tal_map(validated):
 
 def test_class_embeddings_match_jax(validated):
     _, runners, _ = validated
-    got = runners["port"].class_embeds.numpy()
+    got = runners["port"].class_embeds
     want = np.asarray(runners["jax"].class_embeds)
     assert got.shape == (len(CLASSES), 16)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -263,17 +291,11 @@ def test_zeroshot_converter_writes_the_jax_file(validated, tmp_path, bg):
 
 
 @pytest.fixture(scope="module")
-def cli_runs(world):
-    """eval.py (JAX, the subprocess `world` started) and eval_cli.main (this
-    process) with --eval_enable_zeroshot_tal on run directories holding the
-    same opts and weights. Returns {"jax" | "port": run directory}."""
-    tmp, proc = world[0], world[-1]
-    eval_cli.main(["--eval_folder", "port", "--eval_save_dir",
-                   str(tmp / "save"), "--eval_gt_file_for_grounding",
-                   str(tmp / "grounding.json"), *CLI_FLAGS])
-    assert proc.wait(timeout=600) == 0, \
-        (tmp / "jax_cli.log").read_text()[-3000:]
-    return {name: tmp / "save" / name for name in ("jax", "port")}
+def cli_runs(tal):
+    """eval.py (JAX, a subprocess) and eval_cli.main (in process) with
+    --eval_enable_zeroshot_tal on run directories holding the same opts and
+    weights. Returns {"jax" | "port": run directory}."""
+    return tal["cli"]
 
 
 def test_cli_zeroshot_json_matches_jax(cli_runs):

@@ -291,8 +291,8 @@ def world(request):
 
 def test_trunk_event_embeddings_match_jax(world):
     name, cfg, model, params, port, (feats, mask, duration), _ = world
-    want = model.apply(params, jnp.asarray(feats), jnp.asarray(mask),
-                       jnp.asarray(duration))
+    want = jax.jit(model.apply)(params, jnp.asarray(feats), jnp.asarray(mask),
+                                jnp.asarray(duration))
     with torch.inference_mode():
         got = port(t(feats), t(mask), t(duration))
     assert got["event_embed"].shape == (cfg.dec_layers, 2, cfg.num_queries,
@@ -307,12 +307,12 @@ def test_encode_text_matches_jax(world):
     """All four outputs, on the JAX trunk's memory, with one padded
     sentence slot and sentences of 2-6 tokens."""
     name, cfg, model, params, port, (feats, mask, duration), txt = world
-    out = model.apply(params, jnp.asarray(feats), jnp.asarray(mask),
-                      jnp.asarray(duration))
+    out = jax.jit(model.apply)(params, jnp.asarray(feats), jnp.asarray(mask),
+                               jnp.asarray(duration))
     word, tmask, gt_mask = txt
-    want = model.apply(params, jnp.asarray(word), jnp.asarray(tmask),
-                       jnp.asarray(gt_mask), out["memory"], out["mask_flat"],
-                       method=model.encode_text)
+    want = jax.jit(functools.partial(model.apply, method=model.encode_text))(
+        params, jnp.asarray(word), jnp.asarray(tmask), jnp.asarray(gt_mask),
+        out["memory"], out["mask_flat"])
     with torch.inference_mode():
         got = port.encode_text(t(word), t(tmask), t(gt_mask),
                                t(out["memory"]), t(out["mask_flat"]))

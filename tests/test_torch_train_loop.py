@@ -129,78 +129,91 @@ def once_per_test_run(tmp_path_factory, name: str, compute, load):
     return load(root)
 
 
-def compute_runs(root: pathlib.Path) -> None:
-    """Both packages' 2-epoch run and its resume, in `root`; writes what
-    the tests read: runs.json (the infos, folders and configs),
-    ckpts.pt (the 2-epoch run's checkpoints, read before the resume
-    replaces them) and init.npz (the JAX init's parameters)."""
+def jax_loop_init(base: dict):
+    """The JAX loop's init of the run `base` configures, as
+    gvl_tpu.train.loop.train makes it before its first step (the seeded
+    first train batch as the probe): (its parameters as numpy, the text
+    bundle)."""
+    from gvl_tpu.data.dataset import Batcher, DenseVideoDataset
+    from gvl_tpu.models import build_model as jax_build_model
+    from gvl_tpu.utils.logging import set_seed
+    cfg = JConfig().update(base)
+    set_seed(cfg.seed)
+    rng_data = np.random.RandomState(cfg.seed)
+    train_ds = DenseVideoDataset(cfg.train_caption_file,
+                                 cfg.visual_feature_folder, cfg.dict_file,
+                                 True, cfg, rng_data)
+    batcher = Batcher(train_ds, cfg, cfg.batch_size, shuffle=True,
+                      rng=rng_data, drop_last=True)
+    bundle = jloop.load_text_encoder(cfg)
+    model = jax_build_model(cfg, text_hidden_dim=bundle.hidden_size)
+    probe = jloop.add_text_inputs(next(iter(batcher)), bundle, cfg)
+    return (jax.tree_util.tree_map(
+        np.asarray, jitted_init_params(model, cfg, bundle, probe)), bundle)
+
+
+def run_package(pkg: str, root: pathlib.Path, base: dict, patches) -> tuple:
+    """One package's 2-epoch run and its resume, under `patches`
+    (attribute, value) pairs: (the summary runs.json keeps, the first
+    run's checkpoints)."""
+    cls, train = (JConfig, jloop.train) if pkg == "jax" else \
+        (PConfig, ploop.train)
+    mp = pytest.MonkeyPatch()
+    try:
+        for target, name, value in patches:
+            mp.setattr(target, name, value)
+        cfg = cls().update(dict(base, save_dir=str(root / pkg)))
+        if pkg == "port":
+            cfg.device = "cpu"
+        first = train(cfg)
+        # the resumed run writes into the same run dir: keep what the first
+        # run left
+        read = jax_checkpoint if pkg == "jax" else port_checkpoint
+        ckpts = {n: read(first, n, cfg) for n in CKPTS}
+        info = json.loads(pathlib.Path(first, "info.json").read_text())
+        # the JAX package pins its params after the run: a fresh init for
+        # the resumed one, as a new process makes
+        resumed_cfg = cls().update(dict(base, save_dir=str(root / pkg),
+                                        **RESUME))
+        if pkg == "port":
+            resumed_cfg.device = "cpu"
+        resumed = train(resumed_cfg)
+    finally:
+        mp.undo()
+    return dict(folder=first, resumed_folder=resumed, info=info,
+                resumed_info=json.loads(pathlib.Path(
+                    resumed, "info.json").read_text()),
+                resumed_cfg=dict(lr=resumed_cfg.lr,
+                                 weight_decay=resumed_cfg.weight_decay,
+                                 epoch=resumed_cfg.epoch)), ckpts
+
+
+def compute_jax_runs(root: pathlib.Path) -> None:
+    """The JAX package's 2-epoch run and its resume, in `root`: run.json
+    (the info, folders and config), ckpts.pt (the 2-epoch run's
+    checkpoints, read before the resume replaces them) and init.npz (the
+    JAX init's parameters)."""
     data = make_synthetic_dataset(str(root), num_videos=6, feat_dim=16)
     base = loop_cfg(root, data)
     init = {}
-    mp = pytest.MonkeyPatch()
-    orig_text = jloop.load_text_encoder
 
     def capture_init(*a):
         # the resumed run asks again for the same init (same seed and
         # widths) to have its structure: hand it fresh arrays of the first
         # one's values rather than trace and compile the init again
-        if "params" not in init:
+        if "values" not in init:
             init["values"] = jax.tree_util.tree_map(
                 np.asarray, jitted_init_params(*a))
-        init["params"] = jax.tree_util.tree_map(jnp.asarray, init["values"])
-        return init["params"]
-
-    def capture_text(cfg):
-        init["bundle"] = orig_text(cfg)
-        return init["bundle"]
-
-    def port_init(cfg, model, text, probe):
-        model.load_state_dict(jax_params_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, init["params"]),
-            GVLArch.from_config(cfg)), strict=True)
-        text.load_state_dict(flax_roberta_to_state_dict(
-            jax.tree_util.tree_map(np.asarray, init["bundle"].params)),
-            strict=True)
+        return jax.tree_util.tree_map(jnp.asarray, init["values"])
 
     # the port trains on one device: so does the JAX loop here
     # (tests/conftest.py makes 8 CPU devices, on which it would shard
     # batches of 3 over a dp=3 mesh)
-    mp.setattr(jloop, "make_mesh_for_batch",
-               lambda batch_size, shape="dp": make_mesh(1, shape))
-    mp.setattr(jloop, "init_params", capture_init)
-    mp.setattr(jloop, "load_text_encoder", capture_text)
-    mp.setattr(ploop, "init_weights", port_init)
-    out, ckpts = {}, {}
-    try:
-        for pkg, cls, train, save_dir in (
-                ("jax", JConfig, jloop.train, root / "jax"),
-                ("port", PConfig, ploop.train, root / "port")):
-            cfg = cls().update(dict(base, save_dir=str(save_dir)))
-            if pkg == "port":
-                cfg.device = "cpu"
-            first = train(cfg)
-            # the resumed run writes into the same run dir: keep what the
-            # first run left
-            read = jax_checkpoint if pkg == "jax" else port_checkpoint
-            ckpts[pkg] = {n: read(first, n, cfg) for n in CKPTS}
-            info = json.loads(pathlib.Path(first, "info.json").read_text())
-            # the JAX package pins its params after the run: a fresh init
-            # for the resumed one, as a new process makes
-            resumed_cfg = cls().update(dict(base, save_dir=str(save_dir),
-                                            **RESUME))
-            if pkg == "port":
-                resumed_cfg.device = "cpu"
-            resumed = train(resumed_cfg)
-            out[pkg] = dict(folder=first, resumed_folder=resumed, info=info,
-                            resumed_info=json.loads(pathlib.Path(
-                                resumed, "info.json").read_text()),
-                            resumed_cfg=dict(lr=resumed_cfg.lr,
-                                             weight_decay=resumed_cfg
-                                             .weight_decay,
-                                             epoch=resumed_cfg.epoch))
-    finally:
-        mp.undo()
-    (root / "runs.json").write_text(json.dumps(dict(out, base=base)))
+    out, ckpts = run_package("jax", root, base, [
+        (jloop, "make_mesh_for_batch",
+         lambda batch_size, shape="dp": make_mesh(1, shape)),
+        (jloop, "init_params", capture_init)])
+    (root / "run.json").write_text(json.dumps(dict(out, base=base)))
     torch.save(ckpts, root / "ckpts.pt")
     np.savez(root / "init.npz", **{
         "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
@@ -208,32 +221,67 @@ def compute_runs(root: pathlib.Path) -> None:
             init["values"])[0]})
 
 
-def load_runs(root: pathlib.Path) -> dict:
-    """compute_runs's results, as the tests read them."""
-    saved = json.loads((root / "runs.json").read_text())
+def compute_port_runs(root: pathlib.Path) -> None:
+    """The port's 2-epoch run and its resume, in `root`, from the JAX
+    loop's init (`jax_loop_init`, computed here, so that the two halves of
+    the runs run in two workers at once): run.json and ckpts.pt."""
+    data = make_synthetic_dataset(str(root), num_videos=6, feat_dim=16)
+    base = loop_cfg(root, data)
+    values, bundle = jax_loop_init(base)
+
+    def port_init(cfg, model, text, probe):
+        model.load_state_dict(jax_params_to_state_dict(
+            values, GVLArch.from_config(cfg)), strict=True)
+        text.load_state_dict(flax_roberta_to_state_dict(
+            jax.tree_util.tree_map(np.asarray, bundle.params)), strict=True)
+
+    out, ckpts = run_package("port", root, base,
+                             [(ploop, "init_weights", port_init)])
+    (root / "run.json").write_text(json.dumps(dict(out, base=base)))
+    torch.save(ckpts, root / "ckpts.pt")
+
+
+def load_run(root: pathlib.Path) -> dict:
+    """One package's summary, checkpoints and computations log."""
+    r = json.loads((root / "run.json").read_text())
     ckpts = torch.load(root / "ckpts.pt", weights_only=True)
-    out = dict(root=root, base=saved.pop("base"))
-    for pkg, r in saved.items():
-        out[pkg] = dict(
-            r, ckpts={n: tuple(v) for n, v in ckpts[pkg].items()},
-            resumed_cfg=types.SimpleNamespace(**r["resumed_cfg"]))
-    with np.load(root / "init.npz") as z:
-        out["init"] = {"params": flax.traverse_util.unflatten_dict(
-            {k: z[k] for k in z.files}, sep="/")}
-    out["computations"] = (root / "computations.log").read_text().split()
-    return out
+    return dict(r, ckpts={n: tuple(v) for n, v in ckpts.items()},
+                resumed_cfg=types.SimpleNamespace(**r["resumed_cfg"]),
+                computations=(root / "computations.log").read_text().split())
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return once_per_test_run(tmp_path_factory, "torch_train_loop_runs",
-                             compute_runs, load_runs)
+    """Both packages' 2-epoch runs and their resumes, each computed once per
+    test run (once_per_test_run), by whichever worker asks first: under
+    pytest-xdist the even workers ask for the JAX half first and the odd
+    ones for the port half, so that two workers compute the halves at
+    once. The base config is the port half's (both halves write the same
+    seeded synthetic data)."""
+    halves = [("jax", compute_jax_runs), ("port", compute_port_runs)]
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    if int(worker[2:]) % 2:
+        halves.reverse()
+    out = {}
+    for pkg, compute in halves:
+        out[pkg] = once_per_test_run(tmp_path_factory,
+                                     f"torch_train_loop_{pkg}_run", compute,
+                                     load_run)
+    jax_root = pathlib.Path(out["jax"]["folder"]).parent.parent
+    with np.load(jax_root / "init.npz") as z:
+        init = {"params": flax.traverse_util.unflatten_dict(
+            {k: z[k] for k in z.files}, sep="/")}
+    out["jax"].pop("base")
+    return dict(out, base=out["port"].pop("base"), init=init,
+                computations={pkg: out[pkg].pop("computations")
+                              for pkg in ("jax", "port")})
 
 
 def test_the_runs_are_computed_once_per_test_run(runs):
     """The 2-epoch runs and their resume, which every test of this module
-    reads, are computed by one worker of the test run."""
-    assert len(runs["computations"]) == 1, runs["computations"]
+    reads, are computed once per test run: each package's by one worker."""
+    assert all(len(c) == 1 for c in runs["computations"].values()), \
+        runs["computations"]
 
 
 CKPTS = ("model-best", "model-best-dvc", "model-best-pc",
@@ -497,10 +545,6 @@ REFUSED = {
     "gpt2": (dict(caption_decoder_type="gpt2",
                   load_pretrained_language_model_from_config=""),
              "pretrained GPT-2.*'gpt2'.*refs/main", FileNotFoundError),
-    "two_stage": (dict(transformer_input_type="gt_proposals"), "two-stage"),
-    "caption_cost": (dict(set_cost_caption=1.0), "caption cost"),
-    "scheduled_sampling": (dict(scheduled_sampling_start=0,
-                                basic_ss_prob=0.1), "scheduled sampling"),
     "several_devices": (dict(gpu_id=["0", "1"]), "more than one device"),
     "sp_mesh": (dict(mesh_shape="dp,sp"), "sequence-parallel"),
     # an option the eval side refuses (eval_cli.check_config); the TAL
@@ -545,25 +589,60 @@ def tal_probe_data(root: pathlib.Path, data) -> dict:
                 tal_gt_file=str(root / "tal_gt.json"))
 
 
-@pytest.mark.parametrize("case", ["gpt2", "tal_probe"])
+ONCE_REFUSED = {
+    "two_stage": dict(transformer_input_type="gt_proposals"),
+    "caption_cost": dict(set_cost_caption=1.0),
+    # ss_prob is 0.1 from the second epoch on (epoch > start)
+    "scheduled_sampling": dict(scheduled_sampling_start=0, basic_ss_prob=0.1,
+                               epoch=2),
+}
+
+
+@pytest.mark.parametrize("case", ["gpt2", "tal_probe", "two_stage",
+                                  "caption_cost", "scheduled_sampling"])
 def test_once_refused_options_train(tmp_path, case):
-    """The gpt2 caption head (offline spec) and the TAL linear probe, refused
+    """The gpt2 caption head (offline spec), the TAL linear probe,
+    two-stage queries, the caption cost and scheduled sampling, refused
     until they were ported, train a debug epoch on the CPU and validate it:
     the gpt2 run's captions are scored, the probe's TAL JSON gets its mAP
-    (their parity with the JAX package: tests/test_torch_gpt_pipeline.py
-    and tests/test_torch_tal.py)."""
+    (their parity with the JAX package: tests/test_torch_gpt_pipeline.py,
+    tests/test_torch_tal.py and tests/test_torch_train_options.py)."""
     data = make_synthetic_dataset(str(tmp_path), num_videos=6, feat_dim=16)
-    extra = (dict(caption_decoder_type="gpt2", prefix_length=4,
-                  prefix_size=64) if case == "gpt2"
-             else tal_probe_data(tmp_path, data))
-    cfg = PConfig().update(dict(loop_cfg(tmp_path, data), epoch=1,
-                                device="cpu", save_dir=str(tmp_path / "save"),
+    if case == "gpt2":
+        extra = dict(caption_decoder_type="gpt2", prefix_length=4,
+                     prefix_size=64)
+    elif case == "tal_probe":
+        extra = tal_probe_data(tmp_path, data)
+    else:
+        extra = ONCE_REFUSED[case]
+        if case == "scheduled_sampling":
+            assert ploop.ss_prob_at_epoch(PConfig().update(extra), 1) == 0.1
+    cfg = PConfig().update(dict(dict(loop_cfg(tmp_path, data), epoch=1,
+                                     device="cpu",
+                                     save_dir=str(tmp_path / "save")),
                                 **extra))
     folder = pathlib.Path(ploop.train(cfg))
     info = json.loads((folder / "info.json").read_text())
     scores = info["history"]["val_scores"]["0"]
     assert np.isfinite(info["history"]["train_loss"]["0"]["total_loss"])
-    if case == "gpt2":
+    if case in ONCE_REFUSED:
+        assert "METEOR" in scores
+        assert info["history"]["train_loss"]["0"]["loss_caption"] > 0
+        if case == "scheduled_sampling":
+            # the second epoch is the one that samples (ss_prob 0.1)
+            ss_epoch = info["history"]["train_loss"]["1"]
+            assert np.isfinite(ss_epoch["total_loss"])
+            assert ss_epoch["loss_caption"] > 0
+        if case == "two_stage":
+            # the eval CLI evaluates the two-stage run (GT segments as
+            # queries)
+            from gvl_tpu_torch import eval_cli
+            res = eval_cli.main(["--eval_save_dir", str(folder.parent),
+                                 "--eval_folder", folder.name,
+                                 "--eval_device", "cpu",
+                                 "--eval_batch_size", "3"])
+            assert res["videos"] == 6 and "METEOR" in res["scores"]
+    elif case == "gpt2":
         assert "METEOR" in scores
         assert info["history"]["train_loss"]["0"]["loss_caption"] > 0
         pred = json.loads((folder / "pred_epoch0.json").read_text())

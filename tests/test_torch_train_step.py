@@ -9,6 +9,7 @@ stated where they are used. Schedules, the gradient clip and the optimizers
 are held to optax on toy parameters.
 """
 
+import copy
 import types
 
 import jax
@@ -188,23 +189,47 @@ def test_parameters_after_the_trajectory_match_jax_in_units_of_lr(world):
     assert world["state"].step == N_STEPS
 
 
-@pytest.mark.parametrize("name", pstate._NOT_PORTED)
+@pytest.mark.parametrize("name", ["caption_cost", "two_stage"])
 def test_unported_train_options_raise_by_name(world, name):
-    cfg = world["cfg"]
+    """The caption cost and two-stage queries, refused by name until they
+    were ported, build a train state and take a step with finite losses
+    (their parity with the JAX package: tests/test_torch_train_options.py).
+    Under two_stage the model is a two-stage one (pos_trans, no
+    reference_points)."""
+    cfg = Config().update(dict(world["cfg"].to_dict(), set_cost_caption=1.0))
+    port = copy.deepcopy(world["port"])
+    if name == "two_stage":
+        cfg.transformer_input_type = "gt_proposals"
+        port = build_model(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+        assert not hasattr(port.transformer, "reference_points")
     kw = dict(statics_kw(cfg), **{name: True})
     st = pstate.StepStatics(spec=LossSpec.from_config(cfg), **kw)
-    with pytest.raises(NotImplementedError, match=name):
-        pstate.make_train_step(world["port"], cfg, st)
-    with pytest.raises(NotImplementedError, match=name):
-        pstate.create_train_state(cfg, world["port"], 10, st)
+    state = pstate.create_train_state(cfg, port, 10, st)
+    losses = pstate.make_train_step(port, cfg, st)(
+        state, make_batch(cfg), make_weight_dict(cfg), seed=1)
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert state.step == 1
 
 
 def test_scheduled_sampling_is_refused(world):
-    cfg = world["cfg"]
+    """Scheduled sampling, refused until it was ported, runs: at ss_prob
+    0.25 a seeded step's losses are finite and repeat with the same seed
+    (its parity with the JAX package: tests/test_torch_train_options.py)."""
+    cfg, port = world["cfg"], world["port"]
     st = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
-    step = pstate.make_train_step(world["port"], cfg, st)
-    with pytest.raises(NotImplementedError, match="scheduled sampling"):
-        step(world["state"], {}, {}, ss_prob=0.25)
+    fwd = pstate.make_train_step(port, cfg, st).forward_losses
+    batch = make_batch(cfg)
+    port.train()
+    try:
+        with torch.no_grad():
+            a = fwd(batch, seed=5, ss_prob=0.25)
+            b = fwd(batch, seed=5, ss_prob=0.25)
+    finally:
+        port.eval()
+    assert np.isfinite(float(a["loss_caption"]))
+    for k in a:
+        assert float(a[k]) == float(b[k]), k
 
 
 def test_per_layer_caption_branch_matches_the_fused_one(world):
