@@ -329,6 +329,28 @@ exits non-zero:
      trained model written as a torchvision-named .pth, imported by
      import_cli --backbone, and read back by extract_features' model:
      its features equal the trainer's.
+ 29. (after phase 28) data parallelism (gvl_tpu_torch.parallel) on the one
+     card, in two ways, on the flagship with every dropout off
+     (CUTS['anet_dp']): (a) NCCL at world 1: the launcher's environment
+     set for one rank, the flagship train step (DP_STEPS steps at B = 16)
+     and one EvalRunner batch through the data-parallel code over an NCCL
+     group, under deterministic algorithms, equal the same without a group
+     bit for bit (losses, the first step's gradients, the weights after
+     the steps, every JSON and eval loss), kernels 1 and 2 launched; (b)
+     two ranks that share the card over gloo, spawned: the same train step
+     at B = 16 as 8 + 8 for DP_STEPS steps, each rank's logged (global)
+     losses and first-step summed gradients held to the one-process step's
+     (the first step's losses and gradients within SPREAD_FACTOR x the
+     plain path's own card vs CPU difference of each, `plain_spread`, and
+     no less than DP_LOSS_FLOOR / DP_GRAD_FLOOR of it; the later steps'
+     total loss within LOSS_TOL), the ranks' gradients and
+     weights bit for bit equal; eval_cli --eval_data_parallel over 3
+     batches of 16 (40 videos, the last batch padded) against the CLI in
+     one process: the same keys, sentences equal for TOKEN_AGREEMENT of
+     the events, every number within DP_JSON_TOL; each rank's kernel
+     counts gathered. A line with each rank's step times, gradient
+     all-reduce times and peak memory beside the card's name and power
+     limit. NCCL across two cards cannot run on this one-card machine.
  15r. (after phase 11 of each workload) remat_trunk (CUTS['anet_remat'],
      CUTS['longvideo_remat']): the seeded train step with and without it,
      dropout on and seeded alike: every named gradient within 1e-6 (the
@@ -479,6 +501,12 @@ CUTS = {
     "anet_caption_cost": dict(OFFLINE_ROBERTA, set_cost_caption=1.0),
     "anet_gt_proposals": dict(OFFLINE_ROBERTA,
                               transformer_input_type="gt_proposals"),
+    # phase 29, data parallelism: the flagship with its dropouts off (the
+    # caption head's and the deformable transformer's), so that a step
+    # split over ranks, each drawing its own masks, computes the
+    # one-process step
+    "anet_dp": dict(OFFLINE_ROBERTA, drop_prob=0.0,
+                    transformer_dropout_prob=0.0),
 }
 YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "longvideo": "ym_i3d_msvg_dvc.yml",
@@ -490,7 +518,8 @@ YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "longvideo_remat": "ym_i3d_msvg_dvc.yml",
         "anet_published": "anet_tsp_msvg_dvc.yml",
         "anet_caption_cost": "anet_tsp_msvg_dvc.yml",
-        "anet_gt_proposals": "anet_tsp_msvg_dvc.yml"}
+        "anet_gt_proposals": "anet_tsp_msvg_dvc.yml",
+        "anet_dp": "anet_tsp_msvg_dvc.yml"}
 
 
 def workload_cfg(name: str) -> dict:
@@ -565,6 +594,8 @@ OPTIONS = {name: dataclasses.replace(ANET, name=f"anet_{name}", tag=tag,
                                      cfg=workload_cfg(f"anet_{name}"))
            for name, tag in (("caption_cost", "ccost"),
                              ("gt_proposals", "gtp"))}
+DP = dataclasses.replace(ANET, name="anet_dp", tag="dp",
+                         cfg=workload_cfg("anet_dp"))
 REMAT = {"anet": workload_cfg("anet_remat"),
          "longvideo": workload_cfg("longvideo_remat")}
 
@@ -3487,12 +3518,15 @@ def json_diff(a, b, path="$") -> float:
     return 0.0
 
 
-def plain_spread(w: Workload, model, batch, weights, text) -> dict:
+def plain_spread(w: Workload, model, batch, weights, text,
+                 loss_spread: dict = None) -> dict:
     """The plain path's gradients on the card against the same computation
     on the CPU (the same weights and batch, dropout off): name -> max abs
     difference over the card's max abs. A trunk gradient the gpt2 head's
     loss reaches differs so by up to 5.9e-3 (NVIDIA H100 80GB HBM3, 700 W):
-    a sum of terms that cancel, summed in another order."""
+    a sum of terms that cancel, summed in another order. With
+    `loss_spread`, each loss's difference over its card value goes there
+    too."""
     import copy
     from gvl_tpu_torch.models.layers import set_msda_impl
     from gvl_tpu_torch.train.criterion import LossSpec
@@ -3513,11 +3547,18 @@ def plain_spread(w: Workload, model, batch, weights, text) -> dict:
         set_msda_impl(m, "ref")
         m.zero_grad(set_to_none=True)
         losses = step.forward_losses(batch)
-        sum(losses[k] * weights[k] for k in losses if k in weights).backward()
+        total = sum(losses[k] * weights[k] for k in losses if k in weights)
+        total.backward()
         grads[where] = {n: p.grad.detach().cpu()
                         for n, p in m.named_parameters()}
+        grads[where + "_losses"] = dict(
+            {k: float(v) for k, v in losses.items()}, total_loss=float(total))
         set_msda_impl(m, "kernel")
         m.zero_grad(set_to_none=True)
+    if loss_spread is not None:
+        card_l, cpu_l = grads["card_losses"], grads["cpu_losses"]
+        loss_spread.update({k: abs(v - cpu_l[k]) / max(abs(v), GRAD_FLOOR)
+                            for k, v in card_l.items()})
     return {n: ((g - grads["cpu"][n]).abs().max()
                 / g.abs().max().clamp(min=GRAD_FLOOR)).item()
             for n, g in grads["card"].items()}
@@ -4716,6 +4757,336 @@ def phase_tsp(dev) -> None:
     free_device_memory()
 
 
+# ---------------------------------------------------------------- phase 29
+DP_STEPS = 3                    # phase 29: train steps of each run
+DP_RANKS = 2                    # phase 29 (b): gloo ranks sharing the card
+DP_TIMEOUT_S = 300              # phase 29: each collective; the ranks' join
+DP_JSON_TOL = GROUNDING_TOL     # phase 29 (b): the eval JSONs' numbers
+# phase 29 (b), beside each loss's and gradient's card vs CPU spread: the
+# rounding of a batch sum taken in two halves, x the loss or the gradient's
+# max abs (where the card and the CPU happen to agree bit for bit)
+DP_LOSS_FLOOR, DP_GRAD_FLOOR = 1e-6, 1e-5
+
+
+def dp_environment(rank: int, size: int, port: int) -> None:
+    """A launcher's environment for rank `rank` of `size`, every rank on
+    cuda:0 (LOCAL_RANK 0)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def dp_free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_train(dev) -> dict:
+    """DP's seeded train step (build_train), dropout off, DP_STEPS steps on
+    this rank's rows of its two batches (all of them in a world of one),
+    each step seeded: the logged losses of each step, the first step's
+    gradients and the weights after the steps (on the CPU), the launches,
+    each step's time and its gradient sum's (host clock, the device
+    synchronized around it), the peak device memory."""
+    from gvl_tpu_torch import parallel as dp
+    from gvl_tpu_torch.models.text import BertSelfAttention
+    model, state, step, weights, batches = build_train(DP, dev)
+    for m in model.modules():
+        if isinstance(m, BertSelfAttention):
+            m.dropout = 0.0
+    marks = {}
+
+    def tick(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+    step.tick = tick
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, sum_ms, grads = [], [], [], None
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = step(state, dp.shard_batch(batches[i % 2]), weights,
+                   seed=SEED + i)
+        losses.append({k: float(v) for k, v in got.items()})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sum_ms.append((marks["gradient_sum"] - marks["backward"]) * 1e3)
+        if i == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+    out = dict(losses=losses, grads=grads, launches=read_counts(),
+               step_ms=step_ms, sum_ms=sum_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               weights={n: p.detach().cpu().clone()
+                        for n, p in model.named_parameters()},
+               rows=len(dp.shard_batch(batches[0])["video_feats"]))
+    del model, state, step
+    free_device_memory()
+    return out
+
+
+def dp_eval_batch(dev, path: str) -> dict:
+    """EvalRunner.run of DP's seeded model over one synthetic batch of 16:
+    its result dicts, eval losses and launches."""
+    from gvl_tpu_torch.eval.evaluate import EvalRunner
+    from gvl_tpu_torch.models.gvl import build_model
+    cfg = types.SimpleNamespace(**DP.cfg)
+    text = load_text(DP, dev)
+    model = build_model(cfg, text_hidden_dim=text.hidden_size, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED))
+    runner = EvalRunner(cfg, model, WordTranslator(), text)
+    reset_counts()
+    _, out, g, ga, losses = runner.run(list(synthetic_batches(DP, 1, SEED)),
+                                       path)
+    res = dict(out=out, g=g, ga=ga, losses=dict(losses),
+               launches=read_counts())
+    del model, text, runner
+    free_device_memory()
+    return res
+
+
+def dp_rank(rank: int, root: str, port: int) -> None:
+    """Rank `rank` of phase 29 (b): a gloo group on the shared card, the
+    train step on its rows, eval_cli --eval_data_parallel; every rank's
+    results gathered by rank 0 into <root>/ranks.pt."""
+    from gvl_tpu_torch import eval_cli
+    from gvl_tpu_torch import parallel as dp
+    dp_environment(rank, DP_RANKS, port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp.init_distributed("cuda", backend="gloo", timeout_s=DP_TIMEOUT_S)
+    try:
+        dev = eval_cli._device("cuda")        # cuda:LOCAL_RANK
+        train = dp_train(dev)
+        argv = json.loads(pathlib.Path(root, "argv.json").read_text())
+        reset_counts()
+        t0 = time.perf_counter()
+        res = eval_cli.main(argv + ["--eval_data_parallel"])
+        eval_s = time.perf_counter() - t0
+        mine = dict(train, eval_launches=read_counts(), eval_s=eval_s,
+                    dvc_json=res["dvc_json"], videos=res["videos"],
+                    peak_eval_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        ranks = dp.all_gather_object(mine)
+        if dp.is_writer():
+            torch.save(ranks, pathlib.Path(root, "ranks.pt"))
+    finally:
+        dp.shutdown()
+
+
+def dp_json_agree(tag: str, got: dict, want: dict) -> tuple:
+    """A DVC JSON of the data-parallel eval against the one-process one:
+    the same videos and events, each event's numbers within DP_JSON_TOL
+    (its sentence_score only where the sentences agree); returns (the
+    largest number difference, events, events whose sentence differs)."""
+    check(list(got["results"]) == list(want["results"]), f"{tag}: videos")
+    worst, n, n_diff = 0.0, 0, 0
+    for vid, items in want["results"].items():
+        check(len(got["results"][vid]) == len(items), f"{tag}: {vid} events")
+        for a, b in zip(got["results"][vid], items):
+            n += 1
+            same = a["sentence"] == b["sentence"]
+            n_diff += not same
+            a, b = dict(a), dict(b)
+            for it in (a, b):
+                it.pop("sentence")
+                if not same:
+                    it.pop("sentence_score")
+            worst = max(worst, json_diff(a, b, f"{tag}.{vid}"))
+    return worst, n, n_diff
+
+
+def phase_data_parallel(dev) -> dict:
+    """Phase 29 (see the docstring). Returns the launches of the paths."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from gvl_tpu_torch import eval_cli
+    from gvl_tpu_torch import parallel as dp
+    tag = "dp"
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) NCCL at world 1 against no group, bit for bit
+        with deterministic_algorithms():
+            alone = dp_train(dev)
+            alone_eval = dp_eval_batch(dev, f"{tmp}/alone.json")
+            dp_environment(0, 1, dp_free_port())
+            try:
+                world = dp.init_distributed("cuda", timeout_s=DP_TIMEOUT_S)
+                check(world.size == 1 and world.group is not None
+                      and torch.distributed.get_backend() == "nccl",
+                      f"{tag}: an NCCL group of one rank, {world}")
+                grouped = dp_train(dev)
+                grouped_eval = dp_eval_batch(dev, f"{tmp}/grouped.json")
+            finally:
+                dp.shutdown()
+                for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                          "MASTER_PORT"):
+                    os.environ.pop(k, None)
+        check(grouped["losses"] == alone["losses"],
+              f"{tag}: NCCL world 1 losses differ")
+        for key in ("grads", "weights"):
+            bad = [n for n, g in alone[key].items()
+                   if not torch.equal(g, grouped[key][n])]
+            check(not bad, f"{tag}: NCCL world 1 {key} differ: {bad[:5]}")
+        for key in ("out", "g", "ga", "losses"):
+            check(grouped_eval[key] == alone_eval[key],
+                  f"{tag}: NCCL world 1 eval {key} differs")
+        want_train = want_counts(DP, DP_STEPS, train=True)
+        want_eval = want_counts(DP, 1, train=False)
+        check(grouped["launches"] == want_train
+              and grouped_eval["launches"] == want_eval,
+              f"{tag}: NCCL world 1 launches {grouped['launches']}, "
+              f"{grouped_eval['launches']}")
+        launches["anet_dp_nccl1_train"] = grouped["launches"]
+        launches["anet_dp_nccl1_eval"] = grouped_eval["launches"]
+        log(tag, f"(a) NCCL group of 1 rank: {DP_STEPS} train steps at "
+                 f"B={DP.train_B} and one EvalRunner batch of {DP.eval_B} "
+                 f"equal the run without a group bit for bit (losses, "
+                 f"{len(alone['grads'])} first-step gradients, the weights "
+                 f"after the steps, the DVC and grounding JSONs, the eval "
+                 f"losses); launches {grouped['launches']} and "
+                 f"{grouped_eval['launches']}; step ms "
+                 f"{grouped['step_ms']!r} (no group: {alone['step_ms']!r}), "
+                 f"gradient sum ms {grouped['sum_ms']!r}")
+
+        # (b) the tolerance: the plain path's own card vs CPU spread
+        t0 = time.perf_counter()
+        model, state, step, weights, batches = build_train(DP, dev)
+        loss_spread = {}
+        spread = plain_spread(DP, model, batches[0], weights,
+                              load_text(DP, dev), loss_spread)
+        del model, state, step
+        free_device_memory()
+        log(tag, f"card vs CPU spread of the plain path: gradients up to "
+                 f"{max(spread.values())!r} of the tensor's max abs "
+                 f"({max(spread, key=spread.get)}), total loss "
+                 f"{loss_spread['total_loss']!r}; "
+                 f"{time.perf_counter() - t0:.1f} s")
+        # the eval CLI in one process, on a copy of the world
+        root = pathlib.Path(tmp)
+        run, grounding, _ = write_cli_world(DP, root, dev)
+        shutil.copytree(run, run.with_name("run_dp"))
+        argv = ["--eval_save_dir", str(run.parent), "--eval_batch_size",
+                str(DP.eval_B), "--eval_gt_file_for_grounding",
+                str(grounding)]
+        one = eval_cli.main(argv + ["--eval_folder", "run"])
+        (root / "argv.json").write_text(json.dumps(
+            argv + ["--eval_folder", "run_dp"]))
+        free_device_memory()
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dp_rank, args=(tmp, dp_free_port()),
+                                 nprocs=DP_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() - t0 < DP_TIMEOUT_S,
+                      f"{tag}: the ranks did not end in {DP_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(5)
+        world_s = time.perf_counter() - t0
+        ranks = torch.load(root / "ranks.pt", weights_only=False)
+        check(len(ranks) == DP_RANKS and all(
+            r["rows"] == DP.train_B // DP_RANKS for r in ranks),
+            f"{tag}: {len(ranks)} ranks")
+        # the train step: the ranks agree bit for bit, and with one process
+        for r in ranks[1:]:
+            check(r["losses"] == ranks[0]["losses"], f"{tag}: rank losses")
+            for key in ("grads", "weights"):
+                check(all(torch.equal(g, ranks[0][key][n])
+                          for n, g in r[key].items()), f"{tag}: rank {key}")
+        got = ranks[0]
+        worst_loss = 0.0
+        for k, v in alone["losses"][0].items():
+            err = abs(got["losses"][0][k] - v)
+            tol = (SPREAD_FACTOR * loss_spread.get(k, 0.0) + DP_LOSS_FLOOR) \
+                * abs(v) + GRAD_FLOOR
+            check(err <= tol, f"{tag}: step 0 {k} {got['losses'][0][k]!r} vs "
+                              f"{v!r} (tol {tol!r})")
+            worst_loss = max(worst_loss, err / max(abs(v), GRAD_FLOOR))
+        for i in range(1, DP_STEPS):
+            a, b = got["losses"][i]["total_loss"], \
+                alone["losses"][i]["total_loss"]
+            check(abs(a - b) <= LOSS_TOL * abs(b),
+                  f"{tag}: step {i} total {a!r} vs {b!r}")
+        worst, worst_name = 0.0, ""
+        for n, g in alone["grads"].items():
+            scale = g.abs().max().item()
+            err = (got["grads"][n] - g).abs().max().item()
+            tol = max(SPREAD_FACTOR * spread[n], DP_GRAD_FLOOR)
+            check(err <= tol * scale + GRAD_FLOOR,
+                  f"{tag}: gradient {n}: {err} > {tol} x {scale} + "
+                  f"{GRAD_FLOOR}")
+            if scale > GRAD_FLOOR and err / scale > worst:
+                worst, worst_name = err / scale, n
+        # the eval CLI over the ranks
+        files = {"dvc": "", "grounding": ".grounding.json",
+                 "aux_grounding": "_aux.grounding.json"}
+        n_diff = n_events = 0
+        json_worst = 0.0
+        for name, suffix in files.items():
+            a = json.loads(pathlib.Path(got["dvc_json"] + suffix).read_text()
+                           if suffix else (run.with_name("run_dp")
+                                           / "eval_model-best.json")
+                           .read_text())
+            b = json.loads(pathlib.Path(one["dvc_json"] + suffix).read_text()
+                           if suffix else (run / "eval_model-best.json")
+                           .read_text())
+            if name == "dvc":
+                diff, n_events, n_diff = dp_json_agree(tag, a, b)
+            else:
+                diff = json_diff(a, b, f"{tag}.{name}")
+            json_worst = max(json_worst, diff)
+        check(json_worst <= DP_JSON_TOL and n_diff <= (1 - TOKEN_AGREEMENT)
+              * n_events, f"{tag}: eval JSONs: numbers {json_worst!r}, "
+                          f"{n_diff} of {n_events} sentences differ")
+        check(got["videos"] == one["videos"] == CLI_VIDEOS,
+              f"{tag}: {got['videos']} videos")
+        n_batches = -(-CLI_VIDEOS // DP.eval_B)
+        for i, r in enumerate(ranks):
+            check(r["launches"] == want_train, f"{tag}: rank {i} train "
+                                               f"launches {r['launches']}")
+            check(r["eval_launches"] == want_counts(DP, n_batches, False),
+                  f"{tag}: rank {i} eval launches {r['eval_launches']}")
+            launches[f"anet_dp_rank{i}_train"] = r["launches"]
+            launches[f"anet_dp_rank{i}_eval_cli"] = r["eval_launches"]
+    log(tag, f"(b) {DP_RANKS} gloo ranks on the one card, rows "
+             f"{DP.train_B // DP_RANKS} each: {DP_STEPS} steps' global "
+             f"losses, first-step gradients and weights equal across the "
+             f"ranks bit for bit; against one process: step 0's losses "
+             f"within {worst_loss!r} (relative), gradients within {worst!r} "
+             f"of the tensor's max abs ({worst_name}); eval_cli "
+             f"--eval_data_parallel over {CLI_VIDEOS} videos in {n_batches} "
+             f"batches: JSON numbers within {json_worst!r}, {n_diff} of "
+             f"{n_events} sentences differ; launches per rank "
+             f"{[r['launches'] for r in ranks]}, "
+             f"{[r['eval_launches'] for r in ranks]}; the ranks' world "
+             f"{world_s:.1f} s (spawn, imports and the build of each rank "
+             f"included)")
+    log(tag, f"per rank ({card()}): step ms "
+             + "; ".join(f"rank {i} {r['step_ms']!r}"
+                         for i, r in enumerate(ranks))
+             + "; gradient all-reduce ms (gloo, through the host) "
+             + "; ".join(f"rank {i} {r['sum_ms']!r}"
+                         for i, r in enumerate(ranks))
+             + "; peak GiB train / with eval "
+             + "; ".join(f"rank {i} {r['peak_gib']:.2f} / "
+                         f"{r['peak_eval_gib']:.2f}"
+                         for i, r in enumerate(ranks))
+             + f"; one process, B={DP.train_B}: step ms "
+               f"{alone['step_ms']!r}, peak {alone['peak_gib']:.2f} GiB; "
+               f"eval_cli --eval_data_parallel {ranks[0]['eval_s']:.2f} s, "
+               f"one process "
+               f"{sum(one['times'][k] for k in CLI_STAGES):.2f} s")
+    return launches
+
+
 # work -> (floats moved as multiples of value, out and the taps; FMAs per
 # tap and channel). fwd: value, loc, attn in, out out. bwd: value, grad_out,
 # loc, attn in, grad_value, grad_loc, grad_attn out; two dot products and
@@ -4905,6 +5276,7 @@ def main() -> None:
             del text
             launches.update(phase_published(dev))
             phase_tsp(dev)
+            launches.update(phase_data_parallel(dev))
             torch.cuda.empty_cache()
     rows = []
     for key, row, rname, source, replaces in (
@@ -4948,6 +5320,9 @@ def main() -> None:
                  "anet_gt_proposals_train"):
         paths[path] = (ANET, True)
     paths["longvideo_remat_train"] = (LONG, True)
+    for path in launches:
+        if path.startswith("anet_dp_"):
+            paths[path] = (ANET, path.endswith("_train"))
     for path, (w, train) in paths.items():
         for key, n in want_counts(w, 1, train).items():
             check((launches[path][key] > 0) == (n > 0),

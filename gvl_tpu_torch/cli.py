@@ -77,7 +77,9 @@ def parse_opts(argv: Optional[List[str]] = None) -> Config:
             if cfg.cfg_path else "run"
     if cfg.caption_decoder_type == "none":
         assert cfg.caption_loss_coef == 0 and cfg.set_cost_caption == 0
-    os.makedirs(".tmp", exist_ok=True)
-    with open(".tmp/opts.json", "w") as fh:
-        json.dump(cfg.to_dict(), fh, default=str)
+    if int(os.environ.get("RANK", 0)) == 0:
+        # one writer under a launcher (gvl_tpu_torch.parallel)
+        os.makedirs(".tmp", exist_ok=True)
+        with open(".tmp/opts.json", "w") as fh:
+            json.dump(cfg.to_dict(), fh, default=str)
     return cfg

@@ -51,6 +51,14 @@ pred_event_count}]}, "version", "external_data"} (reference
 eval_utils.py:227-240). Grounding JSONs: {"results": {"<vid>-<i>":
 [{timestamp, score, cl_score, sentence}]}} from the last decoder layer and,
 in `_aux`, from the one before (eval_utils.py:322-330).
+
+Data parallelism (gvl_tpu_torch.parallel; the JAX runner's mesh,
+evaluate.py:354-382): every batch is padded to the eval batch size as in a
+one-process run, then rank r takes its block of rows (`shard_batch`) and
+evaluates them; each rank's eval losses are its shares of the global
+batch's and are summed over ranks per batch. The per-video results reach
+every rank in the global row order (`all_gather_object` once, at the end),
+and rank 0 alone writes the JSONs.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from typing import Any, Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from gvl_tpu_torch import parallel as dp
 from gvl_tpu_torch.eval.postprocess import (GroundingSpec, detection_outputs,
                                             grounding_outputs)
 from gvl_tpu_torch.models.text_encoder import effective_max_gt_events
@@ -81,6 +90,11 @@ def save_dvc_json(out_json: Dict, path: str, verbose: bool = False):
                 [len(v) for v in out_json["results"].values()])) \
                 if out_json["results"] else 0.0
         json.dump(out_json, f)
+
+
+def rerank_path(p_src: str, alpha: float, temperature: float) -> str:
+    """The path `reranking` writes."""
+    return p_src + f"_rerank_alpha{alpha}_temp{temperature}.json"
 
 
 def reranking(p_src: str, alpha: float, cl_score_weight: float,
@@ -103,7 +117,7 @@ def reranking(p_src: str, alpha: float, cl_score_weight: float,
         v = v[:top_n]
         v = sorted(v, key=lambda x: x["timestamp"])
         d["results"][k] = v
-    save_path = p_src + f"_rerank_alpha{alpha}_temp{temperature}.json"
+    save_path = rerank_path(p_src, alpha, temperature)
     save_dvc_json(d, save_path)
     return save_path
 
@@ -303,11 +317,12 @@ class EvalRunner:
                 texts = ([text_out["aux"]] * (cfg.dec_layers - 1)
                          + [text_out["final"]])
             row_valid = arrs.get("row_valid")
-            result["losses"], _ = compute_criterion(
+            shares, _ = compute_criterion(
                 out, self._tensor(arrs["gt_boxes"]),
                 self._tensor(arrs["gt_labels"]), gt_mask, texts, self.spec,
                 row_mask=None if row_valid is None
                 else self._tensor(row_valid, torch.bool))
+            result["losses"] = dp.sum_shares(shares)
         aux = {}
         if self.grounding:
             # the final layer matches the final text embedding, the one
@@ -376,9 +391,10 @@ class EvalRunner:
     def _prepare(self, batch: Dict, eval_bs: int = 0
                  ) -> Tuple[Dict, int, Dict[str, np.ndarray]]:
         """Pad a partial last batch to eval_bs by repeating its last row,
-        with `row_valid` marking the real rows, and tokenize its sentences
-        (evaluate.py:361-389). Returns (the batch, its keys cut to the real
-        rows; the number of real rows; the numpy arrays of the step)."""
+        with `row_valid` marking the real rows (evaluate.py:361-389), take
+        this rank's block of rows and tokenize their sentences. Returns (the
+        batch, its keys cut to the real rows; the global batch's number of
+        real rows; the numpy arrays of the step)."""
         real_b = len(batch["keys"])
         if eval_bs and real_b < eval_bs:
             reps = [min(i, real_b - 1) for i in range(eval_bs)]
@@ -386,8 +402,10 @@ class EvalRunner:
                          else [v[i] for i in reps])
                      for k, v in batch.items()}
             batch["keys"] = batch["keys"][:real_b]
+        n = max(eval_bs, real_b)
+        batch = dp.shard_batch(dict(batch, row_valid=np.arange(n) < real_b),
+                               n_rows=n)
         arrs = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        arrs["row_valid"] = np.arange(max(eval_bs, real_b)) < real_b
         if self.contrastive:
             ids, tmask = self.text_encoder.tokenize(
                 batch["captions_raw"], self.G, self.max_text_len)
@@ -406,7 +424,8 @@ class EvalRunner:
         (path of the final DVC JSON, the un-reranked result dict, the
         grounding and aux grounding dicts, the eval losses averaged over the
         real videos, rounded to 3 places), as the JAX package's run
-        (evaluate.py:539)."""
+        (evaluate.py:539). Under data parallelism every rank returns the
+        same, and the iterable's batch_size must divide over the ranks."""
         cfg = self.cfg
         out_json = {"results": {}, "version": "VERSION 1.0",
                     "external_data": {"used:": True, "details": None}}
@@ -415,8 +434,13 @@ class EvalRunner:
         loss_sum: "OrderedDict[str, float]" = OrderedDict()
         n_rows = 0
         eval_bs = int(getattr(batches, "batch_size", 0) or 0)
+        if dp.size() > 1:
+            dp.make_mesh_for_batch(eval_bs)
+        parts = []          # this rank's results of each batch
+        videos = set()
         with torch.inference_mode():
             for batch in batches:
+                videos.update(batch["keys"])
                 batch, real_b, arrs = self._prepare(batch, eval_bs)
                 res_dev, aux = self._eval_step(arrs)
                 res = self._to_host(res_dev)
@@ -425,33 +449,46 @@ class EvalRunner:
                     loss_sum[k] = loss_sum.get(k, 0.0) + float(v) * real_b
                 if self.matching and "seq" in res:
                     res["det"]["cl_scores"] = self._match_pass(res, aux)
-                self._assemble(batch, res, out_json)
+                part = tuple({"results": {}} for _ in range(3))
+                self._assemble(batch, res, part[0])
                 if "grounding" in res:
                     self._assemble_grounding(batch, res["grounding"],
                                              res["grounding_aux"], 0,
-                                             out_json_g, aux_out_json_g)
-                    self._ground_past_g(batch, aux, out_json_g,
-                                        aux_out_json_g)
-                if debug and len(out_json["results"]) > 5:
+                                             part[1], part[2])
+                    self._ground_past_g(batch, aux, part[1], part[2])
+                parts.append(part)
+                if debug and len(videos) > 5:
                     break
+        # every rank's results of each batch, in the global row order
+        for batch_parts in zip(*dp.all_gather_object(parts)):
+            for dst, part in zip((out_json, out_json_g, aux_out_json_g),
+                                 zip(*batch_parts)):
+                for src in part:
+                    dst["results"].update(src["results"])
         for k in loss_sum:
             loss_sum[k] = round(loss_sum[k] / (n_rows + 1e-5), 3)
         if logger is not None:
             logger.info("eval loss: {}".format(dict(loss_sum)))
         name_map = getattr(getattr(batches, "ds", None), "name_map", None)
+        writer = dp.is_writer()
         if getattr(cfg, "only_ft_class_head", False) and name_map is not None:
             self.last_tal_json = dvc_json_path[:-5] + ".tal.json"
-            save_dvc_json(tal_submission(out_json, name_map),
-                          self.last_tal_json)
-        save_dvc_json(out_json, dvc_json_path, verbose=True)
-        plot_hook(cfg, dvc_json_path)
+            if writer:
+                save_dvc_json(tal_submission(out_json, name_map),
+                              self.last_tal_json)
+        if writer:
+            save_dvc_json(out_json, dvc_json_path, verbose=True)
+            plot_hook(cfg, dvc_json_path)
         if cfg.count_loss_coef > 0:
             dvc_json_path = reranking(
                 dvc_json_path, alpha=cfg.ec_alpha,
                 cl_score_weight=cfg.eval_matching_score_weight,
-                temperature=2.0)
-        save_dvc_json(out_json_g, dvc_json_path + ".grounding.json")
-        save_dvc_json(aux_out_json_g, dvc_json_path + "_aux.grounding.json")
+                temperature=2.0) if writer else rerank_path(
+                    dvc_json_path, cfg.ec_alpha, 2.0)
+        if writer:
+            save_dvc_json(out_json_g, dvc_json_path + ".grounding.json")
+            save_dvc_json(aux_out_json_g,
+                          dvc_json_path + "_aux.grounding.json")
         return dvc_json_path, out_json, out_json_g, aux_out_json_g, loss_sum
 
     def _match_pass(self, res, aux) -> np.ndarray:

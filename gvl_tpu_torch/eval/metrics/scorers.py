@@ -139,7 +139,11 @@ class Cider:
     def method(self):
         return "Cider"
 
-    def compute_score(self, gts, res, df_override=None, log_m_override=None):
+    def compute_score(self, gts, res, df_override=None, log_m_override=None,
+                      corpus=None):
+        """(mean, per-key scores) of `res` against `gts`. The document
+        frequencies come from `df_override`, else from `corpus` (a list of
+        reference lists), else from the references of `gts`' keys."""
         keys = list(res.keys())
         if df_override is not None:
             # precomputed corpus df (single dict keyed by ngram tuple of any
@@ -149,14 +153,15 @@ class Cider:
         else:
             # document frequencies over reference sets
             df = [defaultdict(float) for _ in range(self.n)]
-            for k in keys:
+            docs = corpus if corpus is not None else [gts[k] for k in keys]
+            for refs in docs:
                 for i in range(self.n):
                     seen = set()
-                    for ref in gts[k]:
+                    for ref in refs:
                         seen |= set(_ngrams(ref.split(), i + 1).keys())
                     for ng in seen:
                         df[i][ng] += 1.0
-            log_m = math.log(max(len(keys), 1))
+            log_m = math.log(max(len(docs), 1))
 
         def vecs(words):
             out, norms, length = [], [], len(words)

@@ -18,11 +18,20 @@ caption file is fabricated from a metadata CSV and nothing is scored.
 never falls back to the CPU. On the card TF32 is turned off, so that
 matmuls and convolutions run in f32 as in the JAX package.
 
-Refused by name (NotImplementedError) before any data is read:
-`--eval_data_parallel` (several GPUs, ROADMAP Queue 1 item 10) and every
+Refused by name (NotImplementedError) before any data is read: every
 option of the restored config that the model, the text encoder or
 EvalRunner does not run yet (`check_config`; the pretrained text and GPT-2
-weights among them). `--eval_use_amp` sets eval_decode_bf16 besides the
+weights among them).
+
+`--eval_data_parallel` evaluates over the ranks of a launcher (eval.py:
+185-193): `python -m torch.distributed.run --nproc_per_node N -m
+gvl_tpu_torch.eval_cli ... --eval_data_parallel`, each rank on its card
+(cuda:LOCAL_RANK; gloo ranks on the CPU under `--eval_device cpu`), every
+rank on its block of each batch (gvl_tpu_torch.parallel), rank 0 writing
+the JSONs and the scores; eval_batch_size must divide over the ranks.
+Without a launcher the flag changes nothing, as eval.py's on one device;
+under a launcher without the flag, rank 0 evaluates alone and the other
+ranks wait for it. `--eval_use_amp` sets eval_decode_bf16 besides the
 bf16 text pass, as the JAX CLI does (eval.py:134-135).
 `--eval_enable_zeroshot_tal` embeds the names of the classes in
 action_classes_path, each after `--eval_prompt` (default "a video of"), so
@@ -130,7 +139,8 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_not_strict_load", action="store_true",
                    default=None)
     p.add_argument("--eval_data_parallel", action="store_true", default=None,
-                   help="not ported yet (one card): refused")
+                   help="evaluate over the ranks of a launcher "
+                   "(torch.distributed.run)")
     return p
 
 
@@ -182,22 +192,11 @@ def restore_config(args: argparse.Namespace) -> Config:
     return cfg
 
 
-# (option, what it asks for, the ROADMAP item that ports it)
-_REFUSED = (
-    ("eval_data_parallel", "--eval_data_parallel (eval over several GPUs)",
-     "ROADMAP Queue 1 item 10; the port evaluates on one card"),
-)
-
-
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError naming the first option of `cfg` that the
-    port's eval does not run yet: the options of `_REFUSED`, then those
-    the model and the text encoder refuse. Builds nothing."""
+    port's eval does not run yet: those the model and the text encoder
+    refuse. Builds nothing."""
     from gvl_tpu_torch.models import gvl, text_encoder
-    for name, what, where in _REFUSED:
-        if cfg.get(name, False):
-            raise NotImplementedError(
-                f"eval_cli: {what} is not ported yet ({where})")
     gvl._check_ported(gvl.GVLArch.from_config(cfg))
     if cfg.enable_contrastive:
         text_encoder._check_ported(cfg)
@@ -242,7 +241,8 @@ class TimedBatches:
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the CLI on `argv` (sys.argv[1:] when None). Returns {"scores",
     "times" (seconds per stage), "dvc_json" (the final DVC JSON's path),
-    "videos", "batches"}."""
+    "videos", "batches"}: rank 0's, on every rank."""
+    from gvl_tpu_torch import parallel as dp
     from gvl_tpu_torch.data.dataset import Batcher, DenseVideoDataset
     from gvl_tpu_torch.data.vocabulary import ClassMap
     from gvl_tpu_torch.eval.evaluate import EvalRunner
@@ -254,6 +254,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from gvl_tpu_torch.utils.logging import create_logger
 
     args = eval_parser().parse_args(argv)
+    dp.init_distributed(args.eval_device)
     dev = _device(args.eval_device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -274,6 +275,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     with stage("config_and_data"):
         cfg = restore_config(args)
         check_config(cfg)
+        # every rank on its rows with the flag and more than one rank, else
+        # rank 0 alone (eval.py:185-193)
+        data_parallel = bool(cfg.get("eval_data_parallel", False)) and \
+            dp.size() > 1
+        if data_parallel:
+            dp.make_mesh_for_batch(cfg.eval_batch_size)
         logger = create_logger(folder, "eval.log")
         ds = DenseVideoDataset(cfg.val_caption_file, cfg.visual_feature_folder,
                                cfg.dict_file, False, cfg)
@@ -310,9 +317,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                     for i in range(len(cmap))])
     dvc_path = os.path.join(folder, f"eval_{args.eval_checkpoint}.json")
     with stage("eval_run"):
-        out_path, out_json, *_ = runner.run(batcher, dvc_path, logger=logger,
-                                            debug=bool(cfg.debug))
+        if data_parallel or dp.is_writer():
+            with contextlib.nullcontext() if data_parallel else dp.local():
+                out_path, out_json, *_ = runner.run(
+                    batcher, dvc_path, logger=logger, debug=bool(cfg.debug))
+        if not data_parallel:
+            dp.barrier()
     times["batcher"] = batcher.seconds
+    if not dp.is_writer():
+        # rank 0 scores and writes; the others return its scores
+        return dict(dp.broadcast_object(None), times=dict(times))
 
     scores: Dict = {}
     with stage("metrics"):
@@ -343,9 +357,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         json.dump(scores, f, indent=1)
     logger.info(f"stage times (s): {dict(times)}; {n_videos} videos in "
                 f"{batcher.batches} batches of {cfg.eval_batch_size}")
-    return {"scores": scores, "times": dict(times), "dvc_json": out_path,
-            "videos": n_videos, "batches": batcher.batches}
+    out = {"scores": scores, "dvc_json": out_path, "videos": n_videos,
+           "batches": batcher.batches}
+    dp.broadcast_object(out)
+    return dict(out, times=dict(times))
 
 
 if __name__ == "__main__":
-    main()
+    from gvl_tpu_torch import parallel
+    try:
+        main()
+    finally:
+        parallel.shutdown()

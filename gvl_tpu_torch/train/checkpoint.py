@@ -11,7 +11,8 @@ frozen) as their `state_dict()`s, and "step", the number of updates taken.
 A file is written whole or not at all. `restore` puts all of it back into a
 live TrainState; `restore_raw` reads a payload with `torch.load(...,
 weights_only=True)`, which unpickles tensors and plain containers only, and
-reads the weights-only checkpoints as well.
+reads the weights-only checkpoints as well. Under data parallelism rank 0
+alone writes (`save` returns the path on every rank); every rank reads.
 
 `load_pretrained` merges a checkpoint's model weights into a fresh model:
 mode 'full', 'encoder' or 'decoder' and the remove_*_weight flags, with the
@@ -32,6 +33,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+
+from gvl_tpu_torch import parallel as dp
 
 
 # a train state's optimizers and schedules, as a checkpoint names them
@@ -56,7 +59,8 @@ def _cpu_tree(node: Any) -> Any:
 class CheckpointManager:
     def __init__(self, folder: str):
         self.folder = os.path.abspath(folder)
-        os.makedirs(self.folder, exist_ok=True)
+        if dp.is_writer():
+            os.makedirs(self.folder, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.folder, name + ".pth")
@@ -69,7 +73,10 @@ class CheckpointManager:
         TrainState `state` (whose model and text encoder these are), its
         optimizers, schedules and step counter are written too (a state
         without text_optimizer, scheduler or text_scheduler attributes, as
-        the TSP trainer's, has None for them)."""
+        the TSP trainer's, has None for them). Only rank 0 writes."""
+        path = self._path(name)
+        if not dp.is_writer():
+            return path
         payload = {"model": _cpu_state(model),
                    "text_encoder": None if text_encoder is None
                    else _cpu_state(text_encoder),
@@ -80,7 +87,6 @@ class CheckpointManager:
             payload.update(
                 {attr: sd(getattr(state, attr, None)) for attr in _OPTIMIZERS},
                 step=int(state.step))
-        path = self._path(name)
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)

@@ -10,6 +10,15 @@ assignment is `match_layer_m2o`, which `compute_criterion` runs beside the
 one-to-one match with `rl_m2o_rate > 0`. The caption cost: given each
 layer's caption NLL of every (query, GT) pair, `compute_criterion` adds it
 to the matching cost and takes the caption loss from its matched entries.
+
+Under data parallelism (gvl_tpu_torch.parallel) each rank holds a block of
+the global batch's rows, and every loss here is the rank's exact share of
+the loss JAX computes on the global batch: a sum over the rank's own rows
+over a count of the global batch (`global_sum`); the contrastive loss
+reads the other ranks' events and texts through `gather_rows`. The shares
+of the ranks add up to the global loss, and their gradients, summed over
+ranks, to its gradient. The matcher is per video and stays local. Without
+a process group every helper is the identity.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from gvl_tpu_torch.parallel import gather_rows, global_sum, row_block
 from gvl_tpu_torch.train.lap import batched_lap
 from gvl_tpu_torch.utils import boxes as box_ops
 
@@ -195,8 +205,9 @@ def counter_loss(pred_count, gt_mask, spec: LossSpec, row_mask=None):
     per_row = (_bce_with_logits(pred_count, onehot) * weight[None, :]
                * coef).mean(1)
     if row_mask is not None:
-        return (per_row * row_mask).sum() / row_mask.sum().clamp(min=1)
-    return per_row.mean()
+        return (per_row * row_mask).sum() \
+            / global_sum(row_mask.sum()).clamp(min=1)
+    return per_row.sum() / global_sum(B)
 
 
 def boxes_losses(pred_boxes, gt_boxes, gt_mask, match_q, num_boxes):
@@ -211,7 +222,7 @@ def boxes_losses(pred_boxes, gt_boxes, gt_mask, match_q, num_boxes):
     loss_giou = ((1 - giou) * m).sum() / num_boxes
 
     # overlap among a video's matched predictions, normalised per video by
-    # n*(n-1)/2 and summed over the batch
+    # n*(n-1)/2 and summed over the batch (a rank's sum is its share)
     iou_pair, _ = box_ops.pairwise_iou(src_xy, src_xy)       # (B, G, G)
     G = gt_boxes.shape[1]
     upper = torch.triu(iou_pair.new_ones((G, G)), diagonal=1)[None]
@@ -229,8 +240,9 @@ def cardinality_error(pred_logits, gt_mask, row_mask=None):
     card = (pred_logits.argmax(-1) != pred_logits.shape[-1] - 1).sum(-1)
     err = (card.float() - gt_mask.sum(-1).float()).abs()
     if row_mask is not None:
-        return (err * row_mask).sum() / row_mask.sum().clamp(min=1)
-    return err.mean()
+        return (err * row_mask).sum() / global_sum(row_mask.sum()).clamp(
+            min=1)
+    return err.sum() / global_sum(err.shape[0])
 
 
 def _softmax_ce(logits, labels):
@@ -251,33 +263,42 @@ def contrastive_loss(text_embed, event_embed, match_q, gt_mask,
     event labelled background; enable_bg_for_cl averages it over all events,
     otherwise over the matched ones. row_mask (B,) drops padded videos: their
     events leave the negative pool (matched columns stay) and the per-video
-    means divide by the real rows."""
+    means divide by the real rows.
+
+    Under data parallelism the batch is the global one: this rank's texts
+    against every rank's events, and this rank's events against every
+    rank's texts (`gather_rows`, rank order), each direction summed over
+    this rank's rows and divided by the global count: the rank's share."""
     B, G, D = text_embed.shape
     Nq = event_embed.shape[1]
     dev = text_embed.device
+    ev_all = gather_rows(event_embed)                    # (Bg, Nq, D)
+    Bg = ev_all.shape[0]
+    off = row_block(Bg).start                            # this rank's first row
     tf = _unit(text_embed).reshape(B * G, D)
-    ef = _unit(event_embed).reshape(B * Nq, D)
-    logits = (tf @ ef.T) / spec.temperature              # (BG, BNq)
+    logits = (tf @ _unit(ev_all).reshape(Bg * Nq, D).T) \
+        / spec.temperature                               # (BG, BgNq)
 
     valid = gt_mask.reshape(B * G)
-    labels = (torch.arange(B, device=dev)[:, None] * Nq + match_q).reshape(-1)
-    cols = torch.arange(B * Nq, device=dev)
-    n_rows = float(B)
+    labels = ((off + torch.arange(B, device=dev))[:, None] * Nq
+              + match_q).reshape(-1)                     # global event index
+    cols = torch.arange(Bg * Nq, device=dev)
+    n_rows = float(global_sum(B))
     if row_mask is not None:
         row_mask = row_mask.float()
-        n_rows = row_mask.sum().clamp(min=1.0)
-        ev_row = row_mask.bool().repeat_interleave(Nq)
+        n_rows = global_sum(row_mask.sum()).clamp(min=1.0)
+        ev_row = gather_rows(row_mask).bool().repeat_interleave(Nq)
         keep = ev_row[None, :] | (cols[None, :] == labels[:, None])
         logits = torch.where(keep, logits, -1e9)
     if not spec.enable_cross_video_cl:
         rows = torch.arange(B * G, device=dev)
-        own = (cols[None, :] // Nq) == (rows[:, None] // G)
+        own = (cols[None, :] // Nq) == (off + rows[:, None] // G)
         logits = torch.where(own, logits, -1e9)
 
     t2e_all = _softmax_ce(logits, labels)
     validf = valid.float()
     if spec.enable_cross_video_cl:
-        t2e = (t2e_all * validf).sum() / validf.sum().clamp(min=1)
+        t2e = (t2e_all * validf).sum() / global_sum(validf.sum()).clamp(min=1)
     else:
         m = gt_mask.float()
         per_video = ((t2e_all.reshape(B, G) * m).sum(-1)
@@ -286,21 +307,39 @@ def contrastive_loss(text_embed, event_embed, match_q, gt_mask,
     if not spec.enable_e2t_cl:
         return t2e
 
+    # this rank's events against every valid text of the global batch
+    ef = _unit(event_embed).reshape(B * Nq, D)
+    valid_all = gather_rows(gt_mask).reshape(Bg * G)
+    labels_all = gather_rows(labels)
+    logits = (_unit(gather_rows(text_embed)).reshape(Bg * G, D) @ ef.T) \
+        / spec.temperature                               # (BgG, BNq)
+    own_cols = off * Nq + torch.arange(B * Nq, device=dev)
+    if row_mask is not None:
+        keep = row_mask.bool().repeat_interleave(Nq)[None, :] | (
+            own_cols[None, :] == labels_all[:, None])
+        logits = torch.where(keep, logits, -1e9)
+    if not spec.enable_cross_video_cl:
+        rows = torch.arange(Bg * G, device=dev)
+        own = (own_cols[None, :] // Nq) == (rows[:, None] // G)
+        logits = torch.where(own, logits, -1e9)
     bg_logits = (ef @ _unit(bg_embed)[0]) / spec.temperature     # (BNq,)
-    col = torch.where(valid[:, None], logits, -1e9)
-    e2t_logits = torch.cat([col, bg_logits[None, :]], dim=0)     # (BG+1, BNq)
-    e_labels = torch.full((B * Nq,), B * G, dtype=torch.long, device=dev)
-    e_labels[labels[valid]] = torch.arange(B * G, device=dev)[valid]
-    matched = (e_labels != B * G).float()
+    col = torch.where(valid_all[:, None], logits, -1e9)
+    e2t_logits = torch.cat([col, bg_logits[None, :]], dim=0)     # (BgG+1, BNq)
+    e_labels = torch.full((B * Nq,), Bg * G, dtype=torch.long, device=dev)
+    mine = valid_all & (labels_all >= off * Nq) & (labels_all < (off + B) * Nq)
+    e_labels[labels_all[mine] - off * Nq] = torch.arange(Bg * G,
+                                                         device=dev)[mine]
+    matched = (e_labels != Bg * G).float()
     e2t_all = _softmax_ce(e2t_logits.T, e_labels)
     if spec.enable_bg_for_cl:
         if row_mask is not None:
             ev_rowf = row_mask.repeat_interleave(Nq)
-            e2t = (e2t_all * ev_rowf).sum() / ev_rowf.sum().clamp(min=1)
+            e2t = (e2t_all * ev_rowf).sum() \
+                / global_sum(ev_rowf.sum()).clamp(min=1)
         else:
-            e2t = e2t_all.mean()
+            e2t = e2t_all.sum() / global_sum(B * Nq)
     elif spec.enable_cross_video_cl:
-        e2t = (e2t_all * matched).sum() / matched.sum().clamp(min=1)
+        e2t = (e2t_all * matched).sum() / global_sum(matched.sum()).clamp(min=1)
     else:
         m = matched.reshape(B, Nq)
         per_v = (e2t_all.reshape(B, Nq) * m).sum(-1) / (1e-5 + m.sum(-1))
@@ -342,7 +381,7 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
     if row_mask is not None:
         row_maskf = row_mask.float()
         gt_mask = gt_mask & row_mask[:, None]
-    num_boxes = gt_mask.sum().float().clamp(min=1.0)
+    num_boxes = global_sum(gt_mask.sum().float()).clamp(min=1.0)
 
     with torch.no_grad():
         costs = [build_match_cost(outputs["pred_logits"][l],
@@ -376,8 +415,8 @@ def compute_criterion(outputs: Dict, gt_boxes, gt_labels, gt_mask,
             matched = torch.gather(cap_costs[l], 1,
                                    match_qs[l][:, None, :])[:, 0]   # (B, G)
             per_video = (matched * gtf).sum(-1) / gtf.sum(-1).clamp(min=1)
-            losses["loss_caption" + suffix] = \
-                (per_video * has_any).sum() / has_any.sum().clamp(min=1)
+            losses["loss_caption" + suffix] = (per_video * has_any).sum() \
+                / global_sum(has_any.sum()).clamp(min=1)
         losses["loss_ce" + suffix] = labels_loss(
             logits, gt_labels, gt_mask, match_qs[l], num_boxes, spec,
             row_maskf)

@@ -27,16 +27,38 @@ train.py:151-595):
 - info.json with the opts, the loss and score histories and the bests
   (train.py:561-578); `debug` stops each epoch after 5 steps.
 
-The run lives on one device, `cfg.device` ("cuda": the current card,
+A run lives on one device, `cfg.device` ("cuda": the current card,
 raising where there is none; "cpu" only when asked). Each update is seeded
 from (cfg.seed, its global step) (`state.step_seed`): dropout from the
 device's default generator, SCST sampling from its own generator.
 `profile_steps > 0` records the first epoch's first steps with
 torch.profiler into `<run>/trace`.
 
+Data parallelism (gvl_tpu_torch.parallel; the JAX loop's mesh,
+loop.py:222-253, 306): launched as `python -m torch.distributed.run
+--nproc_per_node N -m gvl_tpu_torch.train_cli ...`, each rank trains on its
+own card (cuda:LOCAL_RANK; gloo ranks on the CPU under `--device cpu`).
+- Rows: every rank builds the same seeded Batcher; rank r takes rows
+  [r B/W, (r+1) B/W) of each global batch of `batch_size` rows
+  (`shard_batch`). A batch that W does not divide is refused by name.
+- The step (train/state.py): each rank's losses are its shares of the
+  global batch's, the gradients are summed over ranks before the clip, and
+  the logged losses are the global ones; each rank folds its rank into the
+  step's seed (`state.rank_seed`).
+- Validation runs on every rank, each on its rows, when W divides
+  eval_batch_size; otherwise rank 0 evaluates alone and the others wait at
+  a barrier (loop.py:249-251). Rank 0 scores and broadcasts the scores, so
+  every rank takes the same best-checkpoint decisions.
+- One writer: rank 0 makes the run dir and writes the logs, opts.json,
+  info.json, the checkpoints and the prediction JSONs; every rank reads a
+  checkpoint on resume. At the start rank 0's weights are broadcast, and
+  every rank checks that its seeded init held them already
+  (`replicate_tree`). The run id and seed, which `random_seed` and
+  `debug` draw at parse time, are rank 0's.
+
 Refused by name (NotImplementedError) before any work starts
-(`check_config`): several devices and the sequence-parallel mesh (ROADMAP
-Queue 1 item 10), and every option the eval side refuses
+(`check_config`): the sequence-parallel mesh (ROADMAP Queue 1 item 14),
+and every option the eval side refuses
 (gvl_tpu_torch.eval_cli.check_config).
 """
 
@@ -51,6 +73,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gvl_tpu_torch import parallel as dp
 from gvl_tpu_torch.config import Config
 
 TASKS = ("dvc", "pc", "grounding")
@@ -86,11 +109,9 @@ def ss_prob_at_epoch(cfg: Config, epoch: int) -> float:
 
 # (option set, what it asks for, where it is planned)
 _REFUSED = (
-    (lambda c: len(c.gpu_id) > 1, "a mesh of more than one device "
-     "(several gpu_id)", "ROADMAP Queue 1 item 10; the port trains on one "
-     "card"),
     (lambda c: c.mesh_shape != "dp", "the sequence-parallel mesh "
-     "(mesh_shape != 'dp')", "ROADMAP Queue 1 item 10"),
+     "(mesh_shape != 'dp')", "ROADMAP Queue 1 item 14: parallel/sp.py and "
+     "ops/ms_deform_attn_sp.py"),
 )
 
 
@@ -199,6 +220,10 @@ def train(cfg: Config) -> str:
     if cfg.start_from:
         _resume_opts(cfg)
     check_config(cfg)
+    dp.init_distributed(cfg.device)
+    dp.make_mesh_for_batch(cfg.batch_size, cfg.mesh_shape)
+    # the draws of parse time (random_seed, debug's run id) are rank 0's
+    cfg.id, cfg.seed = dp.broadcast_object((cfg.id, cfg.seed))
     assert cfg.num_queries >= cfg.effective_max_gt_events, (
         f"num_queries ({cfg.num_queries}) must be >= the padded GT width "
         f"({cfg.effective_max_gt_events}): one-to-one matching needs a "
@@ -214,8 +239,9 @@ def train(cfg: Config) -> str:
     logger = create_logger(folder)
     backup_envir(folder)
     writer = MetricsWriter(folder)
-    cfg.dump_json(os.path.join(folder, "opts.json"))
-    logger.info(f"run dir: {folder}; device {dev}")
+    if dp.is_writer():
+        cfg.dump_json(os.path.join(folder, "opts.json"))
+    logger.info(f"run dir: {folder}; device {dev}; {dp.world()}")
 
     rng_data = np.random.RandomState(cfg.seed)
     train_ds = DenseVideoDataset(cfg.train_caption_file,
@@ -267,6 +293,9 @@ def train(cfg: Config) -> str:
         logger.info(f"loaded pretrained weights ({cfg.pretrain}, {len(keys)}"
                     f" of {len(model.state_dict())} entries) from "
                     f"{cfg.pretrain_path}")
+    for module in (model, text):
+        if module is not None:
+            dp.replicate_tree(module)
 
     steps_per_epoch = max(len(train_batcher), 1)
     state = create_train_state(cfg, model, steps_per_epoch, statics, text)
@@ -304,6 +333,22 @@ def train(cfg: Config) -> str:
     def save(name: str, epoch: int) -> None:
         ckpt.save(name, model, text, epoch, state=state)
 
+    # evaluate on every rank when the world divides the eval batch
+    # (loop.py:248-253), else on rank 0 alone
+    eval_dp = cfg.eval_batch_size % dp.size() == 0
+
+    def validate(epoch: int) -> Dict[str, float]:
+        if eval_dp:
+            return run_validation(cfg, runner, val_batcher, folder, epoch,
+                                  logger, weights=weights_val)
+        scores = None
+        if dp.is_writer():
+            with dp.local():
+                scores = run_validation(cfg, runner, val_batcher, folder,
+                                        epoch, logger, weights=weights_val)
+        dp.barrier()
+        return dp.broadcast_object(scores)
+
     log_every = max(steps_per_epoch // 10, 1)
     global_step = int(start_epoch * steps_per_epoch)
     for epoch in range(start_epoch, cfg.epoch):
@@ -318,10 +363,11 @@ def train(cfg: Config) -> str:
         t_epoch = time.time()
         n_iter = 0
         profiler = None
-        if cfg.profile_steps > 0 and epoch == start_epoch:
+        if cfg.profile_steps > 0 and epoch == start_epoch and \
+                dp.is_writer():
             profiler = _start_profiler(os.path.join(folder, "trace"), dev)
         for batch in train_batcher:
-            batch = add_text_inputs(batch, text, cfg)
+            batch = add_text_inputs(dp.shard_batch(batch), text, cfg)
             if add_gpt_inputs is not None:
                 batch = add_gpt_inputs(batch)
             losses = step(state, batch, weights, ss_prob,
@@ -356,8 +402,7 @@ def train(cfg: Config) -> str:
 
         if epoch % cfg.save_checkpoint_every == 0 and \
                 epoch >= cfg.min_epoch_when_save:
-            scores = run_validation(cfg, runner, val_batcher, folder, epoch,
-                                    logger, weights=weights_val)
+            scores = validate(epoch)
             history["val_scores"][str(epoch)] = scores
             writer.write(global_step, scores, prefix="eval/")
 
@@ -375,8 +420,9 @@ def train(cfg: Config) -> str:
 
         info = {"opt": cfg.to_dict(), "history": history,
                 "best": best, "best_overall": best_overall, "epoch": epoch}
-        with open(os.path.join(folder, "info.json"), "w") as f:
-            json.dump(info, f, indent=1, default=str)
+        if dp.is_writer():
+            with open(os.path.join(folder, "info.json"), "w") as f:
+                json.dump(info, f, indent=1, default=str)
 
     logger.info("training finished")
     return folder
@@ -402,16 +448,25 @@ def run_validation(cfg: Config, runner, val_batcher, folder: str, epoch: int,
     score the result JSONs (under only_ft_class_head also the TAL JSON, by
     eval_tal against tal_gt_file, when that file exists); with `weights`,
     also the weighted total of the eval losses, 'val_loss_total'
-    (loop.py:374-422)."""
-    from gvl_tpu_torch.eval.metrics import (eval_metrics,
-                                            eval_metrics_grounding, eval_tal)
+    (loop.py:374-422). Under data parallelism every rank evaluates its
+    rows, rank 0 scores the JSONs it wrote and broadcasts the scores."""
     runner.model.eval()
     if runner.text_encoder is not None:
         runner.text_encoder.eval()
     dvc_path = os.path.join(folder, f"pred_epoch{epoch}.json")
     out_path, _, _, _, loss_sum = runner.run(val_batcher, dvc_path,
                                              logger=logger, debug=cfg.debug)
+    scores = None
+    if dp.is_writer():
+        scores = _scores(cfg, runner, out_path, loss_sum, logger, weights)
+    return dp.broadcast_object(scores)
 
+
+def _scores(cfg: Config, runner, out_path: str, loss_sum: Dict[str, float],
+            logger, weights: Optional[Dict[str, float]]) -> Dict[str, float]:
+    """The scores of the result JSONs at `out_path` and the eval losses."""
+    from gvl_tpu_torch.eval.metrics import (eval_metrics,
+                                            eval_metrics_grounding, eval_tal)
     scores: Dict[str, float] = {}
     skip_lang = cfg.eval_disable_captioning or \
         cfg.caption_decoder_type == "none" or cfg.caption_loss_coef == 0

@@ -15,6 +15,13 @@ pdvc/pdvc.py:764-810):
 The scorers run on the host over numpy copies of the rollouts: the port's
 counterpart of the JAX package's pure_callback. The scorers are the port's
 own copies (gvl_tpu_torch/eval/metrics/scorers.py).
+
+Under data parallelism (gvl_tpu_torch.parallel) each rank rewards the
+pairs of its own rows, but CIDEr-D's document frequencies are the global
+batch's, as in JAX's one host call: without a `cached_tokens` corpus the
+sentence rewards' references are gathered from every rank first
+(`all_gather_object`). The baseline (the greedy rollout) stays per pair,
+and the policy loss divides by the global token count (`global_sum`).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from gvl_tpu_torch.eval.metrics.scorers import Cider, Meteor
+from gvl_tpu_torch.parallel import all_gather_object, global_sum
 
 
 class CiderD(Cider):
@@ -51,9 +59,12 @@ class CiderD(Cider):
                 self.ref_len = float(blob["ref_len"])
                 break
 
-    def compute_score(self, gts, res):
+    def compute_score(self, gts, res, corpus=None):
+        """Cider's score of `res` against `gts`, with the cached corpus's
+        statistics when there is one, else those of `corpus` (a list of
+        reference lists: the global batch's) or of `gts`."""
         if self.df_cache is None:
-            return super().compute_score(gts, res)
+            return super().compute_score(gts, res, corpus=corpus)
         return super().compute_score(
             gts, res, df_override=self.df_cache, log_m_override=self.ref_len)
 
@@ -89,11 +100,29 @@ def init_scorer(types: Optional[List[str]] = None,
     return scorers
 
 
+def caption_refs(gt_tokens: np.ndarray) -> List[List[str]]:
+    """The reference lists that get_caption_reward scores `gt_tokens`' n
+    pairs against, sampled then greedy: the corpus of one reward call."""
+    refs = [[array_to_str(gt[1:])] for gt in gt_tokens]
+    return refs + refs
+
+
+def needs_corpus(scorers: Dict) -> bool:
+    """Whether a scorer reads corpus statistics from its call's references
+    (CIDEr-D without a cached corpus)."""
+    return any(isinstance(s, CiderD) and s.df_cache is None
+               for s in scorers.values())
+
+
 def get_caption_reward(scorers: Dict, greedy_res: np.ndarray,
                        gt_tokens: np.ndarray, gen_result: np.ndarray,
                        score_weights: Dict[str, float],
-                       is_para: bool = False) -> np.ndarray:
-    """rewards = score(sampled) - score(greedy), per pair."""
+                       is_para: bool = False,
+                       corpus: Optional[List[List[str]]] = None
+                       ) -> np.ndarray:
+    """rewards = score(sampled) - score(greedy), per pair. `corpus`: the
+    reference lists whose statistics CIDEr-D scores with (every rank's
+    `caption_refs`), this call's when None."""
     n = len(gen_result)
     to_str = array_to_str_para if is_para else array_to_str
     res = {i: [to_str(gen_result[i])] for i in range(n)}
@@ -102,7 +131,10 @@ def get_caption_reward(scorers: Dict, greedy_res: np.ndarray,
 
     total = np.zeros(2 * n)
     for name, scorer in scorers.items():
-        _, per = scorer.compute_score(gts, res)
+        if isinstance(scorer, CiderD):
+            _, per = scorer.compute_score(gts, res, corpus=corpus)
+        else:
+            _, per = scorer.compute_score(gts, res)
         total = total + score_weights.get(name, 0.0) * np.asarray(per)
     return (total[:n] - total[n:]).astype(np.float32)
 
@@ -120,7 +152,12 @@ def rl_reward_callback(scorers: Dict, score_weights: Dict[str, float],
     n_groups > 1: the G axis carries `n_groups` decoder layers' rollouts
     concatenated (the fused path: one host call for all layers). Sentence
     rewards are per slot; paragraph rewards per (video, layer) block, so
-    fused == per-layer exactly."""
+    fused == per-layer exactly.
+
+    Under data parallelism every rank calls it on its own rows; the
+    sentence rewards' CIDEr-D statistics are the global batch's (every
+    rank's references, gathered when a scorer needs them)."""
+    gather = needs_corpus(scorers)
 
     def host_fn(gen, greedy, gt, valid):
         B, G, L = gen.shape
@@ -131,10 +168,14 @@ def rl_reward_callback(scorers: Dict, score_weights: Dict[str, float],
         gt_f = gt.reshape(B * G, -1)
         rewards = np.zeros((B * G,), np.float32)
         vmask = valid.reshape(B * G).astype(bool)
-        if sent_ratio > 0 and vmask.any():
-            idx = np.nonzero(vmask)[0]
+        idx = np.nonzero(vmask)[0]
+        corpus = None
+        if sent_ratio > 0 and gather:
+            corpus = [refs for part in all_gather_object(
+                caption_refs(gt_f[idx])) for refs in part]
+        if sent_ratio > 0 and len(idx):
             r = get_caption_reward(scorers, greedy_f[idx], gt_f[idx],
-                                   gen_f[idx], score_weights)
+                                   gen_f[idx], score_weights, corpus=corpus)
             rewards[idx] += sent_ratio * r
         if para_ratio > 0:
             genb = gen.reshape(B, n_groups, Gg, L)
@@ -176,4 +217,4 @@ def rl_policy_loss(sample_logprobs: torch.Tensor, gen_seq: torch.Tensor,
     mask = (seq > 0).to(lp.dtype)
     mask = torch.cat([torch.ones_like(mask[:, :1]), mask[:, :-1]], dim=1)
     out = -lp * rew * mask
-    return out.sum() / (mask.sum() + 1e-6)
+    return out.sum() / (global_sum(mask.sum()) + 1e-6)

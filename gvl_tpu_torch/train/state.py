@@ -22,6 +22,17 @@ global_step)` in the train loop), so a resumed run draws at step n what an
 unbroken run draws there; without one, all draw from the device's default
 generator.
 
+Under data parallelism (gvl_tpu_torch.parallel) each rank's losses are its
+shares of the global batch's (train/criterion.py, and the caption losses
+here over global counts), the backward gives the rank's share of the
+gradient, and `sum_gradients` sums the model's and the trained text
+encoder's gradients over ranks in one flat all_reduce before the clip, so
+that the clip and the optimizers act on the global gradient as JAX's do;
+the returned losses are the global sums of the shares (`sum_shares`). Each
+rank folds its rank into the step's seed (`rank_seed`), so that the ranks
+draw different masks for their rows: JAX's one key over the global batch
+cannot be matched by any split.
+
 Under caption_bf16 (train_caption_bf16, state.py:252-265) the caption head's
 weights read as bf16 inside autograd and its query and memory are cast, for
 teacher forcing and both SCST rollout chains; the NLL's logsumexp and the
@@ -52,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gvl_tpu_torch import parallel as dp
 from gvl_tpu_torch.models.captioner import caption_nll, prepare_dsa_reference
 from gvl_tpu_torch.models.gvl import GVLModel
 from gvl_tpu_torch.models.text_encoder import (TextEncoder,
@@ -236,6 +248,12 @@ def fold_seed(seed: int, k: int) -> int:
     return (int(seed) * 1_000_003 + int(k)) % (2 ** 63)
 
 
+def rank_seed(seed: int) -> int:
+    """This rank's seed of a step seeded `seed`: `seed` in a world of one,
+    else `seed` folded with the rank, so that no two ranks draw alike."""
+    return seed if dp.size() == 1 else fold_seed(seed, dp.rank())
+
+
 def gather_matched(x: torch.Tensor, match_q: torch.Tensor) -> torch.Tensor:
     """x (B, Nq, ...) gathered at match_q (B, G) -> (B, G, ...)."""
     idx = match_q.reshape(match_q.shape + (1,) * (x.dim() - 2))
@@ -324,8 +342,9 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
 
     `step.tick`, when set, is called with the name of each part as it ends
     ("trunk": the forward and the criterion; under SCST "sampled",
-    "greedy", "reward"; then "backward", "optimizer"): a caller timing the
-    step sets it."""
+    "greedy", "reward"; then "backward", "gradient_sum" (the gradients
+    summed over ranks; nothing without a process group), "optimizer"): a
+    caller timing the step sets it."""
     _check_statics(statics, text_encoder)
     st = statics
     Ld = model.arch.dec_layers
@@ -398,14 +417,14 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         the valid GT slots (state.py:437-445)."""
         layers = [Ld - 1] if st.disable_mid_caption_heads else list(range(Ld))
         gt = db["gt_mask"].float()
+        denom = dp.global_sum(gt.sum()).clamp(min=1)
         losses = {}
         for l in layers:
             pair = model.caption_train_gpt(
                 l, gather_matched(out["hs"][l], match_qs[l]),
                 db["gpt_tokens"], db["gpt_mask"])
             suffix = "" if l == Ld - 1 else f"_{l}"
-            losses["loss_caption" + suffix] = \
-                (pair * gt).sum() / gt.sum().clamp(min=1)
+            losses["loss_caption" + suffix] = (pair * gt).sum() / denom
         return losses
 
     def scst_losses(db, out, shapes, rl_matches, seed):
@@ -530,8 +549,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                 else list(range(Ld))
         losses = {}
         validf = db["gt_mask"].float()
-        denom = validf.sum().clamp(min=1)
         has_any = db["gt_mask"].any(-1).float()
+        if caption_cost:
+            n_any = dp.global_sum(has_any.sum()).clamp(min=1)
+        else:
+            denom = dp.global_sum(validf.sum()).clamp(min=1)
         common = (cap_cast(out["memory"]), out["mask_flat"], shapes,
                   out["valid_ratios"])
         gen = None
@@ -581,7 +603,7 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
                 per_video = (layer_nll * validf).sum(-1) \
                     / validf.sum(-1).clamp(min=1)
                 losses["loss_caption" + suffix] = \
-                    (per_video * has_any).sum() / has_any.sum().clamp(min=1)
+                    (per_video * has_any).sum() / n_any
             else:
                 losses["loss_caption" + suffix] = \
                     (layer_nll * validf).sum() / denom
@@ -596,6 +618,7 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             raise ValueError("train step: train_text_encoder needs the text "
                              "encoder's optimizer (create_train_state)")
         if seed is not None:
+            seed = rank_seed(seed)
             torch.manual_seed(seed)           # the dropout draws
         model.train()
         # the model's, not the optimizer's: in a freeze mode the optimizer
@@ -611,6 +634,11 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
         total.backward()
         tick("backward")
+        # the global gradient: every rank's share summed, never averaged
+        dp.sum_gradients(list(model.parameters()) + (
+            list(text_encoder.parameters()) if st.train_text_encoder
+            else []))
+        tick("gradient_sum")
         clip_global_norm(model.parameters(), grad_clip)
         state.optimizer.step()
         if st.train_text_encoder:
@@ -627,7 +655,7 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
         tick("optimizer")
         losses = {k: v.detach() for k, v in losses.items()}
         losses["total_loss"] = total.detach()
-        return losses
+        return dp.sum_shares(losses)
 
     step.forward_losses = forward_losses
     step.tick = None

@@ -12,6 +12,14 @@ from a trained run with `--pretrain full|encoder|decoder --pretrain_path
 <run dir or .pth>`; the SCST configs (cfgs/*_rl.yml) name their
 pretrain_path in the yml (PRETRAINED_CHECKPOINT: point it at a trained
 run's directory).
+
+Data parallel over N ranks (gvl_tpu_torch.parallel; the JAX CLI's mesh
+over every visible device):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m gvl_tpu_torch.train_cli --cfg_path X.yml [--device cpu]
+
+`batch_size` stays the global batch and must divide over the ranks.
 """
 
 from __future__ import annotations
@@ -31,4 +39,8 @@ def main(argv: Optional[List[str]] = None) -> str:
 
 
 if __name__ == "__main__":
-    main()
+    from gvl_tpu_torch import parallel
+    try:
+        main()
+    finally:
+        parallel.shutdown()

@@ -7,6 +7,10 @@ metrics.jsonl stream (greppable, no extra deps); a tensorboard writer is used
 when the package is importable.
 
 The port's copy of gvl_tpu/utils/logging.py; `set_seed` also seeds torch.
+Under data parallelism rank 0 alone makes the run dir and writes the
+source backup, the log file and the metrics stream; `build_folder` returns
+the run dir on every rank once rank 0 has made it, the other ranks' loggers
+discard what they are given and their MetricsWriter writes nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gvl_tpu_torch import parallel as dp
+
 
 def set_seed(seed: int):
     random.seed(seed)
@@ -31,6 +37,13 @@ def set_seed(seed: int):
 
 def build_folder(cfg) -> str:
     save_folder = os.path.join(cfg.save_dir, cfg.id)
+    if dp.is_writer():
+        _make_folder(cfg, save_folder)
+    dp.barrier()
+    return save_folder
+
+
+def _make_folder(cfg, save_folder: str) -> None:
     if cfg.start_from:
         assert os.path.exists(save_folder), \
             f"resume requested but {save_folder} is missing"
@@ -38,11 +51,12 @@ def build_folder(cfg) -> str:
         stamp = time.strftime("%Y-%m-%d_%H-%M-%S", time.localtime())
         shutil.move(save_folder, save_folder + "_" + stamp)
     os.makedirs(save_folder, exist_ok=True)
-    return save_folder
 
 
 def backup_envir(save_folder: str, repo_root: Optional[str] = None):
-    """Copy the source tree into the run dir for reproducibility."""
+    """Copy the source tree into the run dir for reproducibility (rank 0)."""
+    if not dp.is_writer():
+        return
     repo_root = repo_root or os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     backup = os.path.join(save_folder, "backup")
@@ -62,6 +76,10 @@ def create_logger(folder: str, filename: str = "train.log") -> logging.Logger:
     logger = logging.getLogger(folder)
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
+    logger.propagate = False
+    if not dp.is_writer():
+        logger.addHandler(logging.NullHandler())
+        return logger
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
@@ -69,7 +87,6 @@ def create_logger(folder: str, filename: str = "train.log") -> logging.Logger:
     fh.setFormatter(fmt)
     logger.addHandler(sh)
     logger.addHandler(fh)
-    logger.propagate = False
     return logger
 
 
@@ -79,6 +96,9 @@ class MetricsWriter:
     def __init__(self, folder: str):
         self.path = os.path.join(folder, "metrics.jsonl")
         self._tb = None
+        self.enabled = dp.is_writer()
+        if not self.enabled:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
             self._tb = SummaryWriter(os.path.join(folder, "tb"))
@@ -86,6 +106,8 @@ class MetricsWriter:
             pass
 
     def write(self, step: int, scalars: Dict[str, float], prefix: str = ""):
+        if not self.enabled:
+            return
         rec = {"step": step}
         for k, v in scalars.items():
             try:

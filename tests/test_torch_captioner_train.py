@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from gvl_tpu.models import build_model as jax_build_model
 from gvl_tpu.models import captioner as jcap
 from gvl_tpu_torch.models import captioner as pcap
 from tests.test_torch_model import jax_world, make_inputs
+from tests.test_torch_train_loop import computed_once
 
 TOL = dict(rtol=2e-4, atol=5e-5)
 G = 3
@@ -35,8 +37,7 @@ def close(got, want, **tol):
                                **(tol or TOL))
 
 
-@pytest.fixture(scope="module")
-def world():
+def compute_world():
     cfg, model, params, port, _ = jax_world()
     feats, mask, duration = make_inputs(cfg)
     out = jax.jit(model.apply)(params, jnp.asarray(feats), jnp.asarray(mask),
@@ -46,13 +47,23 @@ def world():
     seq = rs.randint(1, cfg.vocab_size, (B, G, Lc)).astype(np.int32)
     seq[..., 0] = 0
     seq_mask = np.arange(Lc)[None, None, :] < rs.randint(2, Lc + 1, (B, G, 1))
+    return dict(cfg=cfg, params=params, port=port,
+                out=jax.tree_util.tree_map(np.asarray, out), seq=seq,
+                seq_mask=seq_mask, shapes=tuple(cfg.temporal_shapes()))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Computed once per test run (computed_once); the JAX model and its
+    jitted teacher-forcing methods rebuilt from the config."""
+    w = computed_once(tmp_path_factory, "torch_captioner_train_world",
+                      compute_world)
+    model = jax_build_model(w["cfg"], text_hidden_dim=48)
     jit = lambda method: jax.jit(  # noqa: E731
         functools.partial(model.apply, method=method), static_argnums=(1, 6),
         static_argnames=("ref_prepared",))
-    return dict(cfg=cfg, model=model, params=params, port=port, out=out,
-                seq=seq, seq_mask=seq_mask,
-                shapes=tuple(cfg.temporal_shapes()),
-                nll=jit(model.caption_train_nll), lp=jit(model.caption_train))
+    return dict(w, model=model, nll=jit(model.caption_train_nll),
+                lp=jit(model.caption_train))
 
 
 def head_inputs(w, layer):

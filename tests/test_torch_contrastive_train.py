@@ -131,7 +131,9 @@ def world(tmp_path_factory):
                              compute_world, load_world)
 
 
-def build(**loss_side):
+def initial(**loss_side):
+    """The world's config, text bundle, JAX model, batch (JAX's with the
+    bundle's tokens), device batch and noisy initial parameters."""
     cfg = tiny_cfg(feature_dim=32, **dict(TEXT_SIDE, **loss_side))
     bundle = jte.load_text_encoder(cfg)
     Dt = bundle.hidden_size
@@ -150,6 +152,28 @@ def build(**loss_side):
         jax.random.PRNGKey(0), db["video_feats"], db["video_mask"],
         db["duration"], word_embed=word, token_mask=db["text_mask"] > 0,
         gt_mask=db["gt_mask"], captions=db["captions"]))
+    return cfg, bundle, model, batch, jbatch, db, params
+
+
+def port_initial(cfg, bundle, params, batch):
+    """The port model (the sentence block's attention dropout off), the
+    text encoder and the port's batch from `initial`'s weights."""
+    Dt = bundle.hidden_size
+    port = build_model(cfg, text_hidden_dim=Dt, device="cpu")
+    port.load_state_dict(jax_params_to_state_dict(
+        params, GVLArch.from_config(cfg, Dt)), strict=True)
+    for m in port.modules():
+        if isinstance(m, BertSelfAttention):
+            m.dropout = 0.0
+    text = pte.load_text_encoder(cfg, device="cpu")
+    text.load_state_dict(flax_roberta_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, bundle.params)), strict=True)
+    return port, text, pstate.add_text_inputs(dict(batch), text, cfg)
+
+
+def build(**loss_side):
+    cfg, bundle, model, batch, jbatch, db, params = initial(**loss_side)
+    Dt = bundle.hidden_size
     arch = GVLArch.from_config(cfg, Dt)
 
     jst = jstate.StepStatics(spec=JLossSpec.from_config(cfg),
@@ -168,19 +192,11 @@ def build(**loss_side):
             jax_grads = jax.tree_util.tree_map(
                 lambda m: np.asarray(m) / 0.1, adam_mu(state.opt_state))
 
-    port = build_model(cfg, text_hidden_dim=Dt, device="cpu")
-    port.load_state_dict(jax_params_to_state_dict(params, arch), strict=True)
-    for m in port.modules():
-        if isinstance(m, BertSelfAttention):
-            m.dropout = 0.0
-    text = pte.load_text_encoder(cfg, device="cpu")
-    text.load_state_dict(flax_roberta_to_state_dict(
-        jax.tree_util.tree_map(np.asarray, bundle.params)), strict=True)
+    port, text, pbatch = port_initial(cfg, bundle, params, batch)
     text0 = {k: v.clone() for k, v in text.state_dict().items()}
     pst = pstate.StepStatics(spec=LossSpec.from_config(cfg), **statics_kw(cfg))
     pstate_ = pstate.create_train_state(cfg, port, 100, pst, text)
     step = pstate.make_train_step(port, cfg, pst, text)
-    pbatch = pstate.add_text_inputs(dict(batch), text, cfg)
     pw = weights(cfg, make_weight_dict(cfg))
     port_losses, port_grads = [], None
     try:

@@ -8,6 +8,7 @@ must be equal on tie-free costs and of equal total cost with ties.
 import dataclasses
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from gvl_tpu.utils import boxes as jboxes
 from gvl_tpu_torch.train import criterion as pc
 from gvl_tpu_torch.train.lap import batched_lap
 from gvl_tpu_torch.utils import boxes as pboxes
+from tests.test_torch_train_loop import computed_once
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 
@@ -135,7 +137,13 @@ SPEC_KW = dict(set_cost_class=2.0, set_cost_bbox=0.5, set_cost_giou=4.0)
 
 
 @pytest.fixture(scope="module")
-def crit():
+def crit(tmp_path_factory):
+    """Computed once per test run (computed_once)."""
+    return computed_once(tmp_path_factory, "torch_criterion_crit",
+                         compute_crit)
+
+
+def compute_crit():
     rng = np.random.RandomState(3)
     out, gt_boxes, gt_labels, gt_mask = trunk_outputs(rng)
     jspec, pspec = jc.LossSpec(**SPEC_KW), pc.LossSpec(**SPEC_KW)
@@ -144,7 +152,8 @@ def crit():
                                 *map(jnp.asarray, args), None, jspec)
     got = pc.compute_criterion({k: t(v) for k, v in out.items()},
                                *map(t, args), None, pspec)
-    return out, args, jspec, pspec, want, got
+    return (out, args, jspec, pspec, jax.tree_util.tree_map(np.asarray, want),
+            got)
 
 
 def test_loss_spec_from_config_reads_the_jax_config():

@@ -498,6 +498,7 @@ def test_cli_takes_or_refuses_each_config(tmp_path, yml, route):
         GVLModel(GVLArch.from_config(restored, 32), device="meta")
 
 
+# options the CLI refused until the ROADMAP Queue 1 item named ported them
 REFUSED = {"--eval_data_parallel": "item 10"}
 
 
@@ -525,20 +526,27 @@ def test_cli_takes_the_tal_options_once_refused(tmp_path, option):
 
 
 @pytest.mark.parametrize("option", sorted(REFUSED))
-def test_cli_refuses_options_not_ported_by_name(tmp_path, option):
-    cfg = config.load_config(os.path.join(ROOT, "cfgs",
-                                          "anet_tsp_msvg_dvc.yml"))
-    cfg.update(OFFLINE)
-    flags = []
-    if option.startswith("--"):
-        flags = [option]
-    else:
-        cfg.set(option, True)
-    argv = write_run(tmp_path, cfg.to_dict()) + flags
-    with pytest.raises(NotImplementedError,
-                       match=f"{option}.*ROADMAP Queue 1 {REFUSED[option]}"):
-        eval_cli.main(argv)
-    assert os.listdir(tmp_path / "save" / "run") == ["opts.json"]
+def test_cli_refuses_options_not_ported_by_name(tmp_path, cli_runs, option):
+    """Each option once refused by name runs now: the CLI in this process
+    with it, on a copy of the port's run of `cli_runs`, writes the DVC and
+    grounding JSONs that run wrote without it (--eval_data_parallel:
+    without a launcher's ranks the flag changes nothing, as eval.py's on
+    one device; tests/test_torch_parallel.py runs it over 2 ranks)."""
+    import shutil
+    src = cli_runs["port"]
+    shutil.copytree(src, tmp_path / "save" / "port")
+    out = eval_cli.main([
+        "--eval_save_dir", str(tmp_path / "save"), "--eval_folder", "port",
+        "--eval_checkpoint", "model-best", "--eval_batch_size", str(EVAL_BS),
+        "--eval_gt_file_for_grounding",
+        str(src.parent.parent / "grounding.json"), "--eval_device", "cpu",
+        option])
+    assert out["videos"] >= 5
+    for suffix in CLI_JSONS.values():
+        name = "eval_model-best.json" + suffix
+        assert_same_json(
+            json.loads((tmp_path / "save" / "port" / name).read_text()),
+            json.loads((src / name).read_text()))
 
 
 def test_test_mode_caption_file_as_in_jax(tmp_path, monkeypatch):

@@ -60,6 +60,7 @@ GROUPS = {
                  "gvl_tpu_torch.backbone.train_tsp",
                  "gvl_tpu_torch.backbone.import_torch",
                  "gvl_tpu_torch.train_tsp_cli", "gvl_tpu_torch.import_cli"),
+    "parallel": ("gvl_tpu_torch.parallel", "gvl_tpu_torch.parallel.mesh"),
 }
 
 _REPORT = textwrap.dedent("""
@@ -256,6 +257,33 @@ def test_train_cli_modules_import_without_jax(report):
     """The train CLI, the train loop and the SCST module import none of JAX,
     flax, optax, transformers, gvl_tpu or nltk."""
     _clean(report, "train_cli", nltk=True)
+
+
+def test_parallel_modules_import_without_jax(report):
+    """The data-parallel layer (the counterpart of gvl_tpu/parallel/mesh.py)
+    imports none of JAX, flax, optax, transformers, gvl_tpu or nltk, and
+    builds no process group on import."""
+    _clean(report, "parallel", nltk=True)
+
+
+def test_without_a_launcher_the_world_is_one_rank_without_a_group():
+    """With no launcher environment init_distributed makes no group, and
+    every helper is the identity (a run that is not launched computes what
+    it computed before)."""
+    import torch
+    from gvl_tpu_torch import parallel as dp
+    if "WORLD_SIZE" in os.environ:
+        pytest.skip("launched under torch.distributed")
+    w = dp.init_distributed("cpu")
+    assert (w.rank, w.size, w.group) == (0, 1, None)
+    x = torch.arange(4.0, requires_grad=True)
+    assert dp.gather_rows(x) is x and dp.global_sum(x) is x
+    assert dp.global_sum(3) == 3 and dp.all_gather_object("a") == ["a"]
+    batch = {"a": [1, 2]}
+    assert dp.shard_batch(batch) is batch
+    assert dp.make_mesh_for_batch(3) is w
+    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+        dp.make_mesh_for_batch(4, "dp,sp")
 
 
 def test_published_file_modules_import_without_jax(report):

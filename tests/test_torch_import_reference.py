@@ -51,7 +51,7 @@ from gvl_tpu_torch.train.import_reference import (
     _slots, import_reference_checkpoint)
 from tests.test_torch_eval import assert_same_json
 from tests.test_torch_eval_cli import CLI_JSONS
-from tests.test_torch_train_loop import jitted_init_params
+from tests.test_torch_train_loop import jitted_init_params, once_per_test_run
 from tests.test_torch_pretrained_text import (as_hub_cache, world_captions,
                                               write_roberta)
 
@@ -134,10 +134,13 @@ CASES = {"shared": dict(share_caption_head=1),
 
 @pytest.fixture(scope="module")
 def text_dir(tmp_path_factory):
-    root = tmp_path_factory.mktemp("roberta")
-    write_roberta(str(root / "roberta"), world_captions(root),
-                  hidden=TEXT_DIM)
-    return str(root / "roberta")
+    """The tiny RoBERTa's files, written once per test run
+    (once_per_test_run)."""
+    def compute(root):
+        write_roberta(str(root / "roberta"), world_captions(root),
+                      hidden=TEXT_DIM)
+    return once_per_test_run(tmp_path_factory, "torch_import_reference_text",
+                             compute, lambda root: str(root / "roberta"))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -28,6 +28,7 @@ from gvl_tpu_torch.convert import jax_params_to_state_dict
 from gvl_tpu_torch.eval.postprocess import detection_outputs
 from gvl_tpu_torch.models.gvl import GVLArch, build_model
 from tests.test_model import tiny_cfg
+from tests.test_torch_train_loop import computed_once
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 
@@ -67,8 +68,7 @@ def jax_world(**cfg_kw):
     return cfg, model, params, port, sd
 
 
-@pytest.fixture(scope="module")
-def world():
+def compute_world():
     cfg, model, params, port, sd = jax_world()
     feats, mask, duration = make_inputs(cfg)
     want = model.apply(params, jnp.asarray(feats), jnp.asarray(mask),
@@ -76,14 +76,24 @@ def world():
     with torch.inference_mode():
         got = port(torch.from_numpy(feats), torch.from_numpy(mask),
                    torch.from_numpy(duration))
-    return cfg, model, params, port, (feats, mask, duration), want, got
+    return (cfg, params, port, (feats, mask, duration),
+            jax.tree_util.tree_map(np.asarray, want), got)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Computed once per test run (computed_once); the JAX model rebuilt
+    from its config."""
+    cfg, params, port, inputs, want, got = computed_once(
+        tmp_path_factory, "torch_model_world", compute_world)
+    model = jax_build_model(cfg, text_hidden_dim=48)
+    return cfg, model, params, port, inputs, want, got
 
 
 LONG_VIDEO = dict(frame_embedding_num=300, msda_impl="pallas")
 
 
-@pytest.fixture(scope="module")
-def long_world():
+def compute_long_world():
     cfg, model, params, port, _ = jax_world(**LONG_VIDEO)
     assert sum(cfg.temporal_shapes()) >= 512 and cfg.msda_band_margin > 0
     feats, mask, duration = make_inputs(cfg)
@@ -93,7 +103,14 @@ def long_world():
     with torch.inference_mode():
         got = port(torch.from_numpy(feats), torch.from_numpy(mask),
                    torch.from_numpy(duration))
-    return cfg, want, got
+    return cfg, jax.tree_util.tree_map(np.asarray, want), got
+
+
+@pytest.fixture(scope="module")
+def long_world(tmp_path_factory):
+    """Computed once per test run (computed_once)."""
+    return computed_once(tmp_path_factory, "torch_model_long_world",
+                         compute_long_world)
 
 
 def close(got, want, **tol):

@@ -27,6 +27,7 @@ from gvl_tpu.models import build_model as jax_build_model
 from gvl_tpu_torch.convert import jax_grads_to_named, jax_params_to_state_dict
 from gvl_tpu_torch.models import transformer as ptransformer
 from gvl_tpu_torch.models.gvl import GVLArch, build_model
+from tests.test_torch_train_loop import computed_once
 
 T = 32
 GRAD_TOL = 1e-5
@@ -55,9 +56,14 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def world():
+def world(tmp_path_factory):
     """(JAX params with seeded noise, JAX remat_trunk gradients mapped onto
-    the port's names)."""
+    the port's names), computed once per test run (computed_once)."""
+    return computed_once(tmp_path_factory, "torch_remat_world",
+                         compute_world)
+
+
+def compute_world():
     cfg = remat_cfg(True)
     model = jax_build_model(cfg, text_hidden_dim=32)
     feats, mask, dur = (jnp.asarray(x) for x in inputs())

@@ -182,18 +182,20 @@ def compute_tal(tmp):
                 cli={name: tmp / "save" / name for name in ("jax", "port")})
 
 
+def write_tal(root):
+    """compute_tal's result, pickled into `root`."""
+    with open(root / "result.pkl", "wb") as f:
+        pickle.dump(compute_tal(root), f)
+
+
 @pytest.fixture(scope="module")
 def tal(tmp_path_factory):
     """compute_tal's result, computed once per test run."""
-    def compute(root):
-        with open(root / "result.pkl", "wb") as f:
-            pickle.dump(compute_tal(root), f)
-
     def load(root):
         with open(root / "result.pkl", "rb") as f:
             return pickle.load(f)
 
-    return once_per_test_run(tmp_path_factory, "torch_tal", compute, load)
+    return once_per_test_run(tmp_path_factory, "torch_tal", write_tal, load)
 
 
 @pytest.fixture(scope="module")

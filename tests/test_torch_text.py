@@ -29,6 +29,7 @@ from gvl_tpu_torch.models import text_encoder as pte
 from gvl_tpu_torch.models.gvl import GVLArch, build_model
 from tests.test_model import tiny_cfg
 from tests.test_torch_model import add_noise, make_inputs
+from tests.test_torch_train_loop import computed_once
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 DT = 48            # text width of the model worlds: 12 heads of 4
@@ -278,15 +279,24 @@ def text_world(**cfg_kw):
 _WORLDS = {}
 
 
-def named_world(name):
+def named_world(name, tmp_path_factory):
+    """(name,) + text_world of TEXT_CASES[name], computed once per test run
+    (computed_once) without the JAX model, which is rebuilt from the
+    config."""
     if name not in _WORLDS:
-        _WORLDS[name] = (name,) + text_world(**TEXT_CASES[name])
+        def compute():
+            cfg, _, *rest = text_world(**TEXT_CASES[name])
+            return cfg, rest
+        cfg, rest = computed_once(tmp_path_factory, f"torch_text_{name}",
+                                  compute)
+        _WORLDS[name] = (name, cfg, jax_build_model(cfg, text_hidden_dim=DT),
+                         *rest)
     return _WORLDS[name]
 
 
 @pytest.fixture(scope="module", params=sorted(TEXT_CASES))
-def world(request):
-    return named_world(request.param)
+def world(request, tmp_path_factory):
+    return named_world(request.param, tmp_path_factory)
 
 
 def test_trunk_event_embeddings_match_jax(world):
@@ -323,9 +333,9 @@ def test_encode_text_matches_jax(world):
         assert float((got["aux"] - got["final"]).abs().max()) > 1e-3
 
 
-def test_word_attention_pool_matches_jax():
+def test_word_attention_pool_matches_jax(tmp_path_factory):
     name, cfg, model, params, port, _, (word, tmask, _) = named_world(
-        "flagship")
+        "flagship", tmp_path_factory)
     jm = jtext.WordAttentionPool(DT)
     tmask = tmask.copy()
     tmask[0, 1] = False                       # a sentence of padding alone
@@ -338,15 +348,16 @@ def test_word_attention_pool_matches_jax():
 
 
 @pytest.mark.parametrize("case", ["flagship", "cross_fusion", "learned_pos"])
-def test_sentence_context_block_matches_jax(case):
+def test_sentence_context_block_matches_jax(case, tmp_path_factory):
     """The block alone on random sentence features, a padded slot and, for
     cross fusion, a padded video memory; the flagship case has the cosine
     table, learned_pos the learned one, cross_fusion none of them."""
     kw = dict(TEXT_CASES[case])
     if case == "cross_fusion":
         kw["enable_sentence_pos_embedding"] = False
-    cfg, model, params, port, _, _ = (named_world(case)[1:] if case
-                                      != "cross_fusion" else text_world(**kw))
+    cfg, model, params, port, _, _ = (
+        named_world(case, tmp_path_factory)[1:] if case != "cross_fusion"
+        else text_world(**kw))
     rs = np.random.RandomState(9)
     sent = rs.randn(2, 4, DT).astype(np.float32)
     smask = np.array([[1, 1, 1, 1], [1, 1, 0, 0]], bool)

@@ -115,18 +115,46 @@ def once_per_test_run(tmp_path_factory, name: str, compute, load):
             f.write("main\n")
         return load(root)
     root = tmp_path_factory.getbasetemp().parent / name
+    compute_once(root, os.environ["PYTEST_XDIST_WORKER"], compute)
+    return load(root)
+
+
+def compute_once(root: pathlib.Path, who: str, compute,
+                 wait: bool = True) -> bool:
+    """compute(root) under `<root>/lock` unless `<root>/done` exists, then
+    `done` and a line `who` in `<root>/computations.log`. With wait False,
+    return at once when another process holds the lock. Returns whether
+    `root` is done."""
     root.mkdir(exist_ok=True)
     with open(root / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | (0 if wait else fcntl.LOCK_NB))
+        except BlockingIOError:
+            return False
         try:
             if not (root / "done").exists():
                 compute(root)
                 with open(root / "computations.log", "a") as f:
-                    f.write(os.environ["PYTEST_XDIST_WORKER"] + "\n")
+                    f.write(who + "\n")
                 (root / "done").touch()
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    return load(root)
+    return True
+
+
+def computed_once(tmp_path_factory, name: str, fn):
+    """fn()'s value, computed once per test run (`once_per_test_run`) and
+    read back from `<root>/value.pt` by every worker: anything torch.save
+    pickles (numpy arrays, tensors, modules, configs, plain containers;
+    JAX arrays are converted to numpy first)."""
+    return once_per_test_run(tmp_path_factory, name, value_writer(fn),
+                             lambda root: torch.load(root / "value.pt",
+                                                     weights_only=False))
+
+
+def value_writer(fn):
+    """The compute(root) of computed_once's fn."""
+    return lambda root: torch.save(fn(), root / "value.pt")
 
 
 def jax_loop_init(base: dict):
@@ -545,11 +573,13 @@ REFUSED = {
     "gpt2": (dict(caption_decoder_type="gpt2",
                   load_pretrained_language_model_from_config=""),
              "pretrained GPT-2.*'gpt2'.*refs/main", FileNotFoundError),
-    "several_devices": (dict(gpu_id=["0", "1"]), "more than one device"),
-    "sp_mesh": (dict(mesh_shape="dp,sp"), "sequence-parallel"),
-    # an option the eval side refuses (eval_cli.check_config); the TAL
-    # probe, once refused there, trains (test_once_refused_options_train)
-    "eval_side": (dict(eval_data_parallel=True), "eval_data_parallel"),
+    "sp_mesh": (dict(mesh_shape="dp,sp"), "sequence-parallel.*item 14"),
+    # once refused, now trained (gvl_tpu_torch.parallel): several gpu_id,
+    # which neither package reads, and eval_data_parallel, an eval option
+    # the train loop does not read (it evaluates over its ranks whenever
+    # they divide eval_batch_size)
+    "several_devices": (dict(gpu_id=["0", "1"]), None),
+    "eval_side": (dict(eval_data_parallel=True), None),
 }
 
 
@@ -557,8 +587,21 @@ REFUSED = {
 def test_unported_train_options_are_refused_before_any_work(tmp_path, case):
     """Each option the port does not train yet raises NotImplementedError
     naming it (files it cannot find, FileNotFoundError), before a run
-    directory or a model exists."""
+    directory or a model exists. The options once refused here (name None)
+    train: one epoch of 2 steps on the synthetic world writes model-last
+    and info.json."""
     flags, name, *exc = REFUSED[case]
+    if name is None:
+        data = make_synthetic_dataset(str(tmp_path), num_videos=6,
+                                      feat_dim=16)
+        cfg = PConfig().update(dict(
+            loop_cfg(tmp_path, data), save_dir=str(tmp_path / "save"),
+            device="cpu", epoch=1, min_epoch_when_save=1, **flags))
+        folder = pathlib.Path(ploop.train(cfg))
+        assert (folder / "model-last.pth").exists()
+        info = json.loads((folder / "info.json").read_text())
+        assert info["opt"][next(iter(flags))] == next(iter(flags.values()))
+        return
     cfg = PConfig().update(dict(
         loop_cfg(tmp_path, ("anno.json", "feats", "vocab.json", 20)),
         save_dir=str(tmp_path / "save"), device="cpu", **flags))

@@ -51,6 +51,7 @@ from tests.test_model import tiny_cfg
 from tests.test_torch_import_reference import reference_payload
 from tests.test_torch_caption_heads import draw_params
 from tests.test_torch_model import jax_world
+from tests.test_torch_train_loop import computed_once
 from tests.test_torch_train_step import (LOSS_SIDE, adam_mu, make_batch,
                                          statics_kw)
 
@@ -99,7 +100,15 @@ class Draws:
 # --------------------------------------------------------- the ss head alone
 
 @pytest.fixture(scope="module")
-def head():
+def head(tmp_path_factory):
+    """Computed once per test run (computed_once); the JAX model rebuilt
+    from the config."""
+    w = computed_once(tmp_path_factory, "torch_train_options_head",
+                      compute_head)
+    return dict(w, model=jax_build_model(w["cfg"], text_hidden_dim=48))
+
+
+def compute_head():
     cfg, model, params, port, _ = jax_world(drop_prob=0.0,
                                             transformer_dropout_prob=0.0)
     batch = make_batch(cfg)
@@ -113,8 +122,8 @@ def head():
               np.asarray(out["layer_refs"][1][:, :G]), o["memory"],
               o["mask_flat"], tuple(cfg.temporal_shapes()),
               o["valid_ratios"], batch["captions"])
-    return dict(cfg=cfg, model=model, params=params, port=port,
-                inputs=inputs, caption_mask=batch["caption_mask"])
+    return dict(cfg=cfg, params=params, port=port, inputs=inputs,
+                caption_mask=batch["caption_mask"])
 
 
 def port_inputs(inputs):

@@ -295,22 +295,12 @@ def test_freeze_mode_steps_match_jax():
     assert np.quantile(diffs, 0.99) <= 0.01
 
 
-def test_long_video_steps_match_jax():
-    """Three steps of a tiny long-video model (300 frames, levels 300, 150,
-    75: S = 525 >= 512), whose encoder runs the banded op forward and
-    backward, against the jitted JAX `step_fn` with msda_impl='pallas' (its
-    kernels in interpret mode, as tests/test_model_pallas.py runs the
-    model). First-step losses: rtol 5e-4 / atol 2e-5 (the jitted JAX side
-    contracts loc * T - 0.5 into an FMA, which moves each lerp fraction by
-    up to an ulp of the tap row, 3e-5 at row 300; the short model's 2e-4
-    holds at row 24). Trajectory: total loss rtol 1e-3 and falling. The
-    parameters after the steps: none further than 2 x lr x 3 from the JAX
-    package's, 99% within 0.5 x lr, as the short model's trajectory test."""
+def compute_long_video_steps(root):
+    """test_long_video_steps_match_jax's steps of both packages, into
+    `root` (steps.pt)."""
     from jax.experimental.pallas import tpu as pltpu
-    n_steps = 3
     cfg, model, params, port, sd0 = jax_world(
         **dict(LOSS_SIDE, frame_embedding_num=300, msda_impl="pallas"))
-    assert sum(cfg.temporal_shapes()) >= 512 and cfg.msda_band_margin > 0
     batch = make_batch(cfg)
     jst = jstate.StepStatics(spec=JLossSpec.from_config(cfg), **statics_kw(cfg))
     state = jstate.create_train_state(cfg, model, params, None, 100, jst)
@@ -319,7 +309,7 @@ def test_long_video_steps_match_jax():
     jw = {k: jnp.asarray(v, jnp.float32) for k, v in j_weight_dict(cfg).items()}
     want = []
     with pltpu.force_tpu_interpret_mode():
-        for i in range(n_steps):
+        for i in range(LONG_VIDEO_STEPS):
             state, losses = step_jit(state, db, jw, jax.random.PRNGKey(i))
             want.append({k: float(v) for k, v in losses.items()})
     want_params = jax_params_to_state_dict(
@@ -331,7 +321,32 @@ def test_long_video_steps_match_jax():
     step = pstate.make_train_step(port, cfg, pst)
     got = [{k: float(v) for k, v in
             step(pstate_, batch, make_weight_dict(cfg)).items()}
-           for _ in range(n_steps)]
+           for _ in range(LONG_VIDEO_STEPS)]
+    torch.save(dict(cfg=cfg, want=want, want_params=want_params, got=got,
+                    sd=port.state_dict(), sd0=sd0), root / "steps.pt")
+
+
+LONG_VIDEO_STEPS = 3
+
+
+def test_long_video_steps_match_jax(tmp_path_factory):
+    """Three steps of a tiny long-video model (300 frames, levels 300, 150,
+    75: S = 525 >= 512), whose encoder runs the banded op forward and
+    backward, against the jitted JAX `step_fn` with msda_impl='pallas' (its
+    kernels in interpret mode, as tests/test_model_pallas.py runs the
+    model). First-step losses: rtol 5e-4 / atol 2e-5 (the jitted JAX side
+    contracts loc * T - 0.5 into an FMA, which moves each lerp fraction by
+    up to an ulp of the tap row, 3e-5 at row 300; the short model's 2e-4
+    holds at row 24). Trajectory: total loss rtol 1e-3 and falling. The
+    parameters after the steps: none further than 2 x lr x 3 from the JAX
+    package's, 99% within 0.5 x lr, as the short model's trajectory test.
+    The steps are computed once per test run (once_per_test_run)."""
+    w = once_per_test_run(
+        tmp_path_factory, "torch_train_step_long_video",
+        compute_long_video_steps,
+        lambda root: torch.load(root / "steps.pt", weights_only=False))
+    cfg, want, got = w["cfg"], w["want"], w["got"]
+    assert sum(cfg.temporal_shapes()) >= 512 and cfg.msda_band_margin > 0
     assert set(got[0]) == set(want[0])
     for k in want[0]:
         np.testing.assert_allclose(got[0][k], want[0][k], rtol=5e-4, atol=2e-5,
@@ -340,13 +355,13 @@ def test_long_video_steps_match_jax():
     np.testing.assert_allclose(totals, [l["total_loss"] for l in want],
                                rtol=1e-3)
     assert totals[-1] < totals[0]
-    sd = port.state_dict()
+    sd = w["sd"]
     diffs = np.concatenate([(sd[k] - v).abs().numpy().ravel() / LR
-                            for k, v in want_params.items()])
-    assert diffs.max() <= 2 * n_steps
+                            for k, v in w["want_params"].items()])
+    assert diffs.max() <= 2 * LONG_VIDEO_STEPS
     assert np.quantile(diffs, 0.99) <= 0.5
     enc = "transformer.encoder.layers.0.self_attn.sampling_offsets.weight"
-    assert not torch.equal(sd[enc], sd0[enc])    # the banded op's gradient
+    assert not torch.equal(sd[enc], w["sd0"][enc])   # the banded op's gradient
 
 
 # --------------------------------------------------------------- schedules
