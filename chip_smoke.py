@@ -351,6 +351,28 @@ exits non-zero:
      counts gathered. A line with each rank's step times, gradient
      all-reduce times and peak memory beside the card's name and power
      limit. NCCL across two cards cannot run on this one-card machine.
+ 30. sequence parallelism (mesh_shape dp,sp; gvl_tpu_torch/parallel/sp.py,
+     ops/ms_deform_attn_sp.py): (a) (after phase 19, also under
+     --kernels-only) the from-taps forms of kernels 1 and 2 against their
+     plain versions (weighted_tap_sum; taps_grads: index_add_ and the
+     dots) on taps the sp op's local functions prepare at the long-video
+     path's shapes at sp 2 (each sp rank's encoder, 'tokens': Lq 750 over
+     its haloed 1126 rows; its decoder, 'replicated': Lq 100 over its 750
+     chunk rows; B = 2, a dp rank's rows), forward to KERNEL_TOL, backward
+     to phase 8's bounds; their device times (medians of SP_N) beside the
+     plain versions', F.embedding_bag's on the same taps and kernels 1-2's
+     at the whole-S shape. (b) (after the long video's phases) train_cli
+     over SP_RANKS gloo ranks sharing the card, split 2 dp x 2 sp, on the
+     long video as published with its dropouts off (CUTS['longvideo_sp']):
+     SP_STEPS steps at B = 4 and one validation, held to the same run in
+     one process (step 0's losses and first-step gradients within
+     SPREAD_FACTOR x the plain path's card vs CPU spread, `plain_spread`,
+     later totals within LOSS_TOL, the eval losses within their rounding
+     SP_VAL_TOL), the ranks bit for bit equal, the clamp counter 0 at
+     every step, every rank launching the from-taps forms alone. A line
+     each for the sp ranks, the 2-rank dp run (mesh_shape dp) and the one
+     process: step times, collectives' times, peak memory (train, and with
+     the validation), beside the card's name and power limit.
  15r. (after phase 11 of each workload) remat_trunk (CUTS['anet_remat'],
      CUTS['longvideo_remat']): the seeded train step with and without it,
      dropout on and seeded alike: every named gradient within 1e-6 (the
@@ -358,10 +380,12 @@ exits non-zero:
      its max abs; the forward kernels launched twice per layer with it (the
      backward recomputes each layer); 3 timed steps of each, with their
      peak device memory, which must not be higher with remat_trunk.
-With --kernels-only the script stops after phases 1-3, 8, 12, 13 and 19.
+With --kernels-only the script stops after phases 1-3, 8, 12, 13, 19 and
+30 (a).
 With --profile DIR phases 7 and 11 also profile the long-video steps. The
-last two lines are the kernels' JSON summary (kernels 1-4 and the bf16-tap
-forms of 1 and 3, each with its launches on every path, phases 24, 25,
+last two lines are the kernels' JSON summary (kernels 1-4, the bf16-tap
+forms of 1 and 3 and the from-taps forms of 1 and 2, each with its
+launches on every path, phases 24, 25,
 26 and 15r included, with the library call's time, library_ms, the dense
 ones with the earlier kernel's, old_ms, null without --old-forms, the
 backward's with each of its two CUDA kernels' time and bound, split, the
@@ -501,6 +525,21 @@ CUTS = {
     "anet_caption_cost": dict(OFFLINE_ROBERTA, set_cost_caption=1.0),
     "anet_gt_proposals": dict(OFFLINE_ROBERTA,
                               transformer_input_type="gt_proposals"),
+    # phase 30 (b), sequence parallelism: the long video as published with
+    # mesh_shape dp,sp (published: dp) and its dropouts off (the caption
+    # head's and the deformable transformer's), so that a step split over
+    # ranks computes the one-process step; train_cli's debug (the run's 3
+    # steps, then one validation batch), one epoch and validation from
+    # epoch 0 (published: 25 epochs, validation from epoch 2); the
+    # contrastive weight of epoch 2 (0.1, CL_EPOCH, as phases 9-15 run it)
+    # from epoch 0 (published: 0 until epoch 2): with it 0 the matcher has
+    # no contrastive cost, and the initial boxes, nearly alike, leave ties
+    # that rounding breaks one way in one process and the other over sp
+    "longvideo_sp": dict(OFFLINE_ROBERTA, eval_batch_size=8, drop_prob=0.0,
+                         transformer_dropout_prob=0.0, mesh_shape="dp,sp",
+                         debug=True, epoch=1, min_epoch_when_save=0,
+                         id="longvideo_sp", cl_schedule_time=[0],
+                         cl_schedule_val=[0.1]),
     # phase 29, data parallelism: the flagship with its dropouts off (the
     # caption head's and the deformable transformer's), so that a step
     # split over ranks, each drawing its own masks, computes the
@@ -519,7 +558,8 @@ YMLS = {"anet": "anet_tsp_msvg_dvc.yml", "anet_dvc": "anet_tsp_msvg_dvc.yml",
         "anet_published": "anet_tsp_msvg_dvc.yml",
         "anet_caption_cost": "anet_tsp_msvg_dvc.yml",
         "anet_gt_proposals": "anet_tsp_msvg_dvc.yml",
-        "anet_dp": "anet_tsp_msvg_dvc.yml"}
+        "anet_dp": "anet_tsp_msvg_dvc.yml",
+        "longvideo_sp": "ym_i3d_msvg_dvc.yml"}
 
 
 def workload_cfg(name: str) -> dict:
@@ -596,6 +636,8 @@ OPTIONS = {name: dataclasses.replace(ANET, name=f"anet_{name}", tag=tag,
                              ("gt_proposals", "gtp"))}
 DP = dataclasses.replace(ANET, name="anet_dp", tag="dp",
                          cfg=workload_cfg("anet_dp"))
+SPW = dataclasses.replace(LONG, name="longvideo_sp", tag="sp",
+                          cfg=workload_cfg("longvideo_sp"))
 REMAT = {"anet": workload_cfg("anet_remat"),
          "longvideo": workload_cfg("longvideo_remat")}
 
@@ -674,25 +716,31 @@ def kernel_fns():
 def reset_counts() -> None:
     for fn in kernel_fns():
         fn.launches = fn.bwd_launches = fn.bf16_launches = 0
+    kernel_fns()[0].taps_launches = kernel_fns()[0].taps_bwd_launches = 0
 
 
 def read_counts() -> dict:
-    """Launches per kernel: kernels 1-4 and the bf16-tap forms of 1 and 3."""
+    """Launches per kernel: kernels 1-4, the bf16-tap forms of 1 and 3 and
+    the from-taps forms of 1 and 2."""
     dense, banded = kernel_fns()
     return {"fwd": dense.launches, "bwd": dense.bwd_launches,
             "banded_fwd": banded.launches, "banded_bwd": banded.bwd_launches,
             "fwd_bf16": dense.bf16_launches,
-            "banded_fwd_bf16": banded.bf16_launches}
+            "banded_fwd_bf16": banded.bf16_launches,
+            "taps_fwd": dense.taps_launches,
+            "taps_bwd": dense.taps_bwd_launches}
 
 
 def want_counts(w: Workload, steps: int, train: bool) -> dict:
-    """The launches of `steps` eval batches or train steps of an f32 path."""
+    """The launches of `steps` eval batches or train steps of an f32 path
+    (without an sp context)."""
     per = w.launches_per_step()
     return {"fwd": per["dense"] * steps,
             "bwd": per["dense"] * steps * train,
             "banded_fwd": per["banded"] * steps,
             "banded_bwd": per["banded"] * steps * train,
-            "fwd_bf16": 0, "banded_fwd_bf16": 0}
+            "fwd_bf16": 0, "banded_fwd_bf16": 0, "taps_fwd": 0,
+            "taps_bwd": 0}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -1833,9 +1881,10 @@ CLI_SCORE_KEYS = {"METEOR", "CIDEr", "Bleu_4", "soda_c", "MetaScore",
                   "grounding_mIOU"}
 
 
-def write_cli_data(w: Workload, root: pathlib.Path) -> tuple:
+def write_cli_data(w: Workload, root: pathlib.Path,
+                   n_videos: int = CLI_VIDEOS) -> tuple:
     """The data of a run in the on-disk form the JAX package reads, for the
-    workload's published config: CLI_VIDEOS videos of CLI_FRAMES frames of
+    workload's published config: n_videos videos of CLI_FRAMES frames of
     feature_dim-d features (.npy, named by the config's feature type),
     ActivityNet event counts with 5-20-word sentences and one video of
     w.long_sentences, two reference annotation files and their paragraph
@@ -1850,7 +1899,7 @@ def write_cli_data(w: Workload, root: pathlib.Path) -> tuple:
     vf_type = vf_types[0] if isinstance(vf_types, list) else vf_types
     feat_dir = root / "features" / vf_type
     feat_dir.mkdir(parents=True)
-    counts = event_counts(w, rs, CLI_VIDEOS)
+    counts = event_counts(w, rs, n_videos)
     counts[3] = w.long_sentences
     annos = ({}, {})
     for i, n in enumerate(counts):
@@ -2223,7 +2272,8 @@ def phase_train_cli(w: Workload, dev, root: pathlib.Path, data: dict,
     n_steps = TRAIN_CLI_EPOCHS * steps_per_epoch
     want = {"fwd": 4 * (n_steps + TRAIN_CLI_EPOCHS * val_batches),
             "bwd": 4 * n_steps, "banded_fwd": 0, "banded_bwd": 0,
-            "fwd_bf16": 0, "banded_fwd_bf16": 0}
+            "fwd_bf16": 0, "banded_fwd_bf16": 0, "taps_fwd": 0,
+            "taps_bwd": 0}
     log(tag, f"train_cli.main: {TRAIN_CLI_EPOCHS} epochs of "
              f"{steps_per_epoch} steps at B={TRAIN_CLI_B}, "
              f"{calls.eval_batches} validation batches, {wall:.3f} s; "
@@ -2412,7 +2462,8 @@ def phase_scst(w: Workload, dev, root: pathlib.Path, data: dict,
     peak = torch.cuda.max_memory_allocated()
     want = {"fwd": 4 * (SCST_STEPS + calls.eval_batches),
             "bwd": 4 * SCST_STEPS, "banded_fwd": 0, "banded_bwd": 0,
-            "fwd_bf16": 0, "banded_fwd_bf16": 0}
+            "fwd_bf16": 0, "banded_fwd_bf16": 0, "taps_fwd": 0,
+            "taps_bwd": 0}
     log(tag, f"train_cli.main on {yml.name}: {len(calls.steps)} steps, "
              f"{calls.eval_batches} validation batch(es), {wall:.3f} s; "
              f"launches {launches} (want {want})")
@@ -2966,7 +3017,7 @@ def phase_msda_ref_route(dev) -> None:
     got = read_counts()
     want = {"fwd": cfg.enc_layers + cfg.dec_layers, "bwd": 0,
             "banded_fwd": 0, "banded_bwd": 0, "fwd_bf16": 0,
-            "banded_fwd_bf16": 0}
+            "banded_fwd_bf16": 0, "taps_fwd": 0, "taps_bwd": 0}
     log("lvref", f"long-video model, msda_impl='ref', S={sum(LONG.shapes)}: "
                  f"one forward launched {got} (want {want}); memory finite "
                  f"{bool(torch.isfinite(out['memory']).all())}")
@@ -5087,13 +5138,445 @@ def phase_data_parallel(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 30
+SP_N = 50                       # phase 30 (a): device medians of the timings
+SP_TAPS_B = LONG.train_B // 2   # phase 30 (a): a dp rank's rows of a train batch
+SP_OFFSET = 4.0                 # phase 30 (a): encoder offsets, in rows, as at init
+# phase 30 (a): the from-taps backward's bounds, as phase 8's (the weights'
+# gradients are grad_attn's dot products)
+TAPS_BWD_ABS_TOL = {"grad_value": BWD_ABS_TOL["grad_value"],
+                    "grad_w0": BWD_ABS_TOL["grad_attn"],
+                    "grad_w1": BWD_ABS_TOL["grad_attn"]}
+
+
+def sp_taps_cases(gen: torch.Generator, dev, B: int = SP_TAPS_B):
+    """(label, value, g0, g1, w0, w1, whole) at the long-video sp path's
+    shapes at sp 2, the taps prepared by the sp op's own local functions:
+    each sp rank's encoder ('tokens': its 750 queries of its chunks, offsets
+    within +-SP_OFFSET rows of each token, its value with halos, S_loc
+    1126, the halo clamp's count beside) and decoder ('replicated': 100
+    queries anywhere in [0, 1], its 750 chunk rows); `whole` the (value,
+    loc, attn) of the same queries over the whole S = 1500, which kernels 1
+    and 2 take in one process."""
+    from gvl_tpu_torch.ops.ms_deform_attn_sp import (chunk_rows, haloed,
+                                                     plan, replicated_taps,
+                                                     tokens_taps)
+    shapes, sp, frac = LONG.shapes, 2, 0.125
+    L, S = len(shapes), sum(shapes)
+    _, chunks, halos = plan(shapes, sp, frac)
+    t = torch.tensor(shapes, dtype=torch.float32, device=dev)
+    starts = np.cumsum([0] + list(shapes))[:-1]
+    for sidx in range(sp):
+        rows, _ = chunk_rows(shapes, sp, sidx, dev)
+        level = torch.as_tensor(np.searchsorted(starts, rows.cpu().numpy(),
+                                                "right") - 1, device=dev)
+        pos = (rows - torch.as_tensor(starts, device=dev)[level] + 0.5) \
+            / t[level]
+        Lq = rows.numel()
+        size = (B, Lq, H, L, P)
+        off = SP_OFFSET * (2 * torch.rand(size, generator=gen, device=dev)
+                           - 1)
+        loc = pos[None, :, None, None, None] + off / t[:, None]
+        attn = torch.softmax(torch.randn(B, Lq, H, L * P, generator=gen,
+                                         device=dev), -1).reshape(size)
+        value = torch.randn(B, Lq, H, DH, generator=gen, device=dev)
+        left = [torch.randn(B, h, H, DH, generator=gen, device=dev)
+                for h in halos]
+        right = [torch.randn(B, h, H, DH, generator=gen, device=dev)
+                 for h in halos]
+        g0, g1, w0, w1, n = tokens_taps(sidx, sp, shapes, frac, loc, attn,
+                                        count=True)
+        v = haloed(sidx, sp, shapes, frac, value, left, right)
+        whole = (torch.randn(B, S, H, DH, generator=gen, device=dev),
+                 torch.rand(B, S, H, L, P, generator=gen, device=dev),
+                 attn.new_full((B, S, H, L, P), 1.0 / (L * P)))
+        yield (f"encoder sp{sidx}", v, g0, g1, w0, w1, whole,
+               int(n.item()))
+        Lq = 100
+        size = (B, Lq, H, L, P)
+        loc = torch.rand(size, generator=gen, device=dev)
+        attn = torch.softmax(torch.randn(B, Lq, H, L * P, generator=gen,
+                                         device=dev), -1).reshape(size)
+        v = torch.randn(B, sum(chunks), H, DH, generator=gen, device=dev)
+        whole = (torch.randn(B, S, H, DH, generator=gen, device=dev), loc,
+                 attn)
+        yield (f"decoder sp{sidx}", v,
+               *replicated_taps(sidx, sp, shapes, loc, attn), whole, 0)
+
+
+def check_taps_backward(tag: str, got, want) -> float:
+    """check_backward's bounds for the from-taps backward's gradients."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(TAPS_BWD_ABS_TOL, got, want):
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        worst = max(worst, err)
+        log("sp", f"{tag} {name}: max abs err {err!r}, plain max abs "
+                  f"{scale!r}")
+        check(math.isfinite(err)
+              and err <= TAPS_BWD_ABS_TOL[name] * max(1.0, scale / 1e3)
+              and err <= BWD_REL_TOL * scale,
+              f"from-taps backward vs plain at {tag}/{name}: {err} (max "
+              f"abs {scale})")
+    return worst
+
+
+def phase_taps_kernel_vs_plain(dev) -> dict:
+    """Phase 30 (a): the from-taps forms of kernels 1 and 2 against their
+    plain versions (weighted_tap_sum; taps_grads's index_add_ and dots) at
+    the sp path's shapes (sp_taps_cases), then their device times (medians
+    of SP_N) beside the plain versions', F.embedding_bag's on the same taps
+    (forward and its autograd backward) and kernels 1-2's at the whole-S
+    shape the one-process path gives them. Returns the kernels line's
+    entries of both forms."""
+    from gvl_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_1d_bwd_cuda, ms_deform_attn_1d_cuda,
+        ms_deform_attn_taps_bwd_cuda, ms_deform_attn_taps_cuda, taps_grads,
+        weighted_tap_sum)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    worst_f = worst_b = 0.0
+    times_f, times_b = {}, {}
+    for label, v, g0, g1, w0, w1, whole, moved in sp_taps_cases(gen, dev):
+        g0i, g1i = g0.int().contiguous(), g1.int().contiguous()
+        w0, w1 = w0.contiguous(), w1.contiguous()
+        B, S, Lq = v.shape[0], v.shape[1], g0.shape[1]
+        tag = f"{label} B={B} S_loc={S} Lq={Lq}"
+        want = weighted_tap_sum(v, g0, g1, w0, w1)
+        worst_f = max(worst_f, check_forward(
+            f"sp from-taps forward {tag}",
+            ms_deform_attn_taps_cuda(v, g0i, g1i, w0, w1), want))
+        go = torch.randn(want.shape, generator=gen, device=dev)
+        got = ms_deform_attn_taps_bwd_cuda(go, v, g0i, g1i, w0, w1)
+        worst_b = max(worst_b, check_taps_backward(
+            f"from-taps backward {tag}", got,
+            taps_grads(go, v, g0, g1, w0, w1)))
+        wv, wloc, wattn = whole
+        wgo = torch.randn(B, wloc.shape[1], H * DH, generator=gen, device=dev)
+        tf = dict(
+            B=B, S=S, Lq=Lq, moved=moved,
+            ms=device_median_ms(lambda: ms_deform_attn_taps_cuda(
+                v, g0i, g1i, w0, w1), SP_N),
+            plain_ms=device_median_ms(lambda: weighted_tap_sum(
+                v, g0, g1, w0, w1), SP_N),
+            library_ms=device_median_ms(library_fwd(v, g0, g1, w0, w1), SP_N),
+            whole_ms=device_median_ms(lambda: ms_deform_attn_1d_cuda(
+                wv, LONG.shapes, wloc, wattn), SP_N))
+        tb = dict(
+            B=B, S=S, Lq=Lq,
+            ms=device_median_ms(lambda: ms_deform_attn_taps_bwd_cuda(
+                go, v, g0i, g1i, w0, w1), SP_N),
+            plain_ms=device_median_ms(lambda: taps_grads(
+                go, v, g0, g1, w0, w1), SP_N),
+            library_ms=device_median_ms(library_bwd(v, g0, g1, w0, w1, go),
+                                        SP_N),
+            whole_ms=device_median_ms(lambda: ms_deform_attn_1d_bwd_cuda(
+                wgo, wv, LONG.shapes, wloc, wattn), SP_N))
+        times_f[label], times_b[label] = tf, tb
+        for form, tm in (("forward", tf), ("backward", tb)):
+            log("sp", f"from-taps {form} {tag}: kernel {tm['ms']!r} ms, "
+                      f"plain {tm['plain_ms']!r} ms, embedding_bag "
+                      f"{tm['library_ms']!r} ms, kernel "
+                      f"{1 if form == 'forward' else 2} at the whole S="
+                      f"{sum(LONG.shapes)}, Lq={wloc.shape[1]}: "
+                      f"{tm['whole_ms']!r} ms (device medians of {SP_N}); "
+                      f"taps the halo clamp moved: {moved}")
+    return {"taps_fwd": dict(max_abs_err=worst_f, times=times_f),
+            "taps_bwd": dict(max_abs_err=worst_b, times=times_b)}
+
+
+SP_RANKS = 4                    # phase 30 (b): 2 dp x 2 sp gloo ranks, one card
+SP_STEPS = 3                    # phase 30 (b): train steps of each run
+SP_VIDEOS = SP_STEPS * LONG.train_B   # phase 30 (b): the world's videos
+SP_RUNS = (("sp", SP_RANKS, "dp,sp"), ("dp", DP_RANKS, "dp"))
+SP_VAL_TOL = 1e-3               # phase 30 (b): the eval losses' rounding
+
+
+class SpRecord:
+    """Phase 30 (b)'s patches of a train_cli run, taken off on exit: each
+    train step timed (host clock, the device synchronised around it) with
+    the time its collectives took (every all_reduce and all_gather, the
+    device synchronised before each), its logged losses, the clamp
+    counter after it (the sp context's clamp_monitor on) and the first
+    step's gradients on the CPU; the sentence block's attention dropout off
+    (the trunk's and the caption head's are off in the cfg, the text
+    encoder has none), as phase 29 does."""
+
+    def __init__(self):
+        self.losses, self.step_ms, self.coll_ms, self.clamped = [], [], [], []
+        self.grads, self.peak_train_gib = None, 0.0
+        self._coll_s = 0.0
+        self._undo = []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        setattr(owner, name, make(orig))
+        self._undo.append((owner, name, orig))
+
+    def __enter__(self):
+        import functools
+
+        import torch.distributed as dist
+
+        from gvl_tpu_torch.models.text import BertSelfAttention
+        from gvl_tpu_torch.parallel.sp import halo_clamped
+        from gvl_tpu_torch.train import loop, state
+        rec = self
+
+        def timed(orig):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*a, **k)
+                rec._coll_s += time.perf_counter() - t0
+                return out
+            return call
+
+        def make_step(orig):
+            def make_train_step(model, *a, **k):
+                for m in model.modules():
+                    if isinstance(m, BertSelfAttention):
+                        m.dropout = 0.0
+                step = orig(model, *a, **k)
+
+                def recorded(st, batch, weights, ss_prob=0.0, seed=None):
+                    torch.cuda.synchronize()
+                    c0, t0 = rec._coll_s, time.perf_counter()
+                    losses = step(st, batch, weights, ss_prob, seed=seed)
+                    torch.cuda.synchronize()
+                    rec.step_ms.append((time.perf_counter() - t0) * 1e3)
+                    rec.coll_ms.append((rec._coll_s - c0) * 1e3)
+                    rec.peak_train_gib = torch.cuda.max_memory_allocated() \
+                        / 2 ** 30
+                    rec.losses.append({k: float(v) for k, v in losses.items()})
+                    rec.clamped.append(halo_clamped(model))
+                    if rec.grads is None:
+                        rec.grads = {n: p.grad.detach().cpu().clone()
+                                     for n, p in model.named_parameters()
+                                     if p.grad is not None}
+                    return losses
+                return recorded
+            return make_train_step
+
+        self._patch(dist, "all_reduce", timed)
+        self._patch(dist, "all_gather", timed)
+        self._patch(state, "make_train_step", make_step)
+        self._patch(loop, "set_sp_context", lambda orig: functools.partial(
+            orig, clamp_monitor=True))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        return False
+
+    def result(self) -> dict:
+        return dict(losses=self.losses, step_ms=self.step_ms,
+                    coll_ms=self.coll_ms, clamped=self.clamped,
+                    grads=self.grads, peak_train_gib=self.peak_train_gib)
+
+
+def sp_run(yml: pathlib.Path) -> dict:
+    """train_cli on `yml` in this process's world, recorded (SpRecord):
+    also its run dir, its launches, its wall time and its peak device
+    memory."""
+    from gvl_tpu_torch import train_cli
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with SpRecord() as rec:
+        folder = train_cli.main(["--cfg_path", str(yml)])
+    return dict(rec.result(), folder=folder, launches=read_counts(),
+                wall_s=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def sp_rank(rank: int, root: str, port: int, size: int, which: str) -> None:
+    """Rank `rank` of `size` gloo ranks on the shared card running
+    train_cli on <root>/<which>.yml; rank 0 saves every rank's record into
+    <root>/ranks_<which>.pt."""
+    from gvl_tpu_torch import parallel as dp
+    dp_environment(rank, size, port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dp.init_distributed("cuda", backend="gloo", timeout_s=DP_TIMEOUT_S)
+    try:
+        mine = sp_run(pathlib.Path(root, f"{which}.yml"))
+        mine["world"] = repr(dp.world())
+        ranks = dp.all_gather_object(mine)
+        if dp.is_writer():
+            torch.save(ranks, pathlib.Path(root, f"ranks_{which}.pt"))
+    finally:
+        dp.shutdown()
+
+
+def sp_spawn(root: pathlib.Path, size: int, which: str) -> tuple:
+    """sp_rank in `size` spawned processes; (their records, wall s)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(sp_rank, args=(str(root), dp_free_port(), size,
+                                            which),
+                             nprocs=size, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < DP_TIMEOUT_S,
+                  f"sp: the {which} ranks did not end in {DP_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+    ranks = torch.load(root / f"ranks_{which}.pt", weights_only=False)
+    check(len(ranks) == size, f"sp: {len(ranks)} {which} ranks")
+    return ranks, time.perf_counter() - t0
+
+
+def phase_sequence_parallel(dev) -> dict:
+    """Phase 30 (b) (see the docstring). Returns the launches of the
+    paths."""
+    from gvl_tpu_torch import parallel as dp
+    tag = "sp"
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        data, _, _ = write_cli_data(SPW, root, SP_VIDEOS)
+        for which, _, mesh in SP_RUNS + (("one", 1, "dp"),):
+            write_run_yml(root / f"{which}.yml", dict(
+                SPW.cfg, **data, mesh_shape=mesh,
+                save_dir=str(root / f"save_{which}")))
+        # the tolerance: the plain path's own card vs CPU spread on the
+        # run's first batch
+        t0 = time.perf_counter()
+        model, state, step, weights, batches = build_train(SPW, dev)
+        loss_spread = {}
+        spread = plain_spread(SPW, model, batches[0], weights,
+                              load_text(SPW, dev), loss_spread)
+        del model, state, step
+        free_device_memory()
+        log(tag, f"card vs CPU spread of the plain path: gradients up to "
+                 f"{max(spread.values())!r} of the tensor's max abs "
+                 f"({max(spread, key=spread.get)}), total loss "
+                 f"{loss_spread['total_loss']!r}; "
+                 f"{time.perf_counter() - t0:.1f} s")
+        one = sp_run(root / "one.yml")
+        check(dp.world().size == 1, f"{tag}: one process, {dp.world()}")
+        free_device_memory()
+        runs = {}
+        for which, size, _ in SP_RUNS:
+            runs[which], wall = sp_spawn(root, size, which)
+            log(tag, f"{which}: {size} gloo ranks, {runs[which][0]['world']}"
+                     f", {wall:.1f} s (spawn, imports and the run)")
+        ranks = runs["sp"]
+        log(tag, "step 0 losses, sp / dp / one process: " + ", ".join(
+            f"{k} {ranks[0]['losses'][0][k]!r} / "
+            f"{runs['dp'][0]['losses'][0][k]!r} / {v!r}"
+            for k, v in one["losses"][0].items()))
+        # the ranks agree bit for bit, and with one process
+        for r in ranks[1:]:
+            check(r["losses"] == ranks[0]["losses"], f"{tag}: rank losses")
+            check(all(torch.equal(g, ranks[0]["grads"][n])
+                      for n, g in r["grads"].items()), f"{tag}: rank grads")
+        for r in ranks:
+            check(r["clamped"] == [0] * SP_STEPS,
+                  f"{tag}: taps moved by the halo clamp {r['clamped']}")
+            check(r["folder"] == ranks[0]["folder"], f"{tag}: run dirs")
+        got = ranks[0]
+        check(len(got["losses"]) == len(one["losses"]) == SP_STEPS,
+              f"{tag}: {len(got['losses'])} steps")
+        worst_loss = 0.0
+        for k, v in one["losses"][0].items():
+            err = abs(got["losses"][0][k] - v)
+            tol = (SPREAD_FACTOR * loss_spread.get(k, 0.0) + DP_LOSS_FLOOR) \
+                * abs(v) + GRAD_FLOOR
+            check(err <= tol, f"{tag}: step 0 {k} {got['losses'][0][k]!r} vs "
+                              f"{v!r} (tol {tol!r})")
+            worst_loss = max(worst_loss, err / max(abs(v), GRAD_FLOOR))
+        for i in range(1, SP_STEPS):
+            a, b = got["losses"][i]["total_loss"], \
+                one["losses"][i]["total_loss"]
+            check(abs(a - b) <= LOSS_TOL * abs(b),
+                  f"{tag}: step {i} total {a!r} vs {b!r}")
+        worst, worst_name = 0.0, ""
+        for n, tol in spread.items():
+            g = one["grads"][n]
+            scale = g.abs().max().item()
+            err = (got["grads"][n] - g).abs().max().item()
+            tol = max(SPREAD_FACTOR * tol, DP_GRAD_FLOOR)
+            check(err <= tol * scale + GRAD_FLOOR,
+                  f"{tag}: gradient {n}: {err} > {tol} x {scale} + "
+                  f"{GRAD_FLOOR}")
+            if scale > GRAD_FLOOR and err / scale > worst:
+                worst, worst_name = err / scale, n
+        # the validation: its scores in info.json against one process
+        infos = {w: json.loads(pathlib.Path(r["folder"], "info.json")
+                               .read_text())
+                 for w, r in (("sp", got), ("one", one))}
+        val = {w: i["history"]["val_scores"]["0"] for w, i in infos.items()}
+        check(set(val["sp"]) == set(val["one"]) and
+              infos["sp"]["opt"]["mesh_shape"] == "dp,sp",
+              f"{tag}: val score keys")
+        # the eval losses, which the run rounds to 3 places; the language
+        # scores are logged: one greedy token that flips moves them past any
+        # rounding (phase 29 lets 1% of the sentences differ)
+        val_worst = 0.0
+        for k, v in val["one"].items():
+            if k.startswith("val_"):
+                err = abs(val["sp"][k] - v)
+                check(err <= SP_VAL_TOL + (SPREAD_FACTOR * loss_spread[
+                    "total_loss"] + DP_LOSS_FLOOR) * abs(v),
+                      f"{tag}: {k} {val['sp'][k]!r} vs {v!r}")
+                val_worst = max(val_worst, err)
+        log(tag, "val scores, sp vs one process: " + ", ".join(
+            f"{k} {val['sp'][k]!r} / {v!r}" for k, v in val["one"].items()
+            if isinstance(v, float)))
+        for i, r in enumerate(ranks):
+            n_val = r["launches"]["taps_fwd"] - 4 * SP_STEPS
+            check(r["launches"]["taps_bwd"] == 4 * SP_STEPS and n_val > 0
+                  and n_val % 4 == 0
+                  and all(v == 0 for k, v in r["launches"].items()
+                          if not k.startswith("taps")),
+                  f"{tag}: rank {i} launches {r['launches']}")
+            launches[f"longvideo_sp_rank{i}_train"] = r["launches"]
+        for i, r in enumerate(runs["dp"]):
+            check(r["launches"]["taps_fwd"] == 0
+                  and r["launches"]["bwd"] > 0, f"{tag}: dp rank {i} "
+                                                f"launches {r['launches']}")
+    log(tag, f"(b) train_cli over {SP_RANKS} gloo ranks on the one card "
+             f"({got['world']}), {SP_STEPS} steps at B={SPW.train_B} and one "
+             f"validation: losses, first-step gradients equal across the "
+             f"ranks bit for bit, taps moved by the halo clamp 0 at every "
+             f"step; against one process: step 0's losses within "
+             f"{worst_loss!r} (relative), gradients within {worst!r} of the "
+             f"tensor's max abs ({worst_name}), eval losses within "
+             f"{val_worst!r}; launches per rank "
+             f"{[r['launches'] for r in ranks]}")
+    for which, recs in (("sp", ranks), ("dp", runs["dp"]), ("one", [one])):
+        log(tag, f"{which} ({card()}): step ms "
+                 + "; ".join(f"rank {i} {r['step_ms']!r}"
+                             for i, r in enumerate(recs))
+                 + "; collectives ms (gloo, through the host) "
+                 + "; ".join(f"rank {i} {r['coll_ms']!r}"
+                             for i, r in enumerate(recs))
+                 + "; peak GiB train / with validation "
+                 + "; ".join(f"rank {i} {r['peak_train_gib']:.2f} / "
+                             f"{r['peak_gib']:.2f}"
+                             for i, r in enumerate(recs))
+                 + "; train_cli wall s "
+                 + "; ".join(f"rank {i} {r['wall_s']:.1f}"
+                             for i, r in enumerate(recs)))
+    return launches
+
+
 # work -> (floats moved as multiples of value, out and the taps; FMAs per
-# tap and channel). fwd: value, loc, attn in, out out. bwd: value, grad_out,
+# tap and channel). taps_fwd, taps_bwd: the from-taps forms, whose taps are
+# four arrays (g0, g1, w0, w1) in and, backward, two (dw0, dw1) out.
+# fwd: value, loc, attn in, out out. bwd: value, grad_out,
 # loc, attn in, grad_value, grad_loc, grad_attn out; two dot products and
 # two scatter-adds. Its value kernel: grad_out, loc, attn in, grad_value out,
 # the scatter-adds; its dot kernel: value, grad_out, loc, attn in, grad_loc,
 # grad_attn out, the dot products.
 BOUND_WORK = {"fwd": ((1, 1, 2), 2), "bwd": ((2, 1, 4), 4),
+              "taps_fwd": ((1, 1, 4), 2), "taps_bwd": ((2, 1, 6), 4),
               "bwd_value": ((1, 1, 2), 2), "bwd_dot": ((1, 1, 4), 2)}
 
 
@@ -5198,6 +5681,33 @@ def banded_row(name, source, replaces, launches, kv, backward) -> dict:
         "by_batch": {str(b): v for b, v in by_batch.items()}}
 
 
+def taps_row(name, source, replaces, launches, kv, backward) -> dict:
+    """A from-taps form's entry: the required keys at the shape the sp
+    train step gives it most (sp rank 0's encoder, B=2 S_loc=1126 Lq=750),
+    every shape of phase 30 (a) beside them, each with its bound and kernel
+    1 or 2's time at the whole-S shape (whole_ms)."""
+    work = "taps_bwd" if backward else "taps_fwd"
+    by_shape = {}
+    for label, tm in kv["times"].items():
+        bd = msda_bound(tm["B"], tm["S"], tm["Lq"], work)
+        by_shape[label] = dict(tm, bound_ms=bd["bound_ms"],
+                               bound_by=bd["bound_by"], bytes=bd["bytes"],
+                               flops=bd["flops"])
+        log("bound", f"{name} {label}: {bd['bytes']} bytes, {bd['flops']} "
+                     f"flop -> {bd['bound_ms']!r} ms, bound by "
+                     f"{bd['bound_by']}; kernel {tm['ms']!r} ms")
+    main = by_shape["encoder sp0"]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches.values()), "max_abs_err": kv["max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": f"long-video sp encoder, sp rank 0: B={main['B']} "
+                 f"S_loc={main['S']} Lq={main['Lq']} H=8 Dh=64 K=16",
+        "launches_by_path": launches, "by_shape": by_shape}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=pathlib.Path, metavar="DIR",
@@ -5205,7 +5715,7 @@ def main() -> None:
                          "steps and write the op tables and a trace here")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phases 1-3, 8, 12, "
-                         "13, 19); prints no result line")
+                         "13, 19, 30 (a)); prints no result line")
     ap.add_argument("--old-forms", type=pathlib.Path, metavar="DIR",
                     help="also time the dense kernels of an earlier commit, "
                          "whose gvl_tpu_torch package DIR holds (phases 3, "
@@ -5221,6 +5731,7 @@ def main() -> None:
           "banded_fwd": phase_banded_kernel_vs_plain(dev),
           "banded_bwd": phase_banded_bwd_kernel_vs_plain(dev)}
     kv.update(phase_bf16_taps_vs_plain(dev))
+    kv.update(phase_taps_kernel_vs_plain(dev))
     if args.kernels_only:
         return
     launches = {}
@@ -5278,6 +5789,9 @@ def main() -> None:
             phase_tsp(dev)
             launches.update(phase_data_parallel(dev))
             torch.cuda.empty_cache()
+        if w is LONG:
+            launches.update(phase_sequence_parallel(dev))
+            torch.cuda.empty_cache()
     rows = []
     for key, row, rname, source, replaces in (
             ("fwd", dense_row, "ms_deform_attn_fwd",
@@ -5297,7 +5811,13 @@ def main() -> None:
              "gvl_tpu/ops/ms_deform_attn.py:217"),
             ("banded_fwd_bf16", bf16_row, "ms_deform_attn_banded_fwd_bf16taps",
              "gvl_tpu_torch/csrc/ms_deform_attn_banded_fwd.cu",
-             "gvl_tpu/ops/ms_deform_attn_banded.py:65")):
+             "gvl_tpu/ops/ms_deform_attn_banded.py:65"),
+            ("taps_fwd", taps_row, "ms_deform_attn_taps_fwd",
+             "gvl_tpu_torch/csrc/ms_deform_attn_fwd.cu",
+             "gvl_tpu/ops/ms_deform_attn.py:217"),
+            ("taps_bwd", taps_row, "ms_deform_attn_taps_bwd",
+             "gvl_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+             "gvl_tpu/ops/ms_deform_attn.py:236")):
         by_path = {path: counts[key] for path, counts in launches.items()}
         rows.append(row(rname, source, replaces, by_path, kv[key],
                         key.startswith("banded") if row is bf16_row
@@ -5327,6 +5847,13 @@ def main() -> None:
         for key, n in want_counts(w, 1, train).items():
             check((launches[path][key] > 0) == (n > 0),
                   f"{path}: {key} launched {launches[path][key]} times")
+    # the sp paths launch the from-taps forms alone (phase 30 (b))
+    sp_paths = [p for p in launches if p.startswith("longvideo_sp_")]
+    check(len(sp_paths) == SP_RANKS, f"sp paths {sp_paths}")
+    for path in sp_paths:
+        for key, n in launches[path].items():
+            check((n > 0) == key.startswith("taps"),
+                  f"{path}: {key} launched {n} times")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -58,6 +58,15 @@
 // bit for bit, in every run (the "owner" form; adding each chunk's sums
 // into a zeroed buffer by atomics was slower at every main path's shape).
 //
+// The from-taps form (msda_taps_bwd_f32) is the same two kernels over taps
+// the caller prepared (rows g0, g1 and weights w0, w1, GivenTaps and
+// DotGiven): the value kernel scatters w0 * dOut and w1 * dOut as kernel 2
+// does, the dot kernel writes d0 and d1 themselves, the gradients of w0 and
+// w1. It is the backward of the TPU kernel's own interface
+// (_bwd_kernel_full returns dV, dw0, dw1), which the sequence-parallel op
+// runs on taps moved into a shard's window; autograd carries dw0 and dw1 to
+// loc and attn through the port's prep_taps.
+//
 // Layouts (all contiguous f32, value, grad_value and grad_out 16-byte
 // aligned): value, grad_value (B, S, H, Dh); loc, attn, grad_loc, grad_attn
 // (B, Lq, H, L, P); grad_out (B, Lq, H * Dh). Dh is a multiple of 4, at most
@@ -97,11 +106,11 @@ struct Hit {
   float w;    // attn * (1 - f) or attn * f
 };
 
-template <int NV>
+// Src: where the taps come from (LocAttnTaps<float, float> for kernel 2,
+// GivenTaps for its from-taps form; ms_deform_attn_common.cuh).
+template <int NV, typename Src>
 __global__ void __launch_bounds__(kThreads)
-msda_bwd_value_kernel(const float* __restrict__ grad_out,
-                      const float* __restrict__ loc,
-                      const float* __restrict__ attn,
+msda_bwd_value_kernel(const float* __restrict__ grad_out, Src src,
                       float* __restrict__ grad_value, int S, int H, int Dh,
                       int Lq, int L, int P, Levels lv, Grid gr) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -131,7 +140,6 @@ msda_bwd_value_kernel(const float* __restrict__ grad_out,
                  h * Dh + rl.c0;
   const TapOwner me = tap_owner(K, P);
   const int T = pick(lv.T, me.l);
-  const float Tf = static_cast<float>(T);
   const int first = pick(lv.start, me.l);
 
   // bit m: row hw + 32 m is stored (at most 64 of them)
@@ -145,11 +153,9 @@ msda_bwd_value_kernel(const float* __restrict__ grad_out,
         const long long g =
             ((static_cast<long long>(b) * Lq + c0 + q) * H + h) * K +
             me.k;
-        const Tap tap = tap_at(__ldg(loc + g), Tf);
-        const float a = __ldg(attn + g);
-        s_row[q * K + me.k] =
-            make_int2(first + tap.i0, first + min(tap.i0 + 1, T - 1));
-        s_w[q * K + me.k] = make_float2(a * (1.f - tap.f), a * tap.f);
+        const TapRows t = src.rows(g, T, first);
+        s_row[q * K + me.k] = make_int2(t.r0, t.r1);
+        s_w[q * K + me.k] = make_float2(t.w0, t.w1);
       }
     }
 #pragma unroll 4
@@ -246,15 +252,60 @@ msda_bwd_value_kernel(const float* __restrict__ grad_out,
   }
 }
 
+// The dot kernel's taps: the row of tap i that half a warp reads (half 0
+// the lower row, 1 the upper), and what it stores from the tap's two dot
+// products d (its own row's) and other (the other half's). DotLocAttn is
+// kernel 2's: the gradients of loc and attn. DotGiven the from-taps form's:
+// the gradients of the given weights w0 and w1, d0 and d1 themselves.
+struct DotLocAttn {
+  const float* loc;
+  const float* attn;
+  float* grad_loc;
+  float* grad_attn;
+  struct Aux {
+    float f, aT;
+  };
+  __device__ int row(long long i, int T, int first, int half, Aux& x) const {
+    const float Tf = static_cast<float>(T);
+    const Tap t = tap_at(__ldg(loc + i), Tf);
+    const float a = __ldg(attn + i);
+    x.f = t.f;
+    x.aT = (t.x_raw > 0.f && t.x_raw < Tf - 1.f) ? a * Tf : 0.f;
+    return first + (half ? min(t.i0 + 1, T - 1) : t.i0);
+  }
+  __device__ void store(long long i, int half, float d, float other,
+                        const Aux& x) const {
+    if (half == 0)
+      grad_attn[i] = (1.f - x.f) * d + x.f * other;
+    else
+      grad_loc[i] = x.aT * (d - other);
+  }
+};
+
+struct DotGiven {
+  const int* g0;
+  const int* g1;
+  float* dw0;
+  float* dw1;
+  int S;
+  struct Aux {};
+  __device__ int row(long long i, int, int, int half, Aux&) const {
+    const int r = __ldg((half ? g1 : g0) + i);
+    if (outside(r, S)) __trap();     // as GivenTaps
+    return r;
+  }
+  __device__ void store(long long i, int half, float d, float,
+                        const Aux&) const {
+    (half ? dw1 : dw0)[i] = d;
+  }
+};
+
 // The dot products of one (b, q, h), by one warp.
-template <int NV, bool kK16>
+template <int NV, bool kK16, typename DotSrc>
 __device__ void dot_warp(long long warp, const float* __restrict__ grad_out,
-                         const float* __restrict__ value,
-                         const float* __restrict__ loc,
-                         const float* __restrict__ attn,
-                         float* __restrict__ grad_loc,
-                         float* __restrict__ grad_attn, int S, int H, int Dh,
-                         int Lq, int L, int P, const Levels& lv) {
+                         const float* __restrict__ value, const DotSrc& src,
+                         int S, int H, int Dh, int Lq, int L, int P,
+                         const Levels& lv) {
   const int lane = threadIdx.x % 32;
   const int h = static_cast<int>(warp % H);
   const int b = static_cast<int>(warp / (static_cast<long long>(Lq) * H));
@@ -270,17 +321,11 @@ __device__ void dot_warp(long long warp, const float* __restrict__ grad_out,
     // lower row, the upper half its upper row
     const int k = k0 + lane % 16;
     int off = 0;
-    float f = 0.f, aT = 0.f;
+    typename DotSrc::Aux x{};
     if (kK16 || k < K) {
       const int l = k / P;
-      const int T = pick(lv.T, l);
-      const float Tf = static_cast<float>(T);
-      const Tap t = tap_at(__ldg(loc + warp * K + k), Tf);
-      const float a = __ldg(attn + warp * K + k);
-      f = t.f;
-      aT = (t.x_raw > 0.f && t.x_raw < Tf - 1.f) ? a * Tf : 0.f;
-      off = (pick(lv.start, l) + (me.half ? min(t.i0 + 1, T - 1) : t.i0)) *
-            row;
+      off = src.row(warp * K + k, pick(lv.T, l), pick(lv.start, l), me.half,
+                    x) * row;
     }
     const int n = kK16 ? 16 : min(16, K - k0);
     float part[16];
@@ -298,74 +343,98 @@ __device__ void dot_warp(long long warp, const float* __restrict__ grad_out,
     // lane i of the lower half: d0 of tap k0 + i; of the upper half: d1
     const float d = reduce16(part, lane);
     const float other = __shfl_xor_sync(kFull, d, 16);
-    if (kK16 || k < K) {
-      if (me.half == 0)
-        grad_attn[warp * K + k] = (1.f - f) * d + f * other;
-      else
-        grad_loc[warp * K + k] = aT * (d - other);
-    }
+    if (kK16 || k < K) src.store(warp * K + k, me.half, d, other, x);
   }
 }
 
 // kK16: K = L * P = 16, known at compile time.
-template <int NV, bool kK16>
+template <int NV, bool kK16, typename DotSrc>
 __global__ void __launch_bounds__(kDotWarps * 32)
 msda_bwd_dot_kernel(const float* __restrict__ grad_out,
-                    const float* __restrict__ value,
-                    const float* __restrict__ loc,
-                    const float* __restrict__ attn,
-                    float* __restrict__ grad_loc,
-                    float* __restrict__ grad_attn, int B, int S, int H,
-                    int Dh, int Lq, int L, int P, Levels lv) {
+                    const float* __restrict__ value, DotSrc src, int B, int S,
+                    int H, int Dh, int Lq, int L, int P, Levels lv) {
   const long long warp =
       static_cast<long long>(blockIdx.x) * kDotWarps + threadIdx.x / 32;
   if (warp < static_cast<long long>(B) * Lq * H)  // whole warps
-    dot_warp<NV, kK16>(warp, grad_out, value, loc, attn, grad_loc, grad_attn,
-                       S, H, Dh, Lq, L, P, lv);
+    dot_warp<NV, kK16>(warp, grad_out, value, src, S, H, Dh, Lq, L, P, lv);
 }
 
-template <int NV>
-cudaError_t launch(const float* grad_out, const float* value, const float* loc,
-                   const float* attn, float* grad_value, float* grad_loc,
-                   float* grad_attn, int B, int S, int H, int Dh, int Lq,
-                   int L, int P, const Levels& lv, const Grid& gr,
-                   long long value_blocks, long long dot_blocks, int shared,
-                   cudaStream_t stream) {
+template <int NV, typename Src, typename DotSrc>
+cudaError_t launch(const float* grad_out, const float* value, Src src,
+                   DotSrc dsrc, float* grad_value, int B, int S, int H,
+                   int Dh, int Lq, int L, int P, const Levels& lv,
+                   const Grid& gr, long long value_blocks,
+                   long long dot_blocks, int shared, cudaStream_t stream) {
   if (value_blocks > 0) {
-    msda_bwd_value_kernel<NV><<<static_cast<int>(value_blocks), kThreads,
-                                static_cast<size_t>(shared), stream>>>(
-        grad_out, loc, attn, grad_value, S, H, Dh, Lq, L, P, lv, gr);
+    msda_bwd_value_kernel<NV, Src><<<static_cast<int>(value_blocks), kThreads,
+                                     static_cast<size_t>(shared), stream>>>(
+        grad_out, src, grad_value, S, H, Dh, Lq, L, P, lv, gr);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (dot_blocks == 0) return cudaSuccess;
   const dim3 grid(static_cast<unsigned>(dot_blocks)), block(kDotWarps * 32);
   if (L * P == 16)
-    msda_bwd_dot_kernel<NV, true><<<grid, block, 0, stream>>>(
-        grad_out, value, loc, attn, grad_loc, grad_attn, B, S, H, Dh, Lq, L,
-        P, lv);
+    msda_bwd_dot_kernel<NV, true, DotSrc><<<grid, block, 0, stream>>>(
+        grad_out, value, dsrc, B, S, H, Dh, Lq, L, P, lv);
   else
-    msda_bwd_dot_kernel<NV, false><<<grid, block, 0, stream>>>(
-        grad_out, value, loc, attn, grad_loc, grad_attn, B, S, H, Dh, Lq, L,
-        P, lv);
+    msda_bwd_dot_kernel<NV, false, DotSrc><<<grid, block, 0, stream>>>(
+        grad_out, value, dsrc, B, S, H, Dh, Lq, L, P, lv);
   return cudaGetLastError();
 }
 
 // The value kernel's shared memory allowed, then both kernels launched.
-template <int NV>
-cudaError_t launch_nv(const float* grad_out, const float* value,
-                      const float* loc, const float* attn, float* grad_value,
-                      float* grad_loc, float* grad_attn, int B, int S, int H,
+template <int NV, typename Src, typename DotSrc>
+cudaError_t launch_nv(const float* grad_out, const float* value, Src src,
+                      DotSrc dsrc, float* grad_value, int B, int S, int H,
                       int Dh, int Lq, int L, int P, const Levels& lv,
                       const Grid& gr, long long value_blocks,
                       long long dot_blocks, int shared, cudaStream_t st) {
   if (value_blocks > 0) {
-    const cudaError_t err = allow_shared(msda_bwd_value_kernel<NV>, shared);
+    const cudaError_t err =
+        allow_shared(msda_bwd_value_kernel<NV, Src>, shared);
     if (err != cudaSuccess) return err;
   }
-  return launch<NV>(grad_out, value, loc, attn, grad_value, grad_loc,
-                    grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                    dot_blocks, shared, st);
+  return launch<NV>(grad_out, value, src, dsrc, grad_value, B, S, H, Dh, Lq,
+                    L, P, lv, gr, value_blocks, dot_blocks, shared, st);
+}
+
+// The sizes checked, the blocks counted and the launches of one backward,
+// NV (the 16-byte pieces of a lane's row) from Dh. Returns the CUDA error
+// (0 = launched).
+template <typename Src, typename DotSrc>
+cudaError_t run(const float* grad_out, const float* value, Src src,
+                DotSrc dsrc, float* grad_value, int B, int S, int H, int Dh,
+                int Lq, int L, int P, const Levels& lv, int chunk, int rows,
+                int shared, cudaStream_t st) {
+  if (P < 1 || L * P > kThreads || Dh < 4 || Dh % 4 != 0 ||
+      Dh > 64 * kMaxVec || chunk < 1 || chunk > (Lq > 1 ? Lq : 1) ||
+      rows < 1 || rows > 32 * 64 ||
+      static_cast<long long>(S) * H * Dh > INT_MAX ||
+      static_cast<long long>(Lq) * H * Dh > INT_MAX)
+    return cudaErrorInvalidValue;
+  const Grid gr{rows, (S + rows - 1) / rows, chunk};
+  const long long value_blocks =
+      grad_value ? static_cast<long long>(B) * H * gr.n_rr : 0;
+  const long long dot_blocks =
+      (static_cast<long long>(B) * Lq * H + kDotWarps - 1) / kDotWarps;
+  if (value_blocks > INT_MAX || dot_blocks > INT_MAX ||
+      (grad_value && shared < value_shared(L * P, Dh, gr)))
+    return cudaErrorInvalidValue;
+  if (Dh <= 64)
+    return launch_nv<1>(grad_out, value, src, dsrc, grad_value, B, S, H, Dh,
+                        Lq, L, P, lv, gr, value_blocks, dot_blocks, shared,
+                        st);
+  if (Dh <= 128)
+    return launch_nv<2>(grad_out, value, src, dsrc, grad_value, B, S, H, Dh,
+                        Lq, L, P, lv, gr, value_blocks, dot_blocks, shared,
+                        st);
+  if (Dh <= 256)
+    return launch_nv<4>(grad_out, value, src, dsrc, grad_value, B, S, H, Dh,
+                        Lq, L, P, lv, gr, value_blocks, dot_blocks, shared,
+                        st);
+  return launch_nv<8>(grad_out, value, src, dsrc, grad_value, B, S, H, Dh,
+                      Lq, L, P, lv, gr, value_blocks, dot_blocks, shared, st);
 }
 
 }  // namespace
@@ -385,40 +454,33 @@ extern "C" int msda_bwd_f32(const float* grad_out, const float* value,
                             int Lq, int L, int P, const int* level_T,
                             int chunk, int rows, int shared,
                             void* stream) {
-  if (P < 1 || L * P > kThreads || Dh < 4 || Dh % 4 != 0 ||
-      Dh > 64 * kMaxVec || chunk < 1 || chunk > (Lq > 1 ? Lq : 1) ||
-      rows < 1 || rows > 32 * 64 ||
-      static_cast<long long>(S) * H * Dh > INT_MAX ||
-      static_cast<long long>(Lq) * H * Dh > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
-  cudaError_t err = make_levels(L, S, level_T, &lv);
+  const cudaError_t err = make_levels(L, S, level_T, &lv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Grid gr{rows, (S + rows - 1) / rows, chunk};
-  const long long value_blocks =
-      grad_value ? static_cast<long long>(B) * H * gr.n_rr : 0;
-  const long long dot_blocks =
-      (static_cast<long long>(B) * Lq * H + kDotWarps - 1) / kDotWarps;
-  if (value_blocks > INT_MAX || dot_blocks > INT_MAX ||
-      (grad_value && shared < value_shared(L * P, Dh, gr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // NV, the 16-byte pieces of a lane's row, from Dh
-  if (Dh <= 64)
-    err = launch_nv<1>(grad_out, value, loc, attn, grad_value, grad_loc,
-                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                       dot_blocks, shared, st);
-  else if (Dh <= 128)
-    err = launch_nv<2>(grad_out, value, loc, attn, grad_value, grad_loc,
-                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                       dot_blocks, shared, st);
-  else if (Dh <= 256)
-    err = launch_nv<4>(grad_out, value, loc, attn, grad_value, grad_loc,
-                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                       dot_blocks, shared, st);
-  else
-    err = launch_nv<8>(grad_out, value, loc, attn, grad_value, grad_loc,
-                       grad_attn, B, S, H, Dh, Lq, L, P, lv, gr, value_blocks,
-                       dot_blocks, shared, st);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      run(grad_out, value, LocAttnTaps<float, float>{loc, attn},
+          DotLocAttn{loc, attn, grad_loc, grad_attn}, grad_value, B, S, H,
+          Dh, Lq, L, P, lv, chunk, rows, shared,
+          static_cast<cudaStream_t>(stream)));
+}
+
+// The from-taps form: the backward of msda_taps_fwd_f32 (the semantics of
+// _bwd_kernel_full, gvl_tpu/ops/ms_deform_attn.py:236-268): grad_value as
+// kernel 2's, scattering w0 * dOut to row g0 and w1 * dOut to row g1, and
+// dw0 = <V[g0], dOut>, dw1 = <V[g1], dOut>, each (B, Lq, H, L, P). The plan
+// as msda_bwd_f32's; `grad_value` may be null. A row outside [0, S) stops
+// the launch (GivenTaps).
+extern "C" int msda_taps_bwd_f32(const float* grad_out, const float* value,
+                                 const int* g0, const int* g1,
+                                 const float* w0, const float* w1,
+                                 float* grad_value, float* dw0, float* dw1,
+                                 int B, int S, int H, int Dh, int Lq, int L,
+                                 int P, int chunk, int rows, int shared,
+                                 void* stream) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Levels lv{};      // the given rows carry their levels
+  return static_cast<int>(
+      run(grad_out, value, GivenTaps{g0, g1, w0, w1, S},
+          DotGiven{g0, g1, dw0, dw1, S}, grad_value, B, S, H, Dh, Lq, L, P, lv,
+          chunk, rows, shared, static_cast<cudaStream_t>(stream)));
 }

@@ -107,6 +107,53 @@ __device__ inline TapW tap_weights(LocT loc, AttnT attn, int T) {
   return w;
 }
 
+// A tap's two value rows (rows of the whole value tensor's batch element,
+// level offsets added) and their weights.
+struct TapRows {
+  int r0, r1;
+  float w0, w1;
+};
+
+// Where the dense kernels' taps come from; each kernel is written once for
+// either source. LocAttnTaps: prepared from a sampling location and an
+// attention weight (kernels 1 and 2; LocT, AttnT float, or bf16 for the
+// bf16-tap form). GivenTaps: the rows and weights the caller prepared, the
+// interface of the TPU kernels themselves (_msda_pallas_from_taps,
+// gvl_tpu/ops/ms_deform_attn.py:330-345), which the sequence-parallel op
+// calls on the taps it moved into a shard's window (the from-taps forms).
+// rows(i, T, first): tap i, of a level of T rows whose first row is first.
+// A given row outside [0, S) stops the launch (__trap: the next
+// synchronisation raises) instead of reading past the value tensor; the
+// wrapper checks the rows on the device this way, without a host sync.
+template <typename LocT, typename AttnT>
+struct LocAttnTaps {
+  const LocT* loc;
+  const AttnT* attn;
+  __device__ TapRows rows(long long i, int T, int first) const {
+    const TapW t = tap_weights(ldg_t(loc + i), ldg_t(attn + i), T);
+    return TapRows{first + t.i0, first + min(t.i0 + 1, T - 1), t.w0, t.w1};
+  }
+};
+
+// Whether row r lies outside a batch element's S rows.
+__device__ inline bool outside(int r, int S) {
+  return static_cast<unsigned>(r) >= static_cast<unsigned>(S);
+}
+
+struct GivenTaps {
+  const int* g0;
+  const int* g1;
+  const float* w0;
+  const float* w1;
+  int S;
+  __device__ TapRows rows(long long i, int, int) const {
+    const TapRows t{__ldg(g0 + i), __ldg(g1 + i), __ldg(w0 + i),
+                    __ldg(w1 + i)};
+    if (outside(t.r0, S) || outside(t.r1, S)) __trap();
+    return t;
+  }
+};
+
 // Entry l of a table that a kernel takes by value, read without indexing
 // it at run time: an indexed read makes every thread copy the whole table to
 // local memory first.

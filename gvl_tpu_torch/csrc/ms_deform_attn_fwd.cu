@@ -38,6 +38,14 @@
 // (B, S, H, Dh); loc, attn (B, Lq, H, L, P); out (B, Lq, H * Dh). Dh is a
 // multiple of 4, at most 512.
 //
+// The from-taps form (msda_taps_fwd_f32) is the same kernel over taps the
+// caller prepared: rows g0, g1 and weights w0, w1 read where kernel 1 reads
+// loc and attn (GivenTaps, ms_deform_attn_common.cuh). It is the interface
+// of the TPU kernel itself (_msda_core_pallas, ms_deform_attn.py:270-345),
+// which the sequence-parallel op calls on taps moved into a shard's window
+// (gvl_tpu_torch/ops/ms_deform_attn_sp.py). It moves 8 bytes more per tap
+// than kernel 1 (four arrays, not two) and is bound as kernel 1 is.
+//
 // The bf16-tap form (msda_fwd_bf16taps) is the same kernel with loc and attn
 // read as float or bf16 each and the tap prepared by the JAX rule for those
 // types (tap_weights, ms_deform_attn_common.cuh): under eval_full_bf16 the
@@ -54,15 +62,13 @@ namespace {
 
 constexpr int kFwdWarps = 8;   // (b, q, h) per block
 
-// kK16: K = L * P = 16, known at compile time. LocT, AttnT: float or
-// __nv_bfloat16.
-template <int NV, bool kK16, typename LocT, typename AttnT>
+// kK16: K = L * P = 16, known at compile time. Src: where the taps come
+// from (LocAttnTaps, GivenTaps; ms_deform_attn_common.cuh).
+template <int NV, bool kK16, typename Src>
 __global__ void __launch_bounds__(kFwdWarps * 32)
-msda_fwd_kernel(const float* __restrict__ value,
-                const LocT* __restrict__ loc,
-                const AttnT* __restrict__ attn, float* __restrict__ out,
-                int B, int S, int H, int Dh, int Lq, int L, int P,
-                Levels lv) {
+msda_fwd_kernel(const float* __restrict__ value, Src src,
+                float* __restrict__ out, int B, int S, int H, int Dh, int Lq,
+                int L, int P, Levels lv) {
   const long long warp =
       static_cast<long long>(blockIdx.x) * kFwdWarps + threadIdx.x / 32;
   if (warp >= static_cast<long long>(B) * Lq * H) return;  // whole warps
@@ -74,8 +80,6 @@ msda_fwd_kernel(const float* __restrict__ value,
   const int row = H * Dh;  // stride of a value row
   const float* v_bh =
       value + static_cast<long long>(b) * S * row + h * Dh + me.c0;
-  const LocT* loc_q = loc + warp * K;
-  const AttnT* attn_q = attn + warp * K;
 
   float4 acc[NV];
 #pragma unroll
@@ -88,19 +92,18 @@ msda_fwd_kernel(const float* __restrict__ value,
     float w = 0.f;
     if (kK16 || k < K) {
       const int l = k / P;
-      const int T = pick(lv.T, l);
-      const TapW t = tap_weights(ldg_t(loc_q + k), ldg_t(attn_q + k), T);
-      off = (pick(lv.start, l) + (me.half ? min(t.i0 + 1, T - 1) : t.i0)) *
-            row;
+      const TapRows t =
+          src.rows(warp * K + k, pick(lv.T, l), pick(lv.start, l));
+      off = (me.half ? t.r1 : t.r0) * row;
       w = me.half ? t.w1 : t.w0;
     }
     const int n = kK16 ? 16 : min(16, K - k0);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       if (kK16 || i < n) {
-        const int src = (lane & 16) | i;
-        const int o = __shfl_sync(kFull, off, src);
-        const float wi = __shfl_sync(kFull, w, src);
+        const int from = (lane & 16) | i;
+        const int o = __shfl_sync(kFull, off, from);
+        const float wi = __shfl_sync(kFull, w, from);
         float4 r[NV];
         load_row<NV>(r, v_bh + o, me.c0, Dh);
 #pragma unroll
@@ -117,42 +120,41 @@ msda_fwd_kernel(const float* __restrict__ value,
   }
 }
 
-template <int NV, bool kK16, typename LocT, typename AttnT>
-cudaError_t launch(const float* value, const LocT* loc, const AttnT* attn,
-                   float* out, int B, int S, int H, int Dh, int Lq, int L,
-                   int P, const Levels& lv, cudaStream_t stream) {
+template <int NV, bool kK16, typename Src>
+cudaError_t launch(const float* value, Src src, float* out, int B, int S,
+                   int H, int Dh, int Lq, int L, int P, const Levels& lv,
+                   cudaStream_t stream) {
   const long long warps = static_cast<long long>(B) * Lq * H;
   const long long blocks = (warps + kFwdWarps - 1) / kFwdWarps;
   if (blocks == 0) return cudaSuccess;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  msda_fwd_kernel<NV, kK16, LocT, AttnT>
+  msda_fwd_kernel<NV, kK16, Src>
       <<<static_cast<int>(blocks), kFwdWarps * 32, 0, stream>>>(
-          value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv);
+          value, src, out, B, S, H, Dh, Lq, L, P, lv);
   return cudaGetLastError();
 }
 
-template <int NV, typename LocT, typename AttnT>
-cudaError_t launch_nv(const float* value, const LocT* loc, const AttnT* attn,
-                      float* out, int B, int S, int H, int Dh, int Lq, int L,
-                      int P, const Levels& lv, cudaStream_t st) {
+template <int NV, typename Src>
+cudaError_t launch_nv(const float* value, Src src, float* out, int B, int S,
+                      int H, int Dh, int Lq, int L, int P, const Levels& lv,
+                      cudaStream_t st) {
   return L * P == 16
-      ? launch<NV, true>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st)
-      : launch<NV, false>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv,
-                          st);
+      ? launch<NV, true>(value, src, out, B, S, H, Dh, Lq, L, P, lv, st)
+      : launch<NV, false>(value, src, out, B, S, H, Dh, Lq, L, P, lv, st);
 }
 
 // NV, the 16-byte pieces of a lane's row, from Dh.
-template <typename LocT, typename AttnT>
-cudaError_t dispatch(const float* value, const LocT* loc, const AttnT* attn,
-                     float* out, int B, int S, int H, int Dh, int Lq, int L,
-                     int P, const Levels& lv, cudaStream_t st) {
+template <typename Src>
+cudaError_t dispatch(const float* value, Src src, float* out, int B, int S,
+                     int H, int Dh, int Lq, int L, int P, const Levels& lv,
+                     cudaStream_t st) {
   if (Dh <= 64)
-    return launch_nv<1>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+    return launch_nv<1>(value, src, out, B, S, H, Dh, Lq, L, P, lv, st);
   if (Dh <= 128)
-    return launch_nv<2>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+    return launch_nv<2>(value, src, out, B, S, H, Dh, Lq, L, P, lv, st);
   if (Dh <= 256)
-    return launch_nv<4>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
-  return launch_nv<8>(value, loc, attn, out, B, S, H, Dh, Lq, L, P, lv, st);
+    return launch_nv<4>(value, src, out, B, S, H, Dh, Lq, L, P, lv, st);
+  return launch_nv<8>(value, src, out, B, S, H, Dh, Lq, L, P, lv, st);
 }
 
 cudaError_t check_sizes(int S, int H, int Dh, int L, int P,
@@ -175,8 +177,9 @@ extern "C" int msda_fwd_f32(const float* value, const float* loc,
   Levels lv;
   cudaError_t err = check_sizes(S, H, Dh, L, P, level_T, &lv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dispatch(value, loc, attn, out, B, S, H, Dh, Lq, L,
-                                   P, lv, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch(value, LocAttnTaps<float, float>{loc, attn},
+                                   out, B, S, H, Dh, Lq, L, P, lv,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 // The bf16-tap form: loc is bf16 when loc_bf16, else f32; attn likewise.
@@ -191,18 +194,38 @@ extern "C" int msda_fwd_bf16taps(const float* value, const void* loc,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   if (loc_bf16 && attn_bf16)
-    err = dispatch(value, static_cast<const bf*>(loc),
-                   static_cast<const bf*>(attn), out, B, S, H, Dh, Lq, L, P,
-                   lv, st);
+    err = dispatch(value, LocAttnTaps<bf, bf>{static_cast<const bf*>(loc),
+                                              static_cast<const bf*>(attn)},
+                   out, B, S, H, Dh, Lq, L, P, lv, st);
   else if (loc_bf16)
-    err = dispatch(value, static_cast<const bf*>(loc),
-                   static_cast<const float*>(attn), out, B, S, H, Dh, Lq, L,
-                   P, lv, st);
+    err = dispatch(value,
+                   LocAttnTaps<bf, float>{static_cast<const bf*>(loc),
+                                          static_cast<const float*>(attn)},
+                   out, B, S, H, Dh, Lq, L, P, lv, st);
   else if (attn_bf16)
-    err = dispatch(value, static_cast<const float*>(loc),
-                   static_cast<const bf*>(attn), out, B, S, H, Dh, Lq, L, P,
-                   lv, st);
+    err = dispatch(value,
+                   LocAttnTaps<float, bf>{static_cast<const float*>(loc),
+                                          static_cast<const bf*>(attn)},
+                   out, B, S, H, Dh, Lq, L, P, lv, st);
   else
     err = cudaErrorInvalidValue;    // the f32 form is msda_fwd_f32
   return static_cast<int>(err);
+}
+
+// The from-taps form: the taps given as rows g0, g1 (int32, rows of a batch
+// element's S; a row outside [0, S) stops the launch, GivenTaps) and their
+// weights w0, w1 (f32), each (B, Lq, H, L, P);
+// out[b, q, h] = sum_k w0 V[g0] + w1 V[g1].
+extern "C" int msda_taps_fwd_f32(const float* value, const int* g0,
+                                 const int* g1, const float* w0,
+                                 const float* w1, float* out, int B, int S,
+                                 int H, int Dh, int Lq, int L, int P,
+                                 void* stream) {
+  if (L < 1 || P < 1 || Dh < 4 || Dh % 4 != 0 || Dh > 64 * kMaxVec ||
+      static_cast<long long>(S) * H * Dh > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Levels lv{};      // the given rows carry their levels
+  return static_cast<int>(dispatch(value, GivenTaps{g0, g1, w0, w1, S}, out,
+                                   B, S, H, Dh, Lq, L, P, lv,
+                                   static_cast<cudaStream_t>(stream)));
 }

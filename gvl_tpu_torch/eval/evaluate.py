@@ -58,7 +58,11 @@ one-process run, then rank r takes its block of rows (`shard_batch`) and
 evaluates them; each rank's eval losses are its shares of the global
 batch's and are summed over ranks per batch. The per-video results reach
 every rank in the global row order (`all_gather_object` once, at the end),
-and rank 0 alone writes the JSONs.
+and rank 0 alone writes the JSONs. On a world split dp x sp
+(gvl_tpu_torch/parallel/sp.py; the train loop's validation) the rows go by
+the dp index (evaluate.py:81-86, mesh.shape['dp']): both ranks of an sp
+group evaluate the same rows under the sp context, and the dp size must
+divide the eval batch.
 """
 
 from __future__ import annotations
@@ -435,7 +439,7 @@ class EvalRunner:
         n_rows = 0
         eval_bs = int(getattr(batches, "batch_size", 0) or 0)
         if dp.size() > 1:
-            dp.make_mesh_for_batch(eval_bs)
+            dp.check_divides(eval_bs, dp.world().dp_size)
         parts = []          # this rank's results of each batch
         videos = set()
         with torch.inference_mode():
@@ -459,8 +463,8 @@ class EvalRunner:
                 parts.append(part)
                 if debug and len(videos) > 5:
                     break
-        # every rank's results of each batch, in the global row order
-        for batch_parts in zip(*dp.all_gather_object(parts)):
+        # every row block's results of each batch, in the global row order
+        for batch_parts in zip(*dp.all_gather_object(parts, dp_only=True)):
             for dst, part in zip((out_json, out_json_g, aux_out_json_g),
                                  zip(*batch_parts)):
                 for src in part:

@@ -18,6 +18,9 @@ from gvl_tpu_torch.ops import (ms_deform_attn_1d, ms_deform_attn_1d_banded,
                                ms_deform_attn_1d_banded_ref,
                                ms_deform_attn_1d_ref)
 from gvl_tpu_torch.ops.ms_deform_attn import level_tensor
+from gvl_tpu_torch.ops.ms_deform_attn_sp import (chunk_rows,
+                                                 ms_deform_attn_1d_sp)
+from gvl_tpu_torch.parallel.sp import get_sp_context
 
 # ---------------------------------------------------------------------------
 # flax's initializers, drawn from an explicit generator
@@ -105,7 +108,7 @@ def _directional_offset_bias(n_heads: int, n_levels: int, n_points: int,
 
 class MSDeformAttn1D(nn.Module):
     """Multi-scale deformable attention over a flattened temporal pyramid.
-    Port of layers.py:55-165 without the sequence-parallel route.
+    Port of layers.py:55-165.
 
     query            (B, Lq, C)
     reference_points (B, Lq, L, 1) or (B, Lq, L, 2) (center [, length])
@@ -121,6 +124,18 @@ class MSDeformAttn1D(nn.Module):
     Either is the CUDA kernel on a CUDA tensor and its plain version on a CPU
     tensor. Only `set_msda_impl`, which compares the two on the card, points
     the module at the plain versions.
+
+    Under a sequence-parallel context (gvl_tpu_torch.parallel.sp) every call
+    goes through the sp op (ops/ms_deform_attn_sp.py) first, as in JAX
+    (layers.py:124-147): the encoder's self-attention, which its caller runs
+    on the rank's token chunks (`local_tokens`), in 'tokens' mode; every
+    other call (the decoder's and the transformer caption head's
+    cross-attention) in 'replicated' mode on the rank's chunk of the whole
+    memory it is given. JAX picks 'tokens' by Lq == S; the port by the
+    caller, which knows it holds the tokens. With the context's
+    clamp_monitor, `halo_clamped` holds this rank's count of the taps the
+    halo clamp moved in the last call (0 in 'replicated' mode), the
+    counterpart of the 'sp_debug' sow (`parallel.sp.halo_clamped` sums it).
     """
 
     impl = "kernel"
@@ -136,6 +151,7 @@ class MSDeformAttn1D(nn.Module):
         self.attention_weights = nn.Linear(d_model, hlp, device=device)
         self.value_proj = nn.Linear(d_model, d_model, device=device)
         self.output_proj = nn.Linear(d_model, d_model, device=device)
+        self.halo_clamped = None
 
     def flax_init_(self, generator: torch.Generator) -> None:
         self.sampling_offsets.weight.zero_()
@@ -147,12 +163,25 @@ class MSDeformAttn1D(nn.Module):
         xavier_uniform_linear_(self.output_proj, generator)
 
     def forward(self, query, reference_points, memory, memory_mask,
-                temporal_shapes: Sequence[int]):
+                temporal_shapes: Sequence[int], local_tokens: bool = False):
+        """With local_tokens (under an sp context only), query and memory
+        are this rank's token chunks of the sequence the shapes give."""
         B, Lq, _ = query.shape
         H, L, P = self.n_heads, self.n_levels, self.n_points
         Dh = self.d_model // H
         shapes = tuple(int(t) for t in temporal_shapes)
         S = sum(shapes)
+        ctx = get_sp_context()
+        if local_tokens and ctx is None:
+            raise ValueError("MSDeformAttn1D: local_tokens needs an sp "
+                             "context")
+        if ctx is not None and not local_tokens:
+            # 'replicated' mode reads the rank's chunk of every level
+            rows, real = chunk_rows(shapes, ctx.sp, ctx.sp_rank,
+                                    memory.device)
+            memory = memory[:, rows]
+            memory_mask = real[None] if memory_mask is None else \
+                memory_mask[:, rows] & real[None]
         value = self.value_proj(memory)
         if memory_mask is not None:
             value = value.masked_fill(~memory_mask[..., None], 0.0)
@@ -174,7 +203,13 @@ class MSDeformAttn1D(nn.Module):
 
         loc, attn = loc.contiguous(), attn.contiguous()
         kernel = self.impl == "kernel"
-        if Lq == S and S >= 512 and self.band_margin > 0:
+        self.halo_clamped = None
+        if ctx is not None:
+            out, self.halo_clamped = ms_deform_attn_1d_sp(
+                value, shapes, loc, attn, ctx,
+                queries="tokens" if local_tokens else "replicated",
+                kernel=kernel)
+        elif Lq == S and S >= 512 and self.band_margin > 0:
             op = ms_deform_attn_1d_banded if kernel else ms_deform_attn_1d_banded_ref
             out = op(value, shapes, loc, attn, margin=self.band_margin)
         else:

@@ -25,6 +25,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gvl_tpu_torch.models.layers import MSDeformAttn1D, lecun_normal_
+from gvl_tpu_torch.ops.ms_deform_attn_sp import chunk_rows, gather_tokens
+from gvl_tpu_torch.parallel.sp import get_sp_context
 
 
 def run_layer(layer: nn.Module, remat: bool, *args):
@@ -123,9 +125,10 @@ class DeformableEncoderLayer(FFN):
                                         band_margin=band_margin, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
-    def forward(self, src, pos, reference_points, mask_flat, temporal_shapes):
+    def forward(self, src, pos, reference_points, mask_flat, temporal_shapes,
+                local_tokens: bool = False):
         h = self.self_attn(src + pos, reference_points, src, mask_flat,
-                           temporal_shapes)
+                           temporal_shapes, local_tokens)
         return self.forward_ffn(self.norm1(src + self.dropout(h)))
 
 
@@ -142,12 +145,23 @@ class DeformableEncoder(nn.Module):
             for _ in range(num_layers))
 
     def forward(self, src, pos, mask_flat, temporal_shapes, valid_ratios):
+        """The memory (B, S, C). Under a sequence-parallel context the
+        layers run on this rank's token chunks (`chunk_rows`, level padding
+        masked) and the memory is gathered over sp at the end
+        (gvl_tpu_torch/parallel/sp.py says why)."""
         ref = encoder_reference_points(temporal_shapes, valid_ratios)
+        ctx = get_sp_context()
+        local = ctx is not None
+        if local:
+            rows, real = chunk_rows(temporal_shapes, ctx.sp, ctx.sp_rank,
+                                    src.device)
+            src, pos, ref = src[:, rows], pos[:, rows], ref[:, rows]
+            mask_flat = mask_flat[:, rows] & real[None]
         out = src
         for layer in self.layers:
             out = run_layer(layer, self.remat, out, pos, ref, mask_flat,
-                            temporal_shapes)
-        return out
+                            temporal_shapes, local)
+        return gather_tokens(out, temporal_shapes, ctx) if local else out
 
 
 class MultiheadSelfAttention(nn.Module):

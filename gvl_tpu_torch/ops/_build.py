@@ -81,6 +81,12 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                  ctypes.POINTER(ctypes.c_int), i, i, i, p]
     lib.msda_bwd_f32.restype = i
+    lib.msda_taps_fwd_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                      p]
+    lib.msda_taps_fwd_f32.restype = i
+    lib.msda_taps_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                      i, i, i, i, i, i, p]
+    lib.msda_taps_bwd_f32.restype = i
     ints = ctypes.POINTER(ctypes.c_int)
     lib.msda_banded_fwd_f32.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                         ints, ints, i, p]

@@ -22,6 +22,13 @@ memory), computed from sizes alone so that it is tested without a card.
 `ms_deform_attn_1d_embedding_bag` computes the forward by one library
 call, the yardstick the kernels are timed against.
 
+`ms_deform_attn_from_taps` is the op on taps the caller prepared (rows and
+lerp-folded weights), the TPU kernels' own interface
+(`_msda_pallas_from_taps`), which the sequence-parallel op
+(ops/ms_deform_attn_sp.py) calls on taps moved into a shard's window: the
+from-taps forms of kernels 1 and 2 on a CUDA tensor, `weighted_tap_sum` and
+`taps_grads` their plain versions.
+
 Gradient of loc at the clamp: zero where the clamp is active and on its two
 bounds (x = 0 and x = T_l - 1 exactly), in the kernel, in its plain version
 and under autograd of `ms_deform_attn_1d_ref` alike.
@@ -181,12 +188,15 @@ def ms_deform_attn_1d_sampled_values(value: torch.Tensor,
     return out.permute(0, 2, 1, 3, 4).to(value.dtype)
 
 
-def tap_grads(grad_out: torch.Tensor, value: torch.Tensor, g0: torch.Tensor,
-              g1: torch.Tensor, f: torch.Tensor, x_raw: torch.Tensor,
-              t: torch.Tensor, attn: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """(grad_value, grad_loc, grad_attn) of `weighted_tap_sum` over taps read
-    at rows g0, g1 with lerp fraction f, by the backward kernels' formulas:
-    per-tap dot products for loc and attn, `index_add_` for value."""
+def taps_grads(grad_out: torch.Tensor, value: torch.Tensor, g0: torch.Tensor,
+               g1: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor
+               ) -> Tuple[torch.Tensor, ...]:
+    """(grad_value, grad_w0, grad_w1) of `weighted_tap_sum` over given taps
+    (rows g0, g1, int64, and weights w0, w1), by the backward kernels'
+    formulas: `index_add_` of w * dOut for value, the per-tap dot products
+    <V[g0], dOut> and <V[g1], dOut> for the weights. The plain version of
+    the from-taps backward (the semantics of _bwd_kernel_full,
+    ms_deform_attn.py:236-268)."""
     B, S, H, Dh = value.shape
     _, Lq, _, L, P = g0.shape
     go = grad_out.reshape(B, Lq, H, Dh).permute(0, 2, 1, 3)        # (B,H,Lq,Dh)
@@ -196,19 +206,28 @@ def tap_grads(grad_out: torch.Tensor, value: torch.Tensor, g0: torch.Tensor,
         d = (_gather_taps(value, g) * go).sum(-1)                  # (B,H,Lq,K)
         return d.permute(0, 2, 1, 3).reshape(B, Lq, H, L, P)
 
-    d0, d1 = dots(g0), dots(g1)
-    grad_attn = (1.0 - f) * d0 + f * d1
-    grad_loc = torch.where(_inside_clamp(x_raw, t),
-                           attn * t * (d1 - d0), torch.zeros_like(d0))
-
     grad_value = value.new_zeros((B * H * S, Dh))
     bh = torch.arange(B * H, device=value.device)[:, None] * S
-    for g, w in ((g0, attn * (1.0 - f)), (g1, attn * f)):
+    for g, w in ((g0, w0), (g1, w1)):
         idx = g.permute(0, 2, 1, 3, 4).reshape(B * H, -1) + bh
         w = w.permute(0, 2, 1, 3, 4).reshape(B, H, Lq, L * P, 1)
         grad_value.index_add_(0, idx.reshape(-1), (w * go).reshape(-1, Dh))
     grad_value = grad_value.reshape(B, H, S, Dh).permute(0, 2, 1, 3)
-    return grad_value.contiguous(), grad_loc, grad_attn
+    return grad_value.contiguous(), dots(g0), dots(g1)
+
+
+def tap_grads(grad_out: torch.Tensor, value: torch.Tensor, g0: torch.Tensor,
+              g1: torch.Tensor, f: torch.Tensor, x_raw: torch.Tensor,
+              t: torch.Tensor, attn: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(grad_value, grad_loc, grad_attn) of `weighted_tap_sum` over taps read
+    at rows g0, g1 with lerp fraction f, by the backward kernels' formulas:
+    per-tap dot products for loc and attn, `index_add_` for value."""
+    grad_value, d0, d1 = taps_grads(grad_out, value, g0, g1,
+                                    attn * (1.0 - f), attn * f)
+    grad_attn = (1.0 - f) * d0 + f * d1
+    grad_loc = torch.where(_inside_clamp(x_raw, t),
+                           attn * t * (d1 - d0), torch.zeros_like(d0))
+    return grad_value, grad_loc, grad_attn
 
 
 def ms_deform_attn_1d_bwd_ref(grad_out: torch.Tensor, value: torch.Tensor,
@@ -469,6 +488,158 @@ class _MSDeformAttnCUDA(torch.autograd.Function):
                 grad_attn.to(attn.dtype) if need_attn else None)
 
 
+# ------------------------------------------------------------ from-taps forms
+
+def check_taps_inputs(value, g0, g1, w0, w1, grad_out=None) -> None:
+    """Raises on what the from-taps kernels do not take: taps of differing
+    shapes or not (B, Lq, H, L, P) over value (B, S, H, Dh), rows that are
+    not int32 or weights that are not float32, the head widths and tap
+    counts the dense kernels refuse, tensors that are not contiguous on one
+    CUDA device, rows that do not start on 16 bytes. A row outside [0, S)
+    is the kernels' to catch: it stops the launch on the device (no host
+    synchronisation here), and the next synchronisation raises."""
+    if value.dim() != 4 or g0.dim() != 5 or not (
+            g0.shape == g1.shape == w0.shape == w1.shape):
+        raise ValueError("ms_deform_attn from-taps kernel: want value "
+                         "(B,S,H,Dh) and g0, g1, w0, w1 (B,Lq,H,L,P); got "
+                         f"{tuple(value.shape)}, {tuple(g0.shape)}, "
+                         f"{tuple(g1.shape)}, {tuple(w0.shape)}, "
+                         f"{tuple(w1.shape)}")
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P = g0.shape
+    if g0.shape[0] != B or g0.shape[2] != H:
+        raise ValueError(f"ms_deform_attn from-taps kernel: taps "
+                         f"{tuple(g0.shape)} do not match value "
+                         f"{tuple(value.shape)}")
+    if Dh < 4 or Dh % 4 or Dh > KERNEL_MAX_DH:
+        raise ValueError(
+            f"ms_deform_attn from-taps kernel: head width {Dh}; the kernels "
+            f"read rows in 16-byte pieces and take multiples of 4 up to "
+            f"{KERNEL_MAX_DH}")
+    if L * P > KERNEL_MAX_TAPS:
+        raise ValueError(f"ms_deform_attn from-taps kernel: {L} x {P} taps "
+                         f"per query; at most {KERNEL_MAX_TAPS}")
+    if max(S, Lq) * H * Dh > 2 ** 31 - 1:
+        raise ValueError(
+            f"ms_deform_attn from-taps kernel: a batch element of "
+            f"{max(S, Lq)} x {H} x {Dh} floats is past the 32-bit row offsets")
+    if grad_out is not None and grad_out.shape != (B, Lq, H * Dh):
+        raise ValueError(f"ms_deform_attn from-taps kernel: grad_out "
+                         f"{tuple(grad_out.shape)} is not (B, Lq, H*Dh)")
+    check_aligned(value=value, grad_out=grad_out)
+    tensors = [("value", value, torch.float32), ("g0", g0, torch.int32),
+               ("g1", g1, torch.int32), ("w0", w0, torch.float32),
+               ("w1", w1, torch.float32)]
+    if grad_out is not None:
+        tensors.append(("grad_out", grad_out, torch.float32))
+    for name, t, dtype in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"ms_deform_attn from-taps kernel: {name} is on "
+                             f"{t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"ms_deform_attn from-taps kernel: {name} is "
+                            f"{t.dtype}, the kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ms_deform_attn from-taps kernel: {name} is not "
+                             "contiguous")
+    if len({t.device for _, t, _ in tensors}) != 1:
+        raise ValueError("ms_deform_attn from-taps kernel: inputs on "
+                         "different devices")
+
+
+def ms_deform_attn_taps_cuda(value: torch.Tensor, g0: torch.Tensor,
+                             g1: torch.Tensor, w0: torch.Tensor,
+                             w1: torch.Tensor) -> torch.Tensor:
+    """Launch the from-taps form of the forward kernel on the current
+    stream: (B, Lq, H*Dh) float32. Raises on inputs it does not take
+    (`check_taps_inputs`) and if the launch is refused."""
+    from gvl_tpu_torch.ops._build import library
+
+    check_taps_inputs(value, g0, g1, w0, w1)
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P = g0.shape
+    out = torch.empty((B, Lq, H * Dh), dtype=torch.float32, device=value.device)
+    with torch.cuda.device(value.device):
+        err = library().msda_taps_fwd_f32(
+            value.data_ptr(), g0.data_ptr(), g1.data_ptr(), w0.data_ptr(),
+            w1.data_ptr(), out.data_ptr(), B, S, H, Dh, Lq, L, P,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("ms_deform_attn from-taps kernel launch failed: "
+                           f"CUDA error {err}")
+    ms_deform_attn_1d.taps_launches += 1
+    return out
+
+
+def ms_deform_attn_taps_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
+                                 g0: torch.Tensor, g1: torch.Tensor,
+                                 w0: torch.Tensor, w1: torch.Tensor,
+                                 need_value: bool = True
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """Launch the from-taps form of the backward kernels on the current
+    stream: (grad_value, grad_w0, grad_w1), grad_value None with
+    need_value=False. Raises on inputs it does not take and if the launch
+    is refused."""
+    from gvl_tpu_torch.ops._build import library
+
+    check_taps_inputs(value, g0, g1, w0, w1, grad_out)
+    B, S, H, Dh = value.shape
+    _, Lq, _, L, P = g0.shape
+    plan = bwd_plan(B, S, H, Dh, Lq, L * P)
+    grad_value = torch.empty_like(value) if need_value else None
+    dw0, dw1 = torch.empty_like(w0), torch.empty_like(w1)
+    with torch.cuda.device(value.device):
+        err = library().msda_taps_bwd_f32(
+            grad_out.data_ptr(), value.data_ptr(), g0.data_ptr(),
+            g1.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+            grad_value.data_ptr() if need_value else None, dw0.data_ptr(),
+            dw1.data_ptr(), B, S, H, Dh, Lq, L, P, plan.chunk, plan.rows,
+            plan.shared if need_value else 0,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("ms_deform_attn from-taps backward kernel launch "
+                           f"failed: CUDA error {err}")
+    ms_deform_attn_1d.taps_bwd_launches += 1
+    return grad_value, dw0, dw1
+
+
+class _MSDeformAttnTapsCUDA(torch.autograd.Function):
+    """The from-taps forms of kernels 1 and 2, forward and backward; the
+    rows carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, value, g0, g1, w0, w1):
+        ctx.save_for_backward(value, g0, g1, w0, w1)
+        return ms_deform_attn_taps_cuda(value, g0, g1, w0, w1)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, g0, g1, w0, w1 = ctx.saved_tensors
+        need_value = ctx.needs_input_grad[0]
+        grad_value, dw0, dw1 = ms_deform_attn_taps_bwd_cuda(
+            grad_out.contiguous().float(), value, g0, g1, w0, w1,
+            need_value=need_value)
+        return grad_value, None, None, dw0, dw1
+
+
+def ms_deform_attn_from_taps(value: torch.Tensor, g0: torch.Tensor,
+                             g1: torch.Tensor, w0: torch.Tensor,
+                             w1: torch.Tensor) -> torch.Tensor:
+    """sum_k w0 * value[g0] + w1 * value[g1] over given taps: value
+    (B, S, H, Dh), rows g0, g1 and weights w0, w1 (B, Lq, H, L, P); returns
+    (B, Lq, H*Dh) float32. Port of `_msda_pallas_from_taps`
+    (ms_deform_attn.py:330-345): value and the weights in float32. On a
+    CUDA tensor the from-taps forms of kernels 1 and 2
+    (`ms_deform_attn_1d.taps_launches`, `.taps_bwd_launches`); on a CPU
+    tensor the plain version, `weighted_tap_sum` under autograd."""
+    value, w0, w1 = value.float(), w0.float(), w1.float()
+    if value.is_cuda:
+        return _MSDeformAttnTapsCUDA.apply(
+            value.contiguous(), g0.int().contiguous(), g1.int().contiguous(),
+            w0.contiguous(), w1.contiguous())
+    return weighted_tap_sum(value, g0.long(), g1.long(), w0, w1)
+
+
 def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
                       loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     """Deformable attention: the CUDA kernel for a CUDA tensor, the plain
@@ -476,7 +647,9 @@ def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
     and the result cast back to value's dtype. `ms_deform_attn_1d.launches`
     counts launches of the forward kernel's f32 form, `.bf16_launches` of its
     bf16-tap form (bf16 loc or attn; see the module docstring),
-    `.bwd_launches` of the backward kernel."""
+    `.bwd_launches` of the backward kernel (`.taps_launches` and
+    `.taps_bwd_launches` count their from-taps forms,
+    `ms_deform_attn_from_taps`)."""
     shapes = tuple(int(t) for t in temporal_shapes)
     v32 = value.float()
     if value.is_cuda:
@@ -489,3 +662,5 @@ def ms_deform_attn_1d(value: torch.Tensor, temporal_shapes: Sequence[int],
 ms_deform_attn_1d.launches = 0
 ms_deform_attn_1d.bf16_launches = 0
 ms_deform_attn_1d.bwd_launches = 0
+ms_deform_attn_1d.taps_launches = 0
+ms_deform_attn_1d.taps_bwd_launches = 0

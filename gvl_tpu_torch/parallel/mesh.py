@@ -31,6 +31,20 @@ The rules, which together give JAX's global-batch step:
   backward sums the gathered gradient across ranks and keeps the rank's
   own slice: under the shares above that is the global gradient.
 - one writer: rank 0 writes files (`is_writer`); the others read them.
+
+Sequence parallelism (mesh_shape 'dp,sp', mesh.py:28-42): at W >= 4 ranks,
+W even, `make_mesh_for_batch` splits the world into a dp x sp grid with
+sp = 2: rank r is device r of JAX's `reshape(W // 2, 2)`, dp index r // 2
+and sp index r % 2 (`World.dp_rank`, `.sp_rank`). Every rank makes every
+sub-group (`dist.new_group`), in one order: the dp groups (the ranks of one
+sp index) and the sp groups (the two ranks of one dp index). The rows
+follow the dp index, so both ranks of an sp group hold the same rows, and
+the rules above hold over the dp group: `row_block`, `shard_batch`,
+`global_sum` (each row counted once), `gather_rows` and `sum_shares`; the
+gradients are summed over the whole world (`sum_gradients`). The sp group's
+own collectives are `gather_sp` and `sum_sp` (gvl_tpu_torch/parallel/sp.py
+says how the step is split over it). A world of W < 4 or an odd W asked for
+'dp,sp' is plain dp, as in JAX.
 """
 
 from __future__ import annotations
@@ -53,15 +67,44 @@ BUCKET_BYTES = 64 * 2 ** 20
 class World:
     """The ranks of a run: this process's `rank` of `size`, the process
     `group` (None: no collectives at all) and the `device` that holds the
-    group's host-side tensors."""
+    group's host-side tensors. Split into dp x sp (`split_sp`): this rank's
+    `dp_rank` of `dp_size` rows blocks and `sp_rank` of `sp_size`, the
+    `dp_group` of the ranks that share its sp index and the `sp_group` of
+    those that share its rows (None at sp_size 1); unsplit, the dp group is
+    the whole world."""
 
     def __init__(self, rank: int = 0, size: int = 1, group: Any = None,
-                 device: str = "cpu", owned: bool = False):
+                 device: str = "cpu", owned: bool = False,
+                 timeout_s: float = TIMEOUT_S):
         self.rank, self.size = rank, size
         self.group, self.device = group, torch.device(device)
         self.owned = owned          # init_distributed made the group
+        self.timeout_s = timeout_s
+        self.dp_rank, self.dp_size, self.dp_group = rank, size, group
+        self.sp_rank, self.sp_size, self.sp_group = 0, 1, None
+
+    def split_sp(self, sp: int) -> None:
+        """Split into a dp x sp grid (rank = dp_rank * sp + sp_rank): every
+        rank makes every sub-group, in the same order."""
+        dp_size = self.size // sp
+        dp_groups = [dist.new_group(list(range(s, self.size, sp)),
+                                    timeout=datetime.timedelta(
+                                        seconds=self.timeout_s))
+                     for s in range(sp)]
+        sp_groups = [dist.new_group(list(range(d * sp, (d + 1) * sp)),
+                                    timeout=datetime.timedelta(
+                                        seconds=self.timeout_s))
+                     for d in range(dp_size)]
+        self.dp_rank, self.sp_rank = divmod(self.rank, sp)
+        self.dp_size, self.sp_size = dp_size, sp
+        self.dp_group = dp_groups[self.sp_rank]
+        self.sp_group = sp_groups[self.dp_rank]
 
     def __repr__(self):
+        if self.sp_size > 1:
+            return (f"World(rank={self.rank}, size={self.size}, dp "
+                    f"{self.dp_rank}/{self.dp_size}, sp "
+                    f"{self.sp_rank}/{self.sp_size})")
         return f"World(rank={self.rank}, size={self.size})"
 
 
@@ -111,7 +154,7 @@ def init_distributed(device: str = "cuda", backend: Optional[str] = None,
     dev = (f"cuda:{torch.cuda.current_device()}"
            if dist.get_backend() == "nccl" else "cpu")
     _world = World(dist.get_rank(), dist.get_world_size(), dist.group.WORLD,
-                   dev, owned)
+                   dev, owned, timeout_s)
     return _world
 
 
@@ -138,32 +181,50 @@ def local():
 
 # ------------------------------------------------------------------ batches
 
+def check_divides(batch_size: int, n: int) -> None:
+    """Raises unless `n` ranks divide a global batch of `batch_size` rows,
+    naming the world sizes that would divide it."""
+    if batch_size % n:
+        fits = [k for k in range(1, batch_size + 1) if batch_size % k == 0]
+        raise ValueError(
+            f"data parallel: the global batch of {batch_size} rows does not "
+            f"divide over {n} ranks; launch a world of one of {fits} ranks "
+            "or pick a batch that it divides")
+
+
 def make_mesh_for_batch(batch_size: int, shape: str = "dp") -> World:
     """The world that shards a global batch of `batch_size` rows
     (mesh.py:45-61). JAX leaves the devices that do not divide the batch
     idle; a launcher's ranks cannot idle, so a batch that the world does
     not divide is refused, naming the world sizes that would divide it.
-    The sequence-parallel mesh ('dp,sp') is refused by name."""
-    if shape != "dp":
-        raise NotImplementedError(
-            f"the sequence-parallel mesh (mesh_shape {shape!r}) is not "
-            "ported yet (ROADMAP Queue 1 item 14: parallel/sp.py and "
-            "ops/ms_deform_attn_sp.py)")
+    With shape 'dp,sp' (or 'dp_sp') a world of W >= 4 ranks, W even, is
+    split into dp x sp with sp = 2 (mesh.py:28-42, once: a world split
+    already stays so); a smaller or odd world is plain dp, as in JAX, and
+    so is any world with shape 'dp'."""
     W = _world.size
-    if batch_size % W:
-        fits = [n for n in range(1, batch_size + 1) if batch_size % n == 0]
-        raise ValueError(
-            f"data parallel: the global batch of {batch_size} rows does not "
-            f"divide over {W} ranks; launch a world of one of {fits} ranks "
-            "or pick a batch that it divides")
+    check_divides(batch_size, W)
+    if shape == "dp" or W < 4:
+        return _world
+    if shape not in ("dp,sp", "dp_sp"):
+        raise ValueError(f"unknown mesh shape {shape}")
+    if W % 2 == 0 and _world.sp_size == 1:
+        _world.split_sp(2)
     return _world
+
+
+def loss_scale() -> float:
+    """The factor of each rank's loss before its backward: 1/sp, since both
+    ranks of an sp group hold their row block's whole loss (1 unsplit; see
+    gvl_tpu_torch/parallel/sp.py)."""
+    return 1.0 / _world.sp_size
 
 
 def row_block(n_rows: int) -> slice:
     """This rank's rows of a global batch of `n_rows` (mesh.py:64-85,
-    P('dp') over the batch axis)."""
-    per = n_rows // _world.size
-    return slice(_world.rank * per, (_world.rank + 1) * per)
+    P('dp') over the batch axis): by its dp index, so both ranks of an sp
+    group take the same rows."""
+    per = n_rows // _world.dp_size
+    return slice(_world.dp_rank * per, (_world.dp_rank + 1) * per)
 
 
 def shard_batch(batch: Dict, n_rows: Optional[int] = None) -> Dict:
@@ -171,8 +232,8 @@ def shard_batch(batch: Dict, n_rows: Optional[int] = None) -> Dict:
     its first axis and every list sliced, by `row_block` of `n_rows` (the
     batch's first array's length when None). A list shorter than the batch
     (the real keys of a padded eval batch) keeps its entries in the block.
-    The batch itself at W = 1."""
-    if _world.size == 1:
+    The batch itself without dp ranks to share it."""
+    if _world.dp_size == 1:
         return batch
     if n_rows is None:
         n_rows = next(len(v) for v in batch.values()
@@ -185,31 +246,36 @@ def shard_batch(batch: Dict, n_rows: Optional[int] = None) -> Dict:
 
 # -------------------------------------------------------------- collectives
 
-def _all_reduce(x: torch.Tensor) -> torch.Tensor:
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_world.group)
+def _all_reduce(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    dist.all_reduce(x, op=dist.ReduceOp.SUM,
+                    group=_world.group if group is None else group)
     return x
 
 
 def global_sum(x):
-    """The sum over ranks of `x`, a count or a sum over this rank's rows (a
-    tensor without gradient, or a number): every denominator that counts
-    over the batch goes through it. The identity without a group."""
+    """The sum over the dp ranks of `x`, a count or a sum over this rank's
+    rows (a tensor without gradient, or a number): every denominator that
+    counts over the batch goes through it, each row counted once (the sp
+    ranks of a row block hold the same rows). The identity without a
+    group."""
     if _world.group is None:
         return x
     if isinstance(x, torch.Tensor):
-        return _all_reduce(x.detach().clone())
+        return _all_reduce(x.detach().clone(), _world.dp_group)
     return type(x)(_all_reduce(torch.tensor(
-        float(x), dtype=torch.float64, device=_world.device)).item())
+        float(x), dtype=torch.float64, device=_world.device),
+        _world.dp_group).item())
 
 
 def sum_shares(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The global values of a dict of 0-d loss shares, in one all_reduce:
-    rank 0 logs JAX's global numbers. The dict itself without a group."""
+    """The global values of a dict of 0-d loss shares, in one all_reduce
+    over the dp ranks: rank 0 logs JAX's global numbers. The dict itself
+    without a group."""
     if _world.group is None or not losses:
         return losses
     keys = list(losses)
     flat = _all_reduce(torch.stack([losses[k].detach().float()
-                                    for k in keys]))
+                                    for k in keys]), _world.dp_group)
     return dict(zip(keys, flat.unbind()))
 
 
@@ -231,20 +297,60 @@ class _GatherRows(torch.autograd.Function):
         return grad[ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n], None, None, None
 
 
+def _gather(x: torch.Tensor, group: Any, rank: int, size: int
+            ) -> torch.Tensor:
+    if x.requires_grad:
+        return _GatherRows.apply(x, group, rank, size)
+    src = x.to(torch.uint8) if x.dtype == torch.bool else x
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src.contiguous(), group=group)
+    out = torch.cat(parts)
+    return out.bool() if x.dtype == torch.bool else out
+
+
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's `x` (the same shape on each) concatenated on the first
-    axis in rank order: the global batch's rows, JAX's row order. Under
-    autograd the gradient reaching each rank's rows is the sum of every
+    """Every dp rank's `x` (the same shape on each) concatenated on the
+    first axis in dp order: the global batch's rows, JAX's row order. Under
+    autograd the gradient reaching each rank's rows is the sum of every dp
     rank's loss gradient there. `x` itself without a group."""
     if _world.group is None:
         return x
+    return _gather(x, _world.dp_group, _world.dp_rank, _world.dp_size)
+
+
+def gather_sp(x: torch.Tensor) -> torch.Tensor:
+    """Every sp rank's `x` (the same shape on each) stacked on a new first
+    axis in sp order; under autograd the gradient reaching each rank's `x`
+    is the sum over the sp ranks of the gradient at its slot (the
+    all-gather's adjoint). x[None] without an sp group."""
+    if _world.sp_group is None:
+        return x[None]
+    return _gather(x[None], _world.sp_group, _world.sp_rank, _world.sp_size)
+
+
+class _SumSp(torch.autograd.Function):
+    """all_reduce(SUM) over the sp group; backward: the same sum of the
+    gradients (each rank's replicated consumers hold their share of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.contiguous().clone(), ctx.group), None
+
+
+def sum_sp(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the sp ranks of `x` (the same shape on each), on every
+    one of them; its gradient is summed over them likewise. `x` itself
+    without an sp group."""
+    if _world.sp_group is None:
+        return x
     if x.requires_grad:
-        return _GatherRows.apply(x, _world.group, _world.rank, _world.size)
-    src = x.to(torch.uint8) if x.dtype == torch.bool else x
-    parts = [torch.empty_like(src) for _ in range(_world.size)]
-    dist.all_gather(parts, src.contiguous(), group=_world.group)
-    out = torch.cat(parts)
-    return out.bool() if x.dtype == torch.bool else out
+        return _SumSp.apply(x, _world.sp_group)
+    return _all_reduce(x.contiguous().clone(), _world.sp_group)
 
 
 def sum_gradients(params: Iterable[torch.Tensor],
@@ -283,13 +389,16 @@ def sum_gradients(params: Iterable[torch.Tensor],
         p.grad = g if has > 0 else None
 
 
-def all_gather_object(obj: Any) -> List[Any]:
+def all_gather_object(obj: Any, dp_only: bool = False) -> List[Any]:
     """Every rank's picklable `obj`, in rank order ([obj] without a
-    group)."""
+    group); with `dp_only`, every dp rank's, in dp order (each row block
+    once)."""
     if _world.group is None:
         return [obj]
-    out: List[Any] = [None] * _world.size
-    dist.all_gather_object(out, obj, group=_world.group)
+    group, n = ((_world.dp_group, _world.dp_size) if dp_only
+                else (_world.group, _world.size))
+    out: List[Any] = [None] * n
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

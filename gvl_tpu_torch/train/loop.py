@@ -56,9 +56,17 @@ own card (cuda:LOCAL_RANK; gloo ranks on the CPU under `--device cpu`).
   (`replicate_tree`). The run id and seed, which `random_seed` and
   `debug` draw at parse time, are rank 0's.
 
+Sequence parallelism (mesh_shape 'dp,sp', loop.py:221-229, 367-386): at
+W >= 4 ranks, W even, the world is split dp x sp with sp = 2
+(`make_mesh_for_batch`) and, with sp_msda, the sp context is set with
+sp_halo_frac for the run and cleared at its end
+(gvl_tpu_torch/parallel/sp.py). Validation runs under the eval world's
+context, at the default halo fraction as JAX's does, when the dp size
+divides eval_batch_size; otherwise rank 0 evaluates alone without one. A
+smaller or odd world is plain dp, as in JAX.
+
 Refused by name (NotImplementedError) before any work starts
-(`check_config`): the sequence-parallel mesh (ROADMAP Queue 1 item 14),
-and every option the eval side refuses
+(`check_config`): every option the eval side refuses
 (gvl_tpu_torch.eval_cli.check_config).
 """
 
@@ -75,6 +83,7 @@ import torch
 
 from gvl_tpu_torch import parallel as dp
 from gvl_tpu_torch.config import Config
+from gvl_tpu_torch.parallel.sp import set_sp_context, sp_context
 
 TASKS = ("dvc", "pc", "grounding")
 
@@ -107,23 +116,12 @@ def ss_prob_at_epoch(cfg: Config, epoch: int) -> float:
     return 0.0
 
 
-# (option set, what it asks for, where it is planned)
-_REFUSED = (
-    (lambda c: c.mesh_shape != "dp", "the sequence-parallel mesh "
-     "(mesh_shape != 'dp')", "ROADMAP Queue 1 item 14: parallel/sp.py and "
-     "ops/ms_deform_attn_sp.py"),
-)
-
-
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError naming the first option of `cfg` that the
-    port's training does not run yet: those of `_REFUSED`, then the eval
-    side's (gvl_tpu_torch.eval_cli.check_config). Builds nothing."""
+    port's training does not run yet: the eval side's
+    (gvl_tpu_torch.eval_cli.check_config); training itself refuses none.
+    Builds nothing."""
     from gvl_tpu_torch import eval_cli
-    for refused, what, where in _REFUSED:
-        if refused(cfg):
-            raise NotImplementedError(
-                f"train: {what} is not ported yet ({where})")
     eval_cli.check_config(cfg)
 
 
@@ -221,7 +219,7 @@ def train(cfg: Config) -> str:
         _resume_opts(cfg)
     check_config(cfg)
     dp.init_distributed(cfg.device)
-    dp.make_mesh_for_batch(cfg.batch_size, cfg.mesh_shape)
+    world = dp.make_mesh_for_batch(cfg.batch_size, cfg.mesh_shape)
     # the draws of parse time (random_seed, debug's run id) are rank 0's
     cfg.id, cfg.seed = dp.broadcast_object((cfg.id, cfg.seed))
     assert cfg.num_queries >= cfg.effective_max_gt_events, (
@@ -241,7 +239,12 @@ def train(cfg: Config) -> str:
     writer = MetricsWriter(folder)
     if dp.is_writer():
         cfg.dump_json(os.path.join(folder, "opts.json"))
-    logger.info(f"run dir: {folder}; device {dev}; {dp.world()}")
+    logger.info(f"run dir: {folder}; device {dev}; {world}")
+    if cfg.get("sp_msda", True):
+        ctx = set_sp_context(world, halo_frac=float(cfg.sp_halo_frac))
+        if ctx is not None:
+            logger.info(f"sp-MSDA enabled: sp={ctx.sp} "
+                        f"halo_frac={ctx.halo_frac}")
 
     rng_data = np.random.RandomState(cfg.seed)
     train_ds = DenseVideoDataset(cfg.train_caption_file,
@@ -333,17 +336,19 @@ def train(cfg: Config) -> str:
     def save(name: str, epoch: int) -> None:
         ckpt.save(name, model, text, epoch, state=state)
 
-    # evaluate on every rank when the world divides the eval batch
-    # (loop.py:248-253), else on rank 0 alone
-    eval_dp = cfg.eval_batch_size % dp.size() == 0
+    # evaluate on every rank when the dp size divides the eval batch
+    # (loop.py:248-253), under the world's sp context at its default halo
+    # (loop.py:376-386); else on rank 0 alone, without one
+    eval_dp = cfg.eval_batch_size % world.dp_size == 0
 
     def validate(epoch: int) -> Dict[str, float]:
         if eval_dp:
-            return run_validation(cfg, runner, val_batcher, folder, epoch,
-                                  logger, weights=weights_val)
+            with sp_context(world):
+                return run_validation(cfg, runner, val_batcher, folder,
+                                      epoch, logger, weights=weights_val)
         scores = None
         if dp.is_writer():
-            with dp.local():
+            with dp.local(), sp_context(None):
                 scores = run_validation(cfg, runner, val_batcher, folder,
                                         epoch, logger, weights=weights_val)
         dp.barrier()
@@ -424,6 +429,8 @@ def train(cfg: Config) -> str:
             with open(os.path.join(folder, "info.json"), "w") as f:
                 json.dump(info, f, indent=1, default=str)
 
+    if cfg.get("sp_msda", True):
+        set_sp_context(None)    # the context does not outlive the run
     logger.info("training finished")
     return folder
 

@@ -172,7 +172,7 @@ def rl_reward_callback(scorers: Dict, score_weights: Dict[str, float],
         corpus = None
         if sent_ratio > 0 and gather:
             corpus = [refs for part in all_gather_object(
-                caption_refs(gt_f[idx])) for refs in part]
+                caption_refs(gt_f[idx]), dp_only=True) for refs in part]
         if sent_ratio > 0 and len(idx):
             r = get_caption_reward(scorers, greedy_f[idx], gt_f[idx],
                                    gen_f[idx], score_weights, corpus=corpus)

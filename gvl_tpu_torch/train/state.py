@@ -29,9 +29,11 @@ gradient, and `sum_gradients` sums the model's and the trained text
 encoder's gradients over ranks in one flat all_reduce before the clip, so
 that the clip and the optimizers act on the global gradient as JAX's do;
 the returned losses are the global sums of the shares (`sum_shares`). Each
-rank folds its rank into the step's seed (`rank_seed`), so that the ranks
-draw different masks for their rows: JAX's one key over the global batch
-cannot be matched by any split.
+rank folds its dp index into the step's seed (`rank_seed`), so that the row
+blocks draw different masks: JAX's one key over the global batch cannot be
+matched by any split. On a world split dp x sp
+(gvl_tpu_torch/parallel/sp.py) each rank backpropagates 1/sp of its row
+block's loss.
 
 Under caption_bf16 (train_caption_bf16, state.py:252-265) the caption head's
 weights read as bf16 inside autograd and its query and memory are cast, for
@@ -250,8 +252,10 @@ def fold_seed(seed: int, k: int) -> int:
 
 def rank_seed(seed: int) -> int:
     """This rank's seed of a step seeded `seed`: `seed` in a world of one,
-    else `seed` folded with the rank, so that no two ranks draw alike."""
-    return seed if dp.size() == 1 else fold_seed(seed, dp.rank())
+    else `seed` folded with the rank's dp index, so that no two row blocks
+    draw alike and the sp ranks of one block draw alike."""
+    w = dp.world()
+    return seed if w.size == 1 else fold_seed(seed, w.dp_rank)
 
 
 def gather_matched(x: torch.Tensor, match_q: torch.Tensor) -> torch.Tensor:
@@ -632,7 +636,9 @@ def make_train_step(model: GVLModel, cfg: Any, statics: StepStatics,
             if "contrastive_loss" in weights else 1.0
         losses = forward_losses(batch, cl_gate, seed, ss_prob)
         total = sum(losses[k] * weights[k] for k in losses if k in weights)
-        total.backward()
+        # under sequence parallelism each sp rank holds the row block's
+        # whole loss: 1/sp of it each (parallel/sp.py, the gradient rule)
+        (total * dp.loss_scale()).backward()
         tick("backward")
         # the global gradient: every rank's share summed, never averaged
         dp.sum_gradients(list(model.parameters()) + (

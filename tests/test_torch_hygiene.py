@@ -282,8 +282,10 @@ def test_without_a_launcher_the_world_is_one_rank_without_a_group():
     batch = {"a": [1, 2]}
     assert dp.shard_batch(batch) is batch
     assert dp.make_mesh_for_batch(3) is w
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        dp.make_mesh_for_batch(4, "dp,sp")
+    # a world of one asked for the sequence-parallel mesh is plain dp, as
+    # JAX's make_mesh below 4 devices
+    w = dp.make_mesh_for_batch(4, "dp,sp")
+    assert (w.dp_size, w.sp_size, w.sp_group) == (1, 1, None)
 
 
 def test_published_file_modules_import_without_jax(report):

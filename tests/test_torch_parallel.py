@@ -33,8 +33,9 @@ The cases and their tolerances:
 - train_cli, 1 debug epoch of 3 steps and a validation: info.json's
   histories and model-last within the bounds stated in the test, and rank
   1 writes no file;
-- a batch that 2 ranks do not divide and the sequence-parallel mesh are
-  refused by name, before any run dir exists.
+- a batch that 2 ranks do not divide is refused by name, before any run
+  dir exists; the sequence-parallel mesh on 2 ranks is plain dp, as in
+  JAX below 4 devices, and trains.
 """
 
 import json
@@ -218,15 +219,21 @@ def test_a_batch_the_world_does_not_divide_is_refused_by_name(world):
             assert kind == "ValueError", ref[case]
             assert "batch of 3 rows does not divide over 2 ranks" in msg
             assert "[1, 3]" in msg
-        assert res["refusals"]["run_dirs"] == [False, False]
+        assert res["refusals"]["run_dirs"][0] is False
 
 
 def test_sequence_parallel_mesh_is_refused_by_name(world):
+    """Once refused, the sequence-parallel mesh now runs; on 2 ranks, as
+    JAX's make_mesh below 4 devices, it is plain dp: the world stays 2 dp
+    ranks of sp 1 and the train loop takes it (0 epochs: its run dir made,
+    the same on both ranks)."""
     for res in world["ranks"]:
-        for case in ("dp_sp", "train_dp_sp"):
-            kind, msg = res["refusals"][case]
-            assert kind == "NotImplementedError", res["refusals"][case]
-            assert "sequence-parallel" in msg and "item 14" in msg
+        ref = res["refusals"]
+        assert ref["dp_sp"] == (2, 1), ref["dp_sp"]
+        assert isinstance(ref["train_dp_sp"], str), ref["train_dp_sp"]
+        assert ref["train_dp_sp"] == world["ranks"][0]["refusals"][
+            "train_dp_sp"]
+        assert ref["run_dirs"][1] is True
 
 
 # --------------------------------------------------------------- the step

@@ -573,11 +573,12 @@ REFUSED = {
     "gpt2": (dict(caption_decoder_type="gpt2",
                   load_pretrained_language_model_from_config=""),
              "pretrained GPT-2.*'gpt2'.*refs/main", FileNotFoundError),
-    "sp_mesh": (dict(mesh_shape="dp,sp"), "sequence-parallel.*item 14"),
-    # once refused, now trained (gvl_tpu_torch.parallel): several gpu_id,
-    # which neither package reads, and eval_data_parallel, an eval option
-    # the train loop does not read (it evaluates over its ranks whenever
-    # they divide eval_batch_size)
+    # once refused, now trained (gvl_tpu_torch.parallel): the sequence-
+    # parallel mesh, plain dp in a world of one as in JAX below 4 devices;
+    # several gpu_id, which neither package reads, and eval_data_parallel,
+    # an eval option the train loop does not read (it evaluates over its
+    # ranks whenever they divide eval_batch_size)
+    "sp_mesh": (dict(mesh_shape="dp,sp"), None),
     "several_devices": (dict(gpu_id=["0", "1"]), None),
     "eval_side": (dict(eval_data_parallel=True), None),
 }

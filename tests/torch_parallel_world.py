@@ -1,7 +1,10 @@
 """The cases of tests/test_torch_parallel.py, run by each rank of a gloo
 world of 2 processes (`start_world`) and by the test process itself as a
-world of one (the one-process reference). This module imports no JAX:
-the ranks are started with torch.multiprocessing's spawn and import it.
+world of one (the one-process reference); and those of
+tests/test_torch_sp.py, run by each rank of a gloo world of 4 processes
+split 2 dp x 2 sp (`start_world(root, sp=True)`, `run_sp_rank`). This
+module imports no JAX: the ranks are started with torch.multiprocessing's
+spawn and import it.
 
 `start_world(root)` starts the ranks, each with a process group whose
 collectives fail after RANK_TIMEOUT_S seconds; `join_world` joins them
@@ -26,6 +29,14 @@ import numpy as np
 import torch
 
 RANKS = 2
+SP_RANKS = 4                # 2 dp x 2 sp
+# the sp step cases' halo: at 0.5 a halo is its neighbour's whole chunk, so
+# no tap is clamped and the sp step is the one-process step
+SP_HALO = 0.5
+# the trunk case's halo fractions: the whole neighbour chunk, and the
+# default, whose halos on the 24-frame levels (3, 2, 2 rows) clamp the
+# initial offsets' taps
+SP_TRUNK_HALOS = (0.5, 0.125)
 RANK_TIMEOUT_S = 60
 JOIN_TIMEOUT_S = 300
 N_STEPS = 5
@@ -37,11 +48,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_world(root: pathlib.Path):
-    """`run_rank` in RANKS spawned processes; returns their context."""
+def start_world(root: pathlib.Path, sp: bool = False):
+    """`run_rank` in RANKS spawned processes (with sp, `run_sp_rank` in
+    SP_RANKS); returns their context."""
     import torch.multiprocessing as mp
-    return mp.start_processes(run_rank, args=(str(root), free_port()),
-                              nprocs=RANKS, join=False, start_method="spawn")
+    return mp.start_processes(run_sp_rank if sp else run_rank,
+                              args=(str(root), free_port()),
+                              nprocs=SP_RANKS if sp else RANKS, join=False,
+                              start_method="spawn")
 
 
 def join_world(ctx) -> None:
@@ -64,13 +78,94 @@ def kill_world(ctx) -> None:
             p.join(5)
 
 
+def _join(rank: int, size: int, port: int) -> None:
+    from gvl_tpu_torch import parallel as dp
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dp.init_distributed("cpu", timeout_s=RANK_TIMEOUT_S)
+
+
+def run_sp_rank(rank: int, root: str, port: int) -> None:
+    """Rank `rank` of the 2 dp x 2 sp world: the mesh, train_cli with
+    mesh_shape 'dp,sp' (and its validation), then, once the test process
+    has written them (sp_step_inputs.pt), the trunk under an sp context
+    and the contrastive steps with and without remat, and without a
+    context; its results go to `sp_rank<r>.pt`."""
+    from gvl_tpu_torch import parallel as dp
+    torch.set_num_threads(1)
+    _join(rank, SP_RANKS, port)
+    root = pathlib.Path(root)
+    try:
+        inputs = torch.load(root / "sp_inputs.pt", weights_only=False)
+        out = dict(mesh=sp_mesh_case())
+        with no_tensorboard():
+            out["train"] = train_run(inputs["train"], root / f"sp{rank}")
+        steps = wait_for(root / "sp_step_inputs.pt")
+        out["trunk"] = sp_trunk_case(steps["contrastive"])
+        out["contrastive"] = contrastive_steps(steps["contrastive"],
+                                               sp_halo=SP_HALO)
+        out["remat"] = contrastive_steps(steps["contrastive"], n_steps=1,
+                                         sp_halo=SP_HALO, remat=True)
+        # the split world without a context (sp_msda off): both sp ranks
+        # run the whole step on their rows
+        out["no_context"] = contrastive_steps(steps["contrastive"],
+                                              n_steps=1)
+        torch.save(out, root / f"sp_rank{rank}.pt")
+    finally:
+        dp.shutdown()
+
+
+def sp_mesh_case() -> dict:
+    """The world of 4 asked for 'dp' (plain dp), then for 'dp,sp' (2 x 2):
+    each rank's indices, its rows of 8, and its rank through each
+    collective: gather_rows (the dp group), gather_sp and sum_sp (the sp
+    group), global_sum of 1 (rows counted once)."""
+    from gvl_tpu_torch import parallel as dp
+    plain = dp.make_mesh_for_batch(4)
+    out = dict(plain=(plain.dp_size, plain.sp_size))
+    w = dp.make_mesh_for_batch(4, "dp,sp")
+    x = torch.tensor([float(w.rank)])
+    out.update(indices=(w.dp_rank, w.dp_size, w.sp_rank, w.sp_size),
+               rows=dp.row_block(8), dp_gather=dp.gather_rows(x),
+               sp_gather=dp.gather_sp(x), sp_sum=dp.sum_sp(x),
+               count=dp.global_sum(1), again=dp.make_mesh_for_batch(
+                   8, "dp,sp") is w, repr=repr(w))
+    return out
+
+
+def sp_trunk_case(inp: dict) -> dict:
+    """The contrastive world's initial trunk on this rank's dp rows under
+    an sp context with its clamp monitor on: (logits, boxes, memory) and
+    the taps the halo clamp moved (summed over the world) at halo
+    fractions 0.5 and the default 0.125 (tests/test_msda_sp.py:129-165,
+    206-241)."""
+    from gvl_tpu_torch import parallel as dp
+    from gvl_tpu_torch.config import Config
+    from gvl_tpu_torch.models.gvl import build_model
+    from gvl_tpu_torch.parallel.sp import halo_clamped, sp_context
+    from gvl_tpu_torch.models.text_encoder import load_text_encoder
+    cfg = Config().update(inp["cfg"])
+    port = build_model(cfg, text_hidden_dim=load_text_encoder(
+        cfg, device="cpu").hidden_size, device="cpu")
+    port.load_state_dict(inp["port0"], strict=True)
+    b = dp.shard_batch(dict(inp["batch"]))
+    args = [torch.as_tensor(b[k]) for k in ("video_feats", "video_mask",
+                                            "duration")]
+    out = {}
+    with torch.no_grad():
+        for h in SP_TRUNK_HALOS:
+            with sp_context(dp.world(), halo_frac=h, clamp_monitor=True):
+                o = port(*args)
+                out[h] = (o["pred_logits"], o["pred_boxes"], o["memory"],
+                          halo_clamped(port))
+    return out
+
+
 def run_rank(rank: int, root: str, port: int) -> None:
     from gvl_tpu_torch import parallel as dp
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(RANKS), LOCAL_RANK="0",
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     torch.set_num_threads(2)
+    _join(rank, RANKS, port)
     root = pathlib.Path(root)
-    dp.init_distributed("cpu", timeout_s=RANK_TIMEOUT_S)
     try:
         inputs = torch.load(root / "inputs.pt", weights_only=False)
         out = dict(gather=gather_case(), sum_gradients=sum_gradients_case(),
@@ -97,20 +192,27 @@ def wait_for(path: pathlib.Path) -> dict:
     return torch.load(path, weights_only=False)
 
 
-def cli_cases(inputs: dict, work: pathlib.Path) -> dict:
-    """train_cli and eval_cli, which a world of one runs too (the
-    reference). The train loop's metrics stream writes no tensorboard file
-    here: importing that writer pulls in TensorFlow where it is installed
-    (~15 s, which every rank would wait for on rank 0)."""
+@contextlib.contextmanager
+def no_tensorboard():
+    """The train loop's metrics stream writes no tensorboard file inside
+    the block: importing that writer pulls in TensorFlow where it is
+    installed (~15 s, which every rank would wait for on rank 0)."""
     blocked = "torch.utils.tensorboard" not in sys.modules
     if blocked:
         sys.modules["torch.utils.tensorboard"] = None     # ImportError
     try:
-        return dict(train=train_run(inputs["train"], work),
-                    eval=eval_run(inputs["eval"], work))
+        yield
     finally:
         if blocked:
             del sys.modules["torch.utils.tensorboard"]
+
+
+def cli_cases(inputs: dict, work: pathlib.Path) -> dict:
+    """train_cli and eval_cli, which a world of one runs too (the
+    reference)."""
+    with no_tensorboard():
+        return dict(train=train_run(inputs["train"], work),
+                    eval=eval_run(inputs["eval"], work))
 
 
 def step_cases(steps: dict) -> dict:
@@ -171,26 +273,31 @@ def blocks_case() -> dict:
 
 
 def refusal_case(inputs: dict) -> dict:
-    """The messages of what a world of 2 refuses: a batch of 3, directly
-    and through the train loop (before any run dir), and the
-    sequence-parallel mesh."""
+    """The messages of what a world of 2 refuses (a batch of 3, directly
+    and through the train loop, before any run dir), and what it makes of
+    the sequence-parallel mesh, which JAX runs as plain dp below 4
+    devices: the world's (dp size, sp size) and the train loop's run dir
+    (its base name; 0 epochs: the loop sets up and returns)."""
     from gvl_tpu_torch import parallel as dp
     from gvl_tpu_torch.config import Config
     from gvl_tpu_torch.train import loop
     out = {}
     save_dir = inputs["train"]["cfg"]["save_dir"]
+
+    def sizes(w):
+        return (w.dp_size, w.sp_size)
     for name, call in (
             ("batch_3", lambda: dp.make_mesh_for_batch(3)),
-            ("dp_sp", lambda: dp.make_mesh_for_batch(4, "dp,sp")),
+            ("dp_sp", lambda: sizes(dp.make_mesh_for_batch(4, "dp,sp"))),
             ("train_batch_3", lambda: loop.train(Config().update(dict(
                 inputs["train"]["cfg"], batch_size=3, device="cpu",
                 save_dir=save_dir + "_b3")))),
-            ("train_dp_sp", lambda: loop.train(Config().update(dict(
-                inputs["train"]["cfg"], mesh_shape="dp,sp", device="cpu",
-                save_dir=save_dir + "_sp"))))):
+            ("train_dp_sp", lambda: os.path.basename(loop.train(
+                Config().update(dict(inputs["train"]["cfg"], epoch=0,
+                                     mesh_shape="dp,sp", device="cpu",
+                                     save_dir=save_dir + "_sp")))))):
         try:
-            call()
-            out[name] = None
+            out[name] = call()
         except Exception as e:                  # noqa: BLE001 (recorded)
             out[name] = (type(e).__name__, str(e))
     out["run_dirs"] = [os.path.exists(save_dir + s) for s in ("_b3", "_sp")]
@@ -222,17 +329,25 @@ def _weights(cfg):
 
 
 def contrastive_steps(inp: dict, n_steps: int = N_STEPS,
-                      caption_cost: bool = False) -> dict:
+                      caption_cost: bool = False, sp_halo: float = None,
+                      remat: bool = False) -> dict:
     """`n_steps` train steps of the contrastive world's model from its
     initial weights on this rank's rows of `inp`'s batch: the logged
-    (global) losses of each step and the first step's gradients."""
+    (global) losses of each step, the first step's gradients and the
+    weights after the steps. With `sp_halo`, under an sp context of that
+    halo fraction with its clamp monitor on: also the taps the halo clamp
+    moved in each step (summed over the world). With `remat`, every trunk
+    layer checkpointed (remat_trunk)."""
+    import contextlib
+
     from gvl_tpu_torch import parallel as dp
     from gvl_tpu_torch.config import Config
     from gvl_tpu_torch.models.gvl import build_model
     from gvl_tpu_torch.models.text import BertSelfAttention
     from gvl_tpu_torch.models.text_encoder import load_text_encoder
+    from gvl_tpu_torch.parallel.sp import halo_clamped, sp_context
     from gvl_tpu_torch.train import state as pstate
-    cfg = Config().update(inp["cfg"])
+    cfg = Config().update(dict(inp["cfg"], remat_trunk=remat))
     text = load_text_encoder(cfg, device="cpu")
     text.load_state_dict(inp["text"], strict=True)
     port = build_model(cfg, text_hidden_dim=text.hidden_size, device="cpu")
@@ -245,14 +360,21 @@ def contrastive_steps(inp: dict, n_steps: int = N_STEPS,
     step = pstate.make_train_step(port, cfg, st, text)
     batch = pstate.add_text_inputs(dict(inp["batch"]), text, cfg)
     batch = dp.shard_batch(batch)
-    losses, grads = [], None
-    for i in range(n_steps):
-        losses.append({k: float(v) for k, v in
-                       step(state, batch, _weights(cfg)).items()})
-        if i == 0:
-            grads = {n: None if p.grad is None else p.grad.clone()
-                     for n, p in port.named_parameters()}
-    return dict(losses=losses, grads=grads, rows=len(batch["video_feats"]))
+    losses, grads, clamped = [], None, []
+    within = contextlib.nullcontext() if sp_halo is None else sp_context(
+        dp.world(), halo_frac=sp_halo, clamp_monitor=True)
+    with within:
+        for i in range(n_steps):
+            losses.append({k: float(v) for k, v in
+                           step(state, batch, _weights(cfg)).items()})
+            if sp_halo is not None:
+                clamped.append(halo_clamped(port))
+            if i == 0:
+                grads = {n: None if p.grad is None else p.grad.clone()
+                         for n, p in port.named_parameters()}
+    return dict(losses=losses, grads=grads, rows=len(batch["video_feats"]),
+                clamped=clamped, weights={k: v.clone() for k, v in
+                                          port.state_dict().items()})
 
 
 def _second_best(z, temperature, generator=None):

@@ -30,6 +30,7 @@ QUEUES = (
       "value"),
      ("torch_model_long_world", "tests.test_torch_model",
       "compute_long_world", "value"),
+     ("torch_sp_world", "tests.test_torch_sp", "compute_sp", "root"),
      ("torch_tal", "tests.test_torch_tal", "write_tal", "root"),
      ("torch_train_loop_jax_run", "tests.test_torch_train_loop",
       "compute_jax_runs", "root")),
